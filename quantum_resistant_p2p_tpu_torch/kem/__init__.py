@@ -1,0 +1,1 @@
+"""Key-encapsulation mechanisms: batched ML-KEM (FIPS 203)."""
