@@ -7,7 +7,8 @@ one NVIDIA GPU.
 Phases, each of which fails the run (exit 1) if anything is wrong:
 
 1. build    compile csrc/sponge.cu and csrc/mlkem.cu with nvcc (sm_90a),
-            both at once, and print the ptxas register/spill summary;
+            both at once, and print the ptxas register/spill summary and
+            the SASS of K1's Keccak round loop;
 2. kernels  run every kernel and its plain PyTorch version on the GPU at
             the shapes of the batch-4096 ML-KEM-768 path, require bitwise
             equality, and time both with CUDA events;
@@ -20,11 +21,13 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
 5. flagship entry(): batched ML-KEM-768 encaps at B = 4096, checked
             against the CPU path on its first rows, timed with CUDA events;
 6. profile  torch.profiler over five flagship batches: device time per
-            kernel and the device busy share (after the counts are read).
+            kernel, and the device busy share of that window from its
+            trace (after the counts are read).
 
 Every kernel wrapper counts its launches.  The counts are set to 0 just
-before phase 4 and read just after phase 5; every kernel must have run
-there.  The last three lines of output are the card's name and power limit
+before phase 4 and read just after it, then again for phase 5: every
+kernel must have run in phase 4, and every kernel that encaps runs in
+phase 5.  The last three lines of output are the card's name and power limit
 (nvidia-smi), one JSON object with key "kernels", and the result line
 {"ok": true, "device": {...}}.  Without a GPU, or without the package
 beside this file, the script prints no result and exits non-zero.
@@ -39,6 +42,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -49,14 +53,22 @@ SERVE_CLIENTS = 1024
 HBM_BYTES_PER_S = 3.35e12
 #: Hopper SM: 4 partitions x 16 INT32 lanes
 INT32_LANES_PER_SM = 64
-#: one Keccak-f[1600]: 24 rounds x ~155 64-bit logical ops (theta 55,
-#: rho-pi 24, chi 75, iota 1), each two 32-bit instructions
-KECCAK_F_INT32_OPS = 24 * 155 * 2
+#: one Keccak round in 32-bit instructions of sm_90, where a 3-input logic
+#: op is one LOP3 and a 64-bit rotate two funnel shifts: theta's column
+#: parities 5 x 2 halves x 2 LOP3, rotl(C, 1) 5 x 2 SHF, A ^= C[x-1] ^
+#: rotl(C[x+1], 1) 25 x 2 LOP3; rho 24 rotates x 2 SHF; chi 25 x 2 LOP3
+#: (b ^ (~b1 & b2)); iota 2.  The build phase prints the SASS round loop
+#: beside it.
+KECCAK_ROUND_OPS = 20 + 10 + 50 + 48 + 50 + 2
+KECCAK_F_OPS = 24 * KECCAK_ROUND_OPS
 #: one NTT butterfly as written in csrc/mlkem.cuh: mul, %, +, %, -, +, %
 BUTTERFLY_OPS = 7
 NTT_OPS = 7 * 128 * BUTTERFLY_OPS
 NTT_INV_OPS = NTT_OPS + 2 * 256  # the final scaling by 3303
 SRC = "quantum_resistant_p2p_tpu"
+#: the kernels that one encaps launches (its forward NTTs are fused in K3)
+ENCAPS_KERNELS = ("keccak_sponge", "mlkem_sample_ntt", "mlkem_prf_cbd", "mlkem_prf_cbd_ntt",
+                  "mlkem_ntt_inv")
 
 
 class PhaseFailed(RuntimeError):
@@ -105,6 +117,53 @@ def phase_build(cuda) -> dict:
     return ptxas
 
 
+def keccak_round_sass(cuda) -> dict:
+    """SASS of the built K1: for each sponge kernel, the instruction count
+    of the innermost loops of 100 to 400 instructions (the round loop of
+    each inlined keccak_f1600, kept rolled) and their opcodes, to hold
+    KECCAK_ROUND_OPS against what the card runs."""
+    exe = Path(cuda.nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(exe), "-sass", str(cuda.library_path("sponge"))], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    out = {}
+    for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=Function : |\Z)", text, flags=re.S):
+        labels, insns = {}, []  # label -> address of the instruction after it; (address, text)
+        for line in body.splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            ins = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if lab:
+                labels[lab.group(1)] = None
+            elif ins:
+                insns.append((int(ins.group(1), 16), ins.group(2)))
+                labels.update({k: insns[-1][0] for k, v in labels.items() if v is None})
+        index = {addr: i for i, (addr, _) in enumerate(insns)}
+        back = []  # (first, last) instruction index of every backward branch's loop
+        for last, (addr, ins) in enumerate(insns):
+            target = re.search(r"\bBRA\b.*?(0x[0-9a-f]+|\.L_x_\d+)", ins)
+            if target:
+                tag = target.group(1)
+                to = labels.get(tag) if tag.startswith(".") else int(tag, 16)
+                if to is not None and to <= addr and to in index:
+                    back.append((index[to], last))
+        loops = []
+        for first, last in back:
+            innermost = not any(first <= f and l < last for f, l in back)
+            if innermost and 100 <= last - first + 1 <= 400:
+                ops = {}
+                for _, ins in insns[first:last + 1]:
+                    op = re.sub(r"^@!?U?P[T0-9]+\s+", "", ins).split()[0].split(".")[0]
+                    ops[op] = ops.get(op, 0) + 1
+                loops.append({"instructions": last - first + 1, "opcodes": ops})
+        if loops:
+            out[fn] = loops
+    for fn, loops in out.items():
+        print(f"[build] SASS {fn}: round loop instructions {[lp['instructions'] for lp in loops]};"
+              f" opcodes of the first {loops[0]['opcodes']}")
+    if not out:
+        print("[build] SASS: no round loop found in the sponge kernels")
+    return out
+
+
 def sample_ntt_perms(torch, keccak, q, seeds) -> int:
     """Keccak-f calls K2 needs for these seeds: the blocks until the 256th
     accepted candidate, or 4 + 4 where the second pass runs."""
@@ -139,13 +198,13 @@ def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, int_rate) -
         cases.append(("keccak_sponge", f"{SRC}/core/keccak_pallas.py:177",
                       lambda x=x, r=rate, d=ds, o=out_len: keccak_cuda.sponge(x, r, d, o),
                       lambda x=x, r=rate, d=ds, o=out_len: keccak.sponge_plain(x, r, d, o),
-                      x.numel() + BATCH * out_len, BATCH * perms * KECCAK_F_INT32_OPS,
+                      x.numel() + BATCH * out_len, BATCH * perms * KECCAK_F_OPS,
                       f"{tag}: ({BATCH}, {length}) -> ({BATCH}, {out_len})"))
     seeds = u8(BATCH * 9, 34)
     cases.append(("mlkem_sample_ntt", f"{SRC}/kem/mlkem_pallas.py:97",
                   lambda: mlkem_cuda.sample_ntt(seeds), lambda: mlkem.sample_ntt_plain(seeds),
                   seeds.numel() + 4 * 256 * seeds.shape[0],
-                  sample_ntt_perms(torch, keccak, mlkem.Q, seeds) * KECCAK_F_INT32_OPS,
+                  sample_ntt_perms(torch, keccak, mlkem.Q, seeds) * KECCAK_F_OPS,
                   f"({BATCH * 9}, 34) -> ({BATCH * 9}, 256)"))
     prf = u8(BATCH * 3, 33)
     for eta in (2, 3):
@@ -154,7 +213,7 @@ def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, int_rate) -
                 ("mlkem_prf_cbd", 159, False, mlkem_cuda.prf_cbd, mlkem.prf_cbd_plain),
                 ("mlkem_prf_cbd_ntt", 315, True, mlkem_cuda.prf_cbd_ntt,
                  mlkem.prf_cbd_ntt_plain)):
-            ops = prf.shape[0] * (perms * KECCAK_F_INT32_OPS + (NTT_OPS if fused else 0))
+            ops = prf.shape[0] * (perms * KECCAK_F_OPS + (NTT_OPS if fused else 0))
             cases.append((name if eta == 2 else f"{name}[eta=3]",
                           f"{SRC}/kem/mlkem_pallas.py:{line}",
                           lambda k=kern, e=eta: k(prf, e), lambda p=plain, e=eta: p(prf, e),
@@ -281,38 +340,69 @@ def phase_flagship(torch, mlkem, entry) -> dict:
     return out
 
 
+def busy_share(events: list, window: str) -> tuple[float, float]:
+    """-> (window us, device-busy us inside it) from a chrome trace: the
+    union of kernel, memcpy and memset intervals clipped to the span of
+    the user annotation named ``window``."""
+    span = next(e for e in events if e.get("cat") == "user_annotation"
+                and e.get("name") == window)
+    lo, hi = span["ts"], span["ts"] + span["dur"]
+    busy, reached = 0.0, lo
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                       if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")):
+        a, b = max(a, reached), min(b, hi)
+        if b > a:
+            busy += b - a
+            reached = b
+    return hi - lo, busy
+
+
 def phase_profile(torch, entry) -> dict:
     """Where a flagship batch spends device time: torch.profiler over a few
     warm batches; device time per kernel (ours and PyTorch's), and the
-    device busy share (device time over wall time)."""
+    device busy share of that window from its trace.  The same window is
+    also timed without the profiler, which slows the host."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn, args = entry()
     fn(*args)
     torch.cuda.synchronize()
     reps = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn(*args)
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(*args)
+    torch.cuda.synchronize()
+    plain_wall_us = 1e6 * (time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("flagship_window"):
+                for _ in range(reps):
+                    fn(*args)
+                torch.cuda.synchronize()
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        window_us, busy_us = busy_share(json.loads(trace.read_text())["traceEvents"],
+                                        "flagship_window")
     device_us = {ev.key: ev.self_device_time_total for ev in prof.key_averages()
-                 if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0}
+                 if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+                 and ev.key != "flagship_window"}  # the annotation's own span on the GPU
     total_us = sum(device_us.values())
     ours = ("::sponge_kernel<", "::sample_ntt_kernel(", "::prf_cbd_kernel<", "::ntt_kernel<")
     ours_us = sum(v for k, v in device_us.items() if any(o in k for o in ours))
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:12]
-    out = {"batches": reps, "wall_ms_per_batch": wall_us / reps / 1e3,
+    out = {"batches": reps, "window_ms_per_batch": window_us / reps / 1e3,
+           "busy_ms_per_batch": busy_us / reps / 1e3, "device_busy_share": busy_us / window_us,
+           "unprofiled_wall_ms_per_batch": plain_wall_us / reps / 1e3,
            "device_ms_per_batch": total_us / reps / 1e3,
-           "port_kernels_ms_per_batch": ours_us / reps / 1e3,
-           "device_busy_share": total_us / wall_us, "device_kinds": len(device_us),
+           "port_kernels_ms_per_batch": ours_us / reps / 1e3, "device_kinds": len(device_us),
            "top_device_ms_per_batch": [[k, v / reps / 1e3] for k, v in top]}
-    print(f"[profile] flagship batch under the profiler: wall {out['wall_ms_per_batch']:.3f} ms,"
-          f" device {out['device_ms_per_batch']:.3f} ms (busy share "
-          f"{out['device_busy_share']:.3f}), of which the port's kernels "
-          f"{out['port_kernels_ms_per_batch']:.3f} ms; {len(device_us)} kernel kinds")
+    print(f"[profile] flagship batch under the profiler: window {out['window_ms_per_batch']:.3f}"
+          f" ms, device busy {out['busy_ms_per_batch']:.3f} ms (busy share "
+          f"{out['device_busy_share']:.3f}, from the trace); without the profiler the same "
+          f"window takes {out['unprofiled_wall_ms_per_batch']:.3f} ms per batch")
+    print(f"[profile] kernel time {out['device_ms_per_batch']:.3f} ms per batch, of which the "
+          f"port's kernels {out['port_kernels_ms_per_batch']:.3f} ms; {len(device_us)} kinds")
     for name, ms in out["top_device_ms_per_batch"]:
         print(f"[profile]   {ms:.4f} ms  {name[:110]}")
     return out
@@ -354,31 +444,40 @@ def main() -> int:
 
     try:
         ptxas = phase_build(cuda)
+        sass = keccak_round_sass(cuda)
         rows = phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, int_rate)
         phase_kat(torch, mlkem)
 
-        for w in wrappers.values():
-            w.launches = 0
+        def reset():
+            for w in wrappers.values():
+                w.launches = 0
+
+        def read(phase, expected):
+            counts = {name: w.launches for name, w in wrappers.items()}
+            print(f"[launches] {phase}: {counts}")
+            idle = [name for name in expected if counts[name] == 0]
+            if idle:
+                raise PhaseFailed(f"{phase}: kernels not launched on the main path: {idle}")
+            return counts
+
+        reset()
         kem = get_kem("ML-KEM-768")
         if kem.backend != "cuda":
             raise PhaseFailed(f"serve: default backend is {kem.backend}")
         served = asyncio.run(serve(BatchedKEM, kem))
+        launches = {"serve": read("serve", wrappers)}
         print(f"[serve] {SERVE_CLIENTS} clients: {served['handshakes_per_s']:.1f} handshakes/s "
               f"(keygen+encaps+decaps, {served['handshake_wall_s']:.3f} s); "
               f"latency ms {served['latency_ms']}; opcache {served['opcache']}")
         for op, st in served["queues"].items():
             print(f"[serve] {op} queue: {st}")
+        reset()
         flagship = phase_flagship(torch, mlkem, entry)
-        launches = {name: w.launches for name, w in wrappers.items()}
-        print(f"[launches] phases 4-5: {launches}")
-        idle = [name for name, n in launches.items() if n == 0]
-        if idle:
-            raise PhaseFailed(f"kernels not launched on the main path: {idle}")
+        launches["flagship"] = read("flagship", ENCAPS_KERNELS)
 
         # launches of one batched call of each op (after the counted window)
         def count(call):
-            for w in wrappers.values():
-                w.launches = 0
+            reset()
             out = call()
             return out, {name: w.launches for name, w in wrappers.items()}
 
@@ -404,14 +503,16 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": sources.get(name, "quantum_resistant_p2p_tpu_torch/csrc/mlkem.cu"),
-            "replaces": mine[0]["replaces"], "launches": launches[name],
+            "replaces": mine[0]["replaces"],
+            "launches": launches["serve"][name] + launches["flagship"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["ms"] for r in mine), "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
             "shapes": [r["shape"] for r in mine]})
-    print(json.dumps({"detail": {"ptxas": ptxas, "kernel_rows": rows, "serve": served,
-                                 "flagship": flagship, "launches_per_op": per_op,
+    print(json.dumps({"detail": {"ptxas": ptxas, "keccak_round_sass": sass,
+                                 "kernel_rows": rows, "serve": served, "flagship": flagship,
+                                 "launches": launches, "launches_per_op": per_op,
                                  "profile": profiled}}))
     print(card)
     print(json.dumps({"kernels": kernels}))

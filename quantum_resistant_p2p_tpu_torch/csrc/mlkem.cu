@@ -112,7 +112,8 @@ unsigned blocks_for(int64_t n) { return (unsigned)((n + kPolys - 1) / kPolys); }
 extern "C" {
 
 // Load the 128 zetas (17^bitrev7(i) mod q) into the constant memory of the
-// current device.  Called once after the library is loaded.
+// current device.  __constant__ memory is per device: the wrapper calls this
+// once for each device, before the first kernel that runs there.
 int qrp_mlkem_init(const int32_t* zetas) {
   return (int)cudaMemcpyToSymbol(qrp::c_zetas, zetas, sizeof(int32_t) * 128);
 }

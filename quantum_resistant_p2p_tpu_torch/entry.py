@@ -20,15 +20,17 @@ import torch
 from .kem import mlkem
 from .utils.cuda import require_device
 
+BATCH = 4096
 
-def entry(device="cuda", batch: int = 4096):
-    """-> (fn, (ek, m)): ML-KEM-768 encaps over ``batch`` rows of one
+
+def entry(device="cuda"):
+    """-> (fn, (ek, m)): ML-KEM-768 encaps over ``BATCH`` rows of one
     public key (made by keygen from d = 0..31, z = 0) and seeded m."""
     dev = require_device(device)
     p = mlkem.MLKEM768
     d = torch.arange(32, dtype=torch.uint8, device=dev)
     ek, _ = mlkem.keygen(p, d, torch.zeros(32, dtype=torch.uint8, device=dev))
-    eks = ek.expand(batch, p.ek_len).contiguous()
+    eks = ek.expand(BATCH, p.ek_len).contiguous()
     rng = np.random.default_rng(0)
-    ms = torch.from_numpy(rng.integers(0, 256, size=(batch, 32), dtype=np.uint8)).to(dev)
+    ms = torch.from_numpy(rng.integers(0, 256, size=(BATCH, 32), dtype=np.uint8)).to(dev)
     return functools.partial(mlkem.encaps, p), (eks, ms)

@@ -19,6 +19,7 @@ Any other tensor raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -38,14 +39,22 @@ _SIGNATURES = {
     "qrp_mlkem_ntt": [_P, _P, ctypes.c_int64, ctypes.c_int, _P],
 }
 _ZETAS = np.asarray(ZETAS, dtype=np.int32)
+_zeta_lock = threading.Lock()
+_zeta_devices: set[int] = set()
 
 
-def _init(lib: ctypes.CDLL) -> None:
-    cuda.check(lib, lib.qrp_mlkem_init(_ZETAS.ctypes.data), "mlkem zeta upload")
+def _lib(device: torch.device) -> ctypes.CDLL:
+    """The library, with the zetas in ``device``'s constant memory.
 
-
-def _lib() -> ctypes.CDLL:
-    return cuda.library("mlkem", _SIGNATURES, _init)
+    ``__constant__`` memory is per device, so the zetas are uploaded the
+    first time each device is seen.  Call inside ``torch.cuda.device``.
+    """
+    lib = cuda.library("mlkem", _SIGNATURES)
+    with _zeta_lock:
+        if device.index not in _zeta_devices:
+            cuda.check(lib, lib.qrp_mlkem_init(_ZETAS.ctypes.data), "mlkem zeta upload")
+            _zeta_devices.add(device.index)
+    return lib
 
 
 def _seed_launch(wrapper, seeds: torch.Tensor, seed_len: int, what: str,
@@ -59,8 +68,8 @@ def _seed_launch(wrapper, seeds: torch.Tensor, seed_len: int, what: str,
     rows, batch = seed_rows(seeds)
     out = torch.empty((rows.shape[0], N), dtype=torch.int32, device=seeds.device)
     if rows.shape[0]:
-        lib = _lib()
         with torch.cuda.device(seeds.device):
+            lib = _lib(seeds.device)
             err = call(lib, rows.data_ptr(), out.data_ptr(), rows.shape[0],
                        cuda.stream_of(seeds))
         cuda.check(lib, err, f"{what} launch")
@@ -94,8 +103,8 @@ def _ntt_launch(wrapper, f: torch.Tensor, inverse: int) -> torch.Tensor:
     rows = f.reshape(-1, N)
     out = torch.empty_like(rows)
     if rows.shape[0]:
-        lib = _lib()
         with torch.cuda.device(f.device):
+            lib = _lib(f.device)
             err = lib.qrp_mlkem_ntt(rows.data_ptr(), out.data_ptr(), rows.shape[0],
                                     inverse, cuda.stream_of(f))
         cuda.check(lib, err, f"{what} launch")

@@ -95,11 +95,11 @@ def build(names: tuple[str, ...]) -> dict[str, float]:
     return seconds
 
 
-def library(name: str, signatures: dict[str, list], init=None) -> ctypes.CDLL:
+def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use.
 
     ``signatures`` maps each C entry point to its ``argtypes`` (all return
-    an int ``cudaError_t``); ``init(lib)`` runs once, right after loading.
+    an int ``cudaError_t``).
     """
     with _lock:
         lib = _libs.get(name)
@@ -111,8 +111,6 @@ def library(name: str, signatures: dict[str, list], init=None) -> ctypes.CDLL:
             for fn, argtypes in signatures.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = ctypes.c_int
-            if init is not None:
-                init(lib)
             _libs[name] = lib
         return lib
 
