@@ -6,31 +6,43 @@ one NVIDIA GPU.
 
 Phases, each of which fails the run (exit 1) if anything is wrong:
 
-1. build    compile csrc/sponge.cu and csrc/mlkem.cu with nvcc (sm_90a),
-            both at once, and print the ptxas register/spill summary and
-            the SASS of K1's Keccak round loop;
-2. kernels  run every kernel and its plain PyTorch version on the GPU at
-            the shapes of the batch-4096 ML-KEM-768 path, require bitwise
-            equality, and time both with CUDA events;
-3. kat      tests/vectors/mlkem_768.json through keygen/encaps/decaps on
-            the GPU, byte-exact, implicit rejection included;
-4. serve    BatchedKEM over get_kem("ML-KEM-768") (GPU backend) with
-            max_batch 4096 and max_wait 2 ms: 1024 concurrent clients each
-            run keygen -> encaps -> decaps, then encapsulate twice to one
-            server key (the operand cache must hit); all secrets agree;
-5. flagship entry(): batched ML-KEM-768 encaps at B = 4096, checked
-            against the CPU path on its first rows, timed with CUDA events;
-6. profile  torch.profiler over five flagship batches: device time per
-            kernel, and the device busy share of that window from its
-            trace (after the counts are read).
+1. build     compile csrc/sponge.cu, csrc/mlkem.cu and csrc/mldsa.cu with
+             nvcc (sm_90a), all at once, and print the ptxas
+             register/spill summary and the SASS of K1's Keccak round loop;
+2. kernels   run every kernel and its plain PyTorch version on the GPU at
+             the shapes of the batch-4096 ML-KEM-768 and ML-DSA-65 paths,
+             require bitwise equality, and time both with CUDA events;
+3. kat       tests/vectors/mlkem_768.json through keygen/encaps/decaps and
+             tests/vectors/mldsa_65.json through keygen/sign/verify on the
+             GPU, byte-exact;
+4. serve     BatchedKEM over get_kem("ML-KEM-768") (GPU backend) with
+             max_batch 4096 and max_wait 2 ms: 1024 concurrent clients each
+             run keygen -> encaps -> decaps, then encapsulate twice to one
+             server key (the operand cache must hit); all secrets agree;
+5. flagship  entry(): batched ML-KEM-768 encaps at B = 4096, checked
+             against the CPU path on its first rows, timed with CUDA events;
+6. sig serve BatchedSignature over get_signature("ML-DSA-65") (GPU
+             backend), max_batch 4096, max_wait 2 ms: one server key made
+             in the phase, 1024 concurrent clients sign with it twice (the
+             operand cache must miss once, then hit), then 1024 verify those
+             signatures (all True) and one flipped byte (False);
+7. sig flagship  sign_mu_pre and verify_mu_pre at B = 4096 over one
+             ML-DSA-65 key's precompute, timed with CUDA events, with the
+             number of attempts the sign loop ran; the CPU path builds the
+             precompute from the key itself, which must equal the GPU's,
+             and signs and verifies the first rows the same;
+8. profile   torch.profiler over the KEM flagship, one sign batch and five
+             verify batches: device time per kernel, and the device busy
+             share of each window from its trace (after the counts are read).
 
 Every kernel wrapper counts its launches.  The counts are set to 0 just
-before phase 4 and read just after it, then again for phase 5: every
-kernel must have run in phase 4, and every kernel that encaps runs in
-phase 5.  The last three lines of output are the card's name and power limit
-(nvidia-smi), one JSON object with key "kernels", and the result line
-{"ok": true, "device": {...}}.  Without a GPU, or without the package
-beside this file, the script prints no result and exits non-zero.
+before each of phases 4-7 and read just after it: every ML-KEM kernel
+must have run in phase 4, every kernel that encaps runs in phase 5, every
+ML-DSA kernel and K1 in phase 6, and K1 and K7 in phase 7.  The last three
+lines of output are the card's name and power limit (nvidia-smi), one JSON
+object with key "kernels", and the result line {"ok": true, "device":
+{...}}.  Without a GPU, or without the package beside this file, the script
+prints no result and exits non-zero.
 """
 
 from __future__ import annotations
@@ -49,6 +61,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 BATCH = 4096
 SERVE_CLIENTS = 1024
+#: ML-DSA-65 widths of the kernel phase: ExpandA of a 1024-key keygen
+#: batch (30 polynomials a key), ExpandS of it (11), and one sign attempt's
+#: widest transform at B = 4096 (k = 6 polynomials a lane)
+KEYGEN_KEYS = 1024
 #: H100 SXM device-memory rate (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 #: Hopper SM: 4 partitions x 16 INT32 lanes
@@ -65,10 +81,26 @@ KECCAK_F_OPS = 24 * KECCAK_ROUND_OPS
 BUTTERFLY_OPS = 7
 NTT_OPS = 7 * 128 * BUTTERFLY_OPS
 NTT_INV_OPS = NTT_OPS + 2 * 256  # the final scaling by 3303
+#: one NTT butterfly mod 8380417 as the work needs it, Harvey's lazy
+#: butterfly on values in [0, 4q): a Shoup product left in [0, 2q)
+#: (umulhi and two multiply-adds), 2q taken off the other input where it
+#: is >= 2q (subtract, unsigned min), then the sum and the difference + 2q.
+#: csrc/mldsa.cuh as written keeps every value canonical and spends 11.
+MLDSA_BUTTERFLY_OPS = 3 + 2 + 2
+#: + the final reduction of each coefficient from [0, 4q) to [0, q)
+MLDSA_NTT_OPS = 8 * 128 * MLDSA_BUTTERFLY_OPS + 256 * 4
+#: + the final Shoup scaling by 8347681 and its subtraction of q
+MLDSA_NTT_INV_OPS = 8 * 128 * MLDSA_BUTTERFLY_OPS + 256 * 5
 SRC = "quantum_resistant_p2p_tpu"
 #: the kernels that one encaps launches (its forward NTTs are fused in K3)
 ENCAPS_KERNELS = ("keccak_sponge", "mlkem_sample_ntt", "mlkem_prf_cbd", "mlkem_prf_cbd_ntt",
                   "mlkem_ntt_inv")
+KEM_KERNELS = ENCAPS_KERNELS + ("mlkem_ntt",)
+#: the kernels the ML-DSA serve phase (keygen, sign, verify) runs, and the
+#: ones sign and verify over a precompute run
+SIG_KERNELS = ("keccak_sponge", "mldsa_rej_ntt", "mldsa_rej_bounded", "mldsa_ntt",
+               "mldsa_ntt_inv")
+SIG_PRE_KERNELS = ("keccak_sponge", "mldsa_ntt", "mldsa_ntt_inv")
 
 
 class PhaseFailed(RuntimeError):
@@ -99,10 +131,10 @@ def cuda_ms(torch, fn, reps: int) -> float:
 
 def phase_build(cuda) -> dict:
     t0 = time.perf_counter()
-    seconds = cuda.build(("sponge", "mlkem"))
+    seconds = cuda.build(("sponge", "mlkem", "mldsa"))
     print(f"[build] nvcc seconds per source {seconds}, total {time.perf_counter() - t0:.2f}")
     ptxas = {}
-    for name in ("sponge", "mlkem"):
+    for name in ("sponge", "mlkem", "mldsa"):
         text = cuda.library_path(name).with_suffix(".ptxas.txt").read_text()
         for fn, body in re.findall(r"Function properties for (\S+)\n(.*?)Compile time",
                                    text, flags=re.S):
@@ -164,21 +196,41 @@ def keccak_round_sass(cuda) -> dict:
     return out
 
 
+def sampler_perms(torch, accepted, per_block: int, blocks: int) -> int:
+    """Keccak-f calls a rejection sampler (K2, K5, K6) needs for these
+    rows, given which of its candidates pass (per_block candidates to a
+    squeezed block): the blocks until the 256th accepted candidate, or
+    blocks + blocks where the second pass runs."""
+    cum = accepted.to(torch.int32).cumsum(-1)
+    full = cum[:, -1] >= 256
+    first = (cum >= 256).to(torch.int8).argmax(-1)
+    used = torch.where(full, first // per_block + 1, torch.full_like(first, 2 * blocks))
+    return int(used.sum())
+
+
 def sample_ntt_perms(torch, keccak, q, seeds) -> int:
-    """Keccak-f calls K2 needs for these seeds: the blocks until the 256th
-    accepted candidate, or 4 + 4 where the second pass runs."""
     buf = keccak.sponge_plain(seeds, 168, 0x1F, 672).to(torch.int32)
     t = buf.reshape(buf.shape[0], -1, 3)
     cand = torch.stack([t[..., 0] + 256 * (t[..., 1] % 16), t[..., 1] // 16 + 16 * t[..., 2]],
                        dim=-1).reshape(buf.shape[0], -1)
-    cum = (cand < q).to(torch.int32).cumsum(-1)
-    full = cum[:, -1] >= 256
-    first = (cum >= 256).to(torch.int8).argmax(-1)
-    blocks = torch.where(full, first // 112 + 1, torch.full_like(first, 8))
-    return int(blocks.sum())
+    return sampler_perms(torch, cand < q, 112, 4)
 
 
-def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, int_rate) -> list:
+def rej_ntt_perms(torch, keccak, q, seeds) -> int:
+    buf = keccak.sponge_plain(seeds, 168, 0x1F, 1176).to(torch.int32)
+    t = buf.reshape(buf.shape[0], -1, 3)
+    cand = t[..., 0] | (t[..., 1] << 8) | ((t[..., 2] & 0x7F) << 16)
+    return sampler_perms(torch, cand < q, 56, 7)
+
+
+def rej_bounded_perms(torch, keccak, seeds, eta: int) -> int:
+    b = keccak.sponge_plain(seeds, 136, 0x1F, 512).to(torch.int32)
+    z = torch.stack([b & 0xF, b >> 4], dim=-1).reshape(b.shape[0], -1)
+    return sampler_perms(torch, z < (15 if eta == 2 else 9), 272, 4)
+
+
+def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mldsa_cuda,
+                  int_rate) -> list:
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
 
@@ -228,6 +280,32 @@ def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, int_rate) -
                       lambda k=kern: k(polys), lambda p=plain: p(polys),
                       2 * polys.numel() * 4, polys.shape[0] * ops,
                       f"({BATCH * 3}, 256) int32"))
+    # distinct names: the lambdas above read seeds, prf and polys when called
+    p = mldsa.MLDSA65
+    n_a, n_s = KEYGEN_KEYS * p.k * p.l, KEYGEN_KEYS * (p.k + p.l)
+    a_seeds, s_seeds = u8(n_a, 34), u8(n_s, 66)
+    cases.append(("mldsa_rej_ntt", f"{SRC}/sig/mldsa_pallas.py:259",
+                  lambda: mldsa_cuda.rej_ntt(a_seeds), lambda: mldsa.rej_ntt_poly_plain(a_seeds),
+                  a_seeds.numel() + 4 * 256 * n_a,
+                  rej_ntt_perms(torch, keccak, mldsa.Q, a_seeds) * KECCAK_F_OPS,
+                  f"({n_a}, 34) -> ({n_a}, 256)"))
+    for eta in (4, 2):
+        cases.append(("mldsa_rej_bounded" if eta == p.eta else f"mldsa_rej_bounded[eta={eta}]",
+                      f"{SRC}/sig/mldsa_pallas.py:130",
+                      lambda e=eta: mldsa_cuda.rej_bounded(s_seeds, e),
+                      lambda e=eta: mldsa.rej_bounded_poly_plain(s_seeds, e),
+                      s_seeds.numel() + 4 * 256 * n_s,
+                      rej_bounded_perms(torch, keccak, s_seeds, eta) * KECCAK_F_OPS,
+                      f"eta={eta}: ({n_s}, 66) -> ({n_s}, 256)"))
+    dsa_polys = torch.from_numpy(rng.integers(0, mldsa.Q, size=(BATCH * p.k, 256),
+                                              dtype=np.int32)).to(dev)
+    for name, kern, plain, ops in (
+            ("mldsa_ntt", mldsa_cuda.ntt, mldsa.ntt_plain, MLDSA_NTT_OPS),
+            ("mldsa_ntt_inv", mldsa_cuda.ntt_inv, mldsa.ntt_inv_plain, MLDSA_NTT_INV_OPS)):
+        cases.append((name, f"{SRC}/sig/mldsa_pallas.py:227",
+                      lambda k=kern: k(dsa_polys), lambda f=plain: f(dsa_polys),
+                      2 * dsa_polys.numel() * 4, dsa_polys.shape[0] * ops,
+                      f"({BATCH * p.k}, 256) int32"))
 
     rows = []
     for name, replaces, kern, plain, nbytes, ops, shape in cases:
@@ -274,6 +352,35 @@ def phase_kat(torch, mlkem) -> None:
           "(keygen, encaps, decaps, implicit rejection)")
 
 
+def phase_kat_mldsa(torch, mldsa) -> None:
+    """keygen from xi, then sign with the vector's rnd (mu from tr and
+    M' = 0 || 0 || msg, on the host): pk, sk and sig by their sha256."""
+    data = json.loads((ROOT / "tests" / "vectors" / "mldsa_65.json").read_text())
+    p = mldsa.PARAMS[data["algorithm"]]
+    recs = data["tests"]
+
+    def col(rows):
+        return torch.tensor([list(r) for r in rows], dtype=torch.uint8, device="cuda")
+
+    pk, sk = mldsa.keygen(p, col(bytes.fromhex(r["xi"]) for r in recs))
+    mu = col(hashlib.shake_256(bytes(sk[i, 64:128].cpu().numpy()) + b"\0\0"
+                               + bytes.fromhex(r["msg"])).digest(64) for i, r in enumerate(recs))
+    sig, done = mldsa.sign_mu(p, sk, mu, col(bytes.fromhex(r["rnd"]) for r in recs))
+    ok = mldsa.verify_mu(p, pk, mu, sig)
+    if not (bool(done.all()) and bool(ok.all())):
+        raise PhaseFailed(f"KAT {data['algorithm']}: done {done.tolist()}, verify {ok.tolist()}")
+    for i, rec in enumerate(recs):
+        for name, t in (("pk", pk), ("sk", sk), ("sig", sig)):
+            if hashlib.sha256(bytes(t[i].cpu().numpy())).hexdigest() != rec[name + "_sha256"]:
+                raise PhaseFailed(f"KAT {data['algorithm']} count {rec['count']}: {name} differs")
+    print(f"[kat] {data['algorithm']}: {len(recs)} vectors byte-exact on the GPU "
+          "(keygen, sign; verify True)")
+
+
+def pct(xs, q):
+    return 1e3 * sorted(xs)[min(len(xs) - 1, int(q / 100 * len(xs)))]
+
+
 async def serve(BatchedKEM, kem) -> dict:
     lat = {"keygen": [], "encaps": [], "decaps": []}
 
@@ -305,10 +412,6 @@ async def serve(BatchedKEM, kem) -> dict:
     cache = kem.opcache.stats()
     if cache["hits"] < 1:
         raise PhaseFailed(f"serve: the single-key encaps path never hit the cache {cache}")
-
-    def pct(xs, q):
-        return 1e3 * sorted(xs)[min(len(xs) - 1, int(q / 100 * len(xs)))]
-
     out = {"clients": SERVE_CLIENTS, "handshake_wall_s": wall,
            "handshakes_per_s": SERVE_CLIENTS / wall, "opcache": cache,
            "queues": stats,
@@ -340,6 +443,110 @@ def phase_flagship(torch, mlkem, entry) -> dict:
     return out
 
 
+async def sig_serve(BatchedSignature, dsa) -> dict:
+    """One server key, made here (so keygen's kernels run in the counted
+    window); 1024 clients sign with it twice, then verify."""
+    lat = {"sign": [], "verify": []}
+
+    async def timed(op, coro):
+        t0 = time.perf_counter()
+        out = await coro
+        lat[op].append(time.perf_counter() - t0)
+        return out
+
+    t0 = time.perf_counter()
+    pk, sk = dsa.generate_keypair()
+    keygen_s = time.perf_counter() - t0
+    msgs = [b"client %d transcript" % i for i in range(SERVE_CLIENTS)]
+    with BatchedSignature(dsa, max_batch=4096, max_wait_ms=2.0) as bs:
+        sign_walls = []
+        for _ in range(2):  # the first round fills the operand cache, the second hits it
+            t0 = time.perf_counter()
+            sigs = await asyncio.gather(*(timed("sign", bs.sign(sk, m)) for m in msgs))
+            sign_walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        oks = await asyncio.gather(*(timed("verify", bs.verify(pk, m, s))
+                                     for m, s in zip(msgs, sigs)))
+        verify_wall = time.perf_counter() - t0
+        flipped = bytearray(sigs[0])
+        flipped[0] ^= 1
+        flipped_ok = await bs.verify(pk, msgs[0], bytes(flipped))
+        stats = bs.stats()
+    if not all(oks):
+        raise PhaseFailed(f"sig serve: {oks.count(False)} of {SERVE_CLIENTS} signatures "
+                          "did not verify")
+    if flipped_ok:
+        raise PhaseFailed("sig serve: a signature with a flipped byte verified")
+    cache = dsa.opcache.stats()
+    if cache["hits"] < 1:
+        raise PhaseFailed(f"sig serve: the single-key sign path never hit the cache {cache}")
+    return {"clients": SERVE_CLIENTS, "keygen_s": keygen_s, "sign_walls_s": sign_walls,
+            "signs_per_s": [SERVE_CLIENTS / w for w in sign_walls], "verify_wall_s": verify_wall,
+            "verifies_per_s": SERVE_CLIENTS / verify_wall, "opcache": cache, "queues": stats,
+            "latency_ms": {op: {"p50": pct(v, 50), "p99": pct(v, 99)} for op, v in lat.items()}}
+
+
+def sig_flagship_inputs(torch, np, mldsa):
+    """One ML-DSA-65 key pair (from a seeded xi) with its sign and verify
+    precompute, and BATCH seeded (mu, rnd) rows, all on the GPU."""
+    p = mldsa.MLDSA65
+    rng = np.random.default_rng(65)
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, size=shape, dtype=np.uint8)).to("cuda")
+
+    pk, sk = mldsa.keygen(p, u8(32))
+    return (pk, sk, mldsa.precompute_sk(p, sk), mldsa.precompute_pk(p, pk), u8(BATCH, 64),
+            u8(BATCH, 32))
+
+
+def phase_sig_flagship(torch, mldsa, inputs) -> dict:
+    """sign_mu_pre and verify_mu_pre at B = 4096 over one key's precompute
+    (the single-key path a signing node runs), timed with CUDA events."""
+    p = mldsa.MLDSA65
+    pk, sk, pre_sk, pre_pk, mu, rnd = inputs
+    sig, done, kappa = mldsa._sign_mu_core(p, pre_sk, mu, rnd, 0, mldsa.MAX_SIGN_ITERS)
+    ok = mldsa.verify_mu_pre(p, pre_pk, mu, sig)
+    torch.cuda.synchronize()
+    if sig.shape != (BATCH, p.sig_len) or not bool(done.all()) or not bool(ok.all()):
+        raise PhaseFailed(f"sig flagship: shape {tuple(sig.shape)}, done {int(done.sum())}, "
+                          f"verified {int(ok.sum())} of {BATCH}")
+    bad = sig.clone()
+    bad[:, 0] ^= 1
+    if bool(mldsa.verify_mu_pre(p, pre_pk, mu, bad).any()):
+        raise PhaseFailed("sig flagship: a signature with a flipped byte verified")
+    # the CPU path builds its own precompute from the key (ExpandA, the key
+    # NTTs), so a fault of K5 or K7 in the GPU's shows here too
+    cpu_pre = mldsa.precompute_sk(p, sk.cpu())
+    cpu_pre_pk = mldsa.precompute_pk(p, pk.cpu())
+    for what, gpu, cpu in (("sk", pre_sk, cpu_pre), ("pk", pre_pk, cpu_pre_pk)):
+        differ = [k for k in cpu if not torch.equal(gpu[k].cpu(), cpu[k])]
+        if gpu.keys() != cpu.keys() or differ:
+            raise PhaseFailed(f"sig flagship: GPU {what} precompute differs from the CPU "
+                              f"path's: {differ or sorted(gpu.keys() ^ cpu.keys())}")
+    ref_sig, _ = mldsa.sign_mu_pre(p, cpu_pre, mu[:4].cpu(), rnd[:4].cpu())
+    if not torch.equal(sig[:4].cpu(), ref_sig):
+        raise PhaseFailed("sig flagship: GPU signatures differ from the CPU path")
+    if mldsa.verify_mu_pre(p, cpu_pre_pk, mu[:4].cpu(), sig[:4].cpu()).tolist() != [True] * 4:
+        raise PhaseFailed("sig flagship: the CPU path rejects the GPU signatures")
+    attempts = int(kappa.max()) // p.l + 1  # kappa grows by l for each rejected attempt
+    lane_attempts = (kappa // p.l + 1).to(torch.float64)
+    sign_ms = cuda_ms(torch, lambda: mldsa.sign_mu_pre(p, pre_sk, mu, rnd), 3)
+    verify_ms = cuda_ms(torch, lambda: mldsa.verify_mu_pre(p, pre_pk, mu, sig), 10)
+    out = {"batch": BATCH, "attempts_per_sign_batch": attempts,
+           "mean_attempts_per_lane": float(lane_attempts.mean()),
+           "sign_ms_per_batch": sign_ms, "signs_per_s": BATCH / (sign_ms / 1e3),
+           "sign_ms_per_attempt": sign_ms / attempts,
+           "verify_ms_per_batch": verify_ms, "verifies_per_s": BATCH / (verify_ms / 1e3)}
+    print(f"[sig flagship] ML-DSA-65 sign_mu_pre B={BATCH}: {sign_ms:.3f} ms/batch (CUDA "
+          f"events), {out['signs_per_s']:.0f} signs/s, {attempts} attempts in the batch "
+          f"(mean {out['mean_attempts_per_lane']:.2f} a lane), "
+          f"{out['sign_ms_per_attempt']:.3f} ms/attempt")
+    print(f"[sig flagship] ML-DSA-65 verify_mu_pre B={BATCH}: {verify_ms:.3f} ms/batch, "
+          f"{out['verifies_per_s']:.0f} verifies/s")
+    return out
+
+
 def busy_share(events: list, window: str) -> tuple[float, float]:
     """-> (window us, device-busy us inside it) from a chrome trace: the
     union of kernel, memcpy and memset intervals clipped to the span of
@@ -357,38 +564,37 @@ def busy_share(events: list, window: str) -> tuple[float, float]:
     return hi - lo, busy
 
 
-def phase_profile(torch, entry) -> dict:
-    """Where a flagship batch spends device time: torch.profiler over a few
-    warm batches; device time per kernel (ours and PyTorch's), and the
-    device busy share of that window from its trace.  The same window is
-    also timed without the profiler, which slows the host."""
+def phase_profile(torch, label: str, fn, reps: int) -> dict:
+    """Where a batch of ``fn`` spends device time: torch.profiler over
+    ``reps`` warm batches; device time per kernel (ours and PyTorch's), and
+    the device busy share of that window from its trace.  The same window
+    is also timed without the profiler, which slows the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    fn, args = entry()
-    fn(*args)
+    fn()
     torch.cuda.synchronize()
-    reps = 5
     t0 = time.perf_counter()
     for _ in range(reps):
-        fn(*args)
+        fn()
     torch.cuda.synchronize()
     plain_wall_us = 1e6 * (time.perf_counter() - t0)
+    window = f"{label}_window"
     with tempfile.TemporaryDirectory() as tmp:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            with record_function("flagship_window"):
+            with record_function(window):
                 for _ in range(reps):
-                    fn(*args)
+                    fn()
                 torch.cuda.synchronize()
         trace = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(trace))
-        window_us, busy_us = busy_share(json.loads(trace.read_text())["traceEvents"],
-                                        "flagship_window")
+        window_us, busy_us = busy_share(json.loads(trace.read_text())["traceEvents"], window)
     device_us = {ev.key: ev.self_device_time_total for ev in prof.key_averages()
                  if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-                 and ev.key != "flagship_window"}  # the annotation's own span on the GPU
+                 and ev.key != window}  # the annotation's own span on the GPU
     total_us = sum(device_us.values())
-    ours = ("::sponge_kernel<", "::sample_ntt_kernel(", "::prf_cbd_kernel<", "::ntt_kernel<")
+    ours = ("::sponge_kernel<", "::sample_ntt_kernel(", "::prf_cbd_kernel<", "::ntt_kernel<",
+            "::rej_ntt_kernel(", "::rej_bounded_kernel<")
     ours_us = sum(v for k, v in device_us.items() if any(o in k for o in ours))
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:12]
     out = {"batches": reps, "window_ms_per_batch": window_us / reps / 1e3,
@@ -397,12 +603,13 @@ def phase_profile(torch, entry) -> dict:
            "device_ms_per_batch": total_us / reps / 1e3,
            "port_kernels_ms_per_batch": ours_us / reps / 1e3, "device_kinds": len(device_us),
            "top_device_ms_per_batch": [[k, v / reps / 1e3] for k, v in top]}
-    print(f"[profile] flagship batch under the profiler: window {out['window_ms_per_batch']:.3f}"
+    print(f"[profile] {label} batch under the profiler: window {out['window_ms_per_batch']:.3f}"
           f" ms, device busy {out['busy_ms_per_batch']:.3f} ms (busy share "
           f"{out['device_busy_share']:.3f}, from the trace); without the profiler the same "
           f"window takes {out['unprofiled_wall_ms_per_batch']:.3f} ms per batch")
-    print(f"[profile] kernel time {out['device_ms_per_batch']:.3f} ms per batch, of which the "
-          f"port's kernels {out['port_kernels_ms_per_batch']:.3f} ms; {len(device_us)} kinds")
+    print(f"[profile] {label}: kernel time {out['device_ms_per_batch']:.3f} ms per batch, of "
+          f"which the port's kernels {out['port_kernels_ms_per_batch']:.3f} ms; "
+          f"{len(device_us)} kinds")
     for name, ms in out["top_device_ms_per_batch"]:
         print(f"[profile]   {ms:.4f} ms  {name[:110]}")
     return out
@@ -424,7 +631,9 @@ def main() -> int:
         from quantum_resistant_p2p_tpu_torch.core import keccak, keccak_cuda
         from quantum_resistant_p2p_tpu_torch.entry import entry
         from quantum_resistant_p2p_tpu_torch.kem import mlkem, mlkem_cuda
-        from quantum_resistant_p2p_tpu_torch.provider import BatchedKEM, get_kem
+        from quantum_resistant_p2p_tpu_torch.provider import (BatchedKEM, BatchedSignature,
+                                                              get_kem, get_signature)
+        from quantum_resistant_p2p_tpu_torch.sig import mldsa, mldsa_cuda
         from quantum_resistant_p2p_tpu_torch.utils import cuda
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script: {exc}", file=sys.stderr)
@@ -439,14 +648,20 @@ def main() -> int:
 
     wrappers = {"keccak_sponge": keccak_cuda.sponge, "mlkem_sample_ntt": mlkem_cuda.sample_ntt,
                 "mlkem_prf_cbd": mlkem_cuda.prf_cbd, "mlkem_prf_cbd_ntt": mlkem_cuda.prf_cbd_ntt,
-                "mlkem_ntt": mlkem_cuda.ntt, "mlkem_ntt_inv": mlkem_cuda.ntt_inv}
+                "mlkem_ntt": mlkem_cuda.ntt, "mlkem_ntt_inv": mlkem_cuda.ntt_inv,
+                "mldsa_rej_ntt": mldsa_cuda.rej_ntt, "mldsa_rej_bounded": mldsa_cuda.rej_bounded,
+                "mldsa_ntt": mldsa_cuda.ntt, "mldsa_ntt_inv": mldsa_cuda.ntt_inv}
     sources = {"keccak_sponge": "quantum_resistant_p2p_tpu_torch/csrc/sponge.cu"}
+    sources.update({n: "quantum_resistant_p2p_tpu_torch/csrc/mldsa.cu" for n in wrappers
+                    if n.startswith("mldsa")})
 
     try:
         ptxas = phase_build(cuda)
         sass = keccak_round_sass(cuda)
-        rows = phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, int_rate)
+        rows = phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mldsa_cuda,
+                             int_rate)
         phase_kat(torch, mlkem)
+        phase_kat_mldsa(torch, mldsa)
 
         def reset():
             for w in wrappers.values():
@@ -465,7 +680,7 @@ def main() -> int:
         if kem.backend != "cuda":
             raise PhaseFailed(f"serve: default backend is {kem.backend}")
         served = asyncio.run(serve(BatchedKEM, kem))
-        launches = {"serve": read("serve", wrappers)}
+        launches = {"serve": read("serve", KEM_KERNELS)}
         print(f"[serve] {SERVE_CLIENTS} clients: {served['handshakes_per_s']:.1f} handshakes/s "
               f"(keygen+encaps+decaps, {served['handshake_wall_s']:.3f} s); "
               f"latency ms {served['latency_ms']}; opcache {served['opcache']}")
@@ -474,6 +689,24 @@ def main() -> int:
         reset()
         flagship = phase_flagship(torch, mlkem, entry)
         launches["flagship"] = read("flagship", ENCAPS_KERNELS)
+
+        reset()
+        dsa = get_signature("ML-DSA-65")
+        if dsa.backend != "cuda":
+            raise PhaseFailed(f"sig serve: default backend is {dsa.backend}")
+        sig_served = asyncio.run(sig_serve(BatchedSignature, dsa))
+        launches["sig_serve"] = read("sig serve", SIG_KERNELS)
+        print(f"[sig serve] {SERVE_CLIENTS} clients, one ML-DSA-65 key (keygen "
+              f"{sig_served['keygen_s']:.3f} s): signs/s "
+              f"{[round(x, 1) for x in sig_served['signs_per_s']]} (cache miss, then hit), "
+              f"verifies/s {sig_served['verifies_per_s']:.1f}; latency ms "
+              f"{sig_served['latency_ms']}; opcache {sig_served['opcache']}")
+        for op, st in sig_served["queues"].items():
+            print(f"[sig serve] {op} queue: {st}")
+        dsa_inputs = sig_flagship_inputs(torch, np, mldsa)
+        reset()
+        sig_flagship = phase_sig_flagship(torch, mldsa, dsa_inputs)
+        launches["sig_flagship"] = read("sig flagship", SIG_PRE_KERNELS)
 
         # launches of one batched call of each op (after the counted window)
         def count(call):
@@ -487,8 +720,19 @@ def main() -> int:
         (ek, dk), per_op["keygen"] = count(lambda: mlkem.keygen(p, d, d))
         (_, ct), per_op["encaps"] = count(lambda: mlkem.encaps(p, ek, d))
         _, per_op["decaps"] = count(lambda: mlkem.decaps(p, dk, ct))
+        pd = mldsa.MLDSA65
+        _, _, pre_sk, pre_pk, dmu, drnd = dsa_inputs
+        (dpk, dsk), per_op["mldsa_keygen"] = count(lambda: mldsa.keygen(pd, d))
+        (dsig, _), per_op["mldsa_sign"] = count(lambda: mldsa.sign_mu(pd, dsk, dmu, drnd))
+        _, per_op["mldsa_verify"] = count(lambda: mldsa.verify_mu(pd, dpk, dmu, dsig))
         print(f"[launches] per batched op: {per_op}")
-        profiled = phase_profile(torch, entry)
+        fn, args = entry()
+        profiled = {
+            "flagship": phase_profile(torch, "flagship", lambda: fn(*args), 5),
+            "sign": phase_profile(torch, "sign",
+                                  lambda: mldsa.sign_mu_pre(pd, pre_sk, dmu, drnd), 1),
+            "verify": phase_profile(torch, "verify",
+                                    lambda: mldsa.verify_mu_pre(pd, pre_pk, dmu, dsig), 5)}
     except PhaseFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -504,7 +748,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": sources.get(name, "quantum_resistant_p2p_tpu_torch/csrc/mlkem.cu"),
             "replaces": mine[0]["replaces"],
-            "launches": launches["serve"][name] + launches["flagship"][name],
+            "launches": sum(counts[name] for counts in launches.values()),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["ms"] for r in mine), "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -512,6 +756,7 @@ def main() -> int:
             "shapes": [r["shape"] for r in mine]})
     print(json.dumps({"detail": {"ptxas": ptxas, "keccak_round_sass": sass,
                                  "kernel_rows": rows, "serve": served, "flagship": flagship,
+                                 "sig_serve": sig_served, "sig_flagship": sig_flagship,
                                  "launches": launches, "launches_per_op": per_op,
                                  "profile": profiled}}))
     print(card)

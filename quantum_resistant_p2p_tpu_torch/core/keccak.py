@@ -152,6 +152,16 @@ def seed_rows(seeds: torch.Tensor) -> tuple[torch.Tensor, tuple[int, ...]]:
     return seeds.reshape(math.prod(batch), seeds.shape[-1]).contiguous(), batch
 
 
+def compact_accepted(cand: torch.Tensor, accepted: torch.Tensor) -> torch.Tensor:
+    """The first 256 of ``cand`` (..., C) in order of (accepted first, then
+    index): a rejection sampler's accepted candidates in order and, if
+    fewer than 256 passed, the rejected ones in order.  This is the order
+    of the reference's sort keys (reject bit above the index), and the
+    order in which the sampler kernels append."""
+    order = torch.argsort((~accepted).to(torch.int8), dim=-1, stable=True)
+    return cand.gather(-1, order[..., :256])
+
+
 def shake128(data: torch.Tensor, out_len: int) -> torch.Tensor:
     return sponge(data, 168, 0x1F, out_len)
 

@@ -6,12 +6,8 @@
 // K4 mlkem_ntt          replaces kem/mlkem_pallas.py:ntt_words
 //
 // K2 and K3 run one sponge per thread (state in registers, keccak.cuh) and
-// build their thread's polynomial in a shared-memory tile laid out
-// coefficient-major with a padded row, tile[i * kTileRows + t]: a warp
-// writing coefficient i of its 32 polynomials hits 32 banks, and the
-// block's copy-out reads each polynomial's coefficients in order and writes
-// whole 1 KB output rows, so the global stores are coalesced although each
-// thread owns one row.  The TPU kernels needed a 512-wide bitonic network
+// build their thread's polynomial in a shared-memory tile column
+// (tile.cuh), copied out to whole coalesced rows.  The TPU kernels needed a 512-wide bitonic network
 // to put SampleNTT's accepted candidates in order; a thread that appends
 // them as it parses gets the same order for free.  What bounds K2 and K3
 // is integer issue (Keccak rounds, and with the fused NTT 896 butterflies
@@ -35,18 +31,7 @@ namespace {
 using qrp::kN;
 using qrp::kPolys;
 using qrp::kTileRows;
-
-// Copy the block's finished polynomials from the tile to out rows
-// [row0, row0 + rows), coalesced: consecutive threads write consecutive
-// coefficients of one row.
-__device__ __forceinline__ void store_tile(const int32_t* tile, int32_t* out,
-                                           int64_t row0, int64_t n) {
-  const int rows = n - row0 < kPolys ? (int)(n - row0) : kPolys;
-  for (int idx = threadIdx.x; idx < rows * kN; idx += kPolys) {
-    const int r = idx >> 8, i = idx & (kN - 1);
-    out[(row0 + r) * kN + i] = tile[i * kTileRows + r];
-  }
-}
+using qrp::store_tile;
 
 __global__ void __launch_bounds__(kPolys)
     sample_ntt_kernel(const uint8_t* __restrict__ seeds, int32_t* __restrict__ out,

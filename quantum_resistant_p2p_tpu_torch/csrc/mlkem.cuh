@@ -3,22 +3,18 @@
 // Every polynomial is 256 int32 coefficients in [0, q), q = 3329, so every
 // product stays below q^2 < 2^31 and the arithmetic is plain int32.  A
 // polynomial being built by one thread lives in a shared-memory tile
-// column: coefficient i at col[i * kTileRows] (see mlkem.cu).
+// column: coefficient i at col[i * kTileRows] (see tile.cuh).
 #pragma once
 
 #include <stdint.h>
 
 #include "keccak.cuh"
+#include "tile.cuh"
 
 namespace qrp {
 
 constexpr int kQ = 3329;
-constexpr int kN = 256;
 constexpr int kNInv = 3303;  // 128^-1 mod q
-
-// Polynomials (threads) per block of K2/K3, and the padded tile row.
-constexpr int kPolys = 32;
-constexpr int kTileRows = kPolys + 1;
 
 // zeta[i] = 17^bitrev7(i) mod q, loaded by qrp_mlkem_init.
 __constant__ int32_t c_zetas[128];

@@ -162,8 +162,7 @@ def _compact_accepted(cand: torch.Tensor) -> torch.Tensor:
     This is the in-order compaction that the reference's sort key
     (accepted before rejected, index order within each, ``& 0xFFF``)
     produces; kernel K2 appends in the same order as it parses."""
-    order = torch.argsort((cand >= Q).to(torch.int8), dim=-1, stable=True)
-    return cand.gather(-1, order[..., :N]) & 0xFFF
+    return keccak.compact_accepted(cand, cand < Q) & 0xFFF
 
 
 def sample_ntt_plain(seeds: torch.Tensor) -> torch.Tensor:

@@ -1,20 +1,47 @@
-"""The KEM half of the plugin boundary (counterpart of the reference's
-``provider/base.py``).
+"""The plugin boundary (counterpart of the reference's ``provider/base.py``):
+the KEM and signature interfaces.
 
-A KEM reports its ``backend`` ("cuda" or "cpu") and offers ``*_batch``
-operations over ``(batch, ...)`` uint8 numpy arrays; the scalar operations
-are the batch-of-one case.
+An algorithm reports its ``backend`` ("cuda" or "cpu") and offers
+``*_batch`` operations over ``(batch, ...)`` uint8 numpy arrays; the scalar
+operations are the batch-of-one case.
 """
 
 from __future__ import annotations
 
 import abc
+import os
 
 import numpy as np
+import torch
+
+
+#: the port's backends: kernels on the GPU, or their plain versions on the CPU
+BACKENDS = ("cuda", "cpu")
 
 
 def next_pow2(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
+
+
+def random_rows(n: int, width: int = 32) -> np.ndarray:
+    """(n, width) uint8 from ``os.urandom``: the seeds and signing
+    randomness every provider draws on the host."""
+    return np.frombuffer(bytearray(os.urandom(width * n)), dtype=np.uint8).reshape(n, width)
+
+
+class DeviceIO:
+    """Host <-> device copies for a provider that runs on ``self.device``.
+
+    Both directions copy, so wiping either side never touches the other."""
+
+    device: torch.device
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.tensor(np.asarray(a, dtype=np.uint8), device=self.device)
+
+    @staticmethod
+    def _to_host(t: torch.Tensor) -> np.ndarray:
+        return t.to("cpu", copy=True).numpy()
 
 
 def pad_rows(rows: np.ndarray, target: int) -> np.ndarray:
@@ -66,6 +93,47 @@ class KeyExchangeAlgorithm(abc.ABC):
         sk = np.frombuffer(secret_key, dtype=np.uint8)[None]
         ct = np.frombuffer(ciphertext, dtype=np.uint8)[None]
         return bytes(self.decapsulate_batch(sk, ct)[0])
+
+
+class SignatureAlgorithm(abc.ABC):
+    """Signature interface; verify returns False for a malformed or invalid
+    signature (a device failure raises)."""
+
+    #: canonical registry name, e.g. "ML-DSA-65"
+    name: str = ""
+    #: "cuda" (kernels on the GPU) or "cpu" (the plain PyTorch versions)
+    backend: str = "cuda"
+    public_key_len: int = 0
+    secret_key_len: int = 0
+    signature_len: int = 0
+
+    @abc.abstractmethod
+    def generate_keypair(self) -> tuple[bytes, bytes]:
+        """-> (public_key, secret_key)"""
+
+    def generate_keypair_batch(self, n: int) -> tuple[np.ndarray, np.ndarray]:
+        """-> (public_keys (n, pk_len), secret_keys (n, sk_len)) uint8.
+
+        The default loops the scalar path; batched backends override it."""
+        pairs = [self.generate_keypair() for _ in range(n)]
+        return (np.stack([np.frombuffer(pk, np.uint8) for pk, _ in pairs]),
+                np.stack([np.frombuffer(sk, np.uint8) for _, sk in pairs]))
+
+    @abc.abstractmethod
+    def sign(self, secret_key: bytes, message: bytes) -> bytes:
+        """-> signature"""
+
+    @abc.abstractmethod
+    def verify(self, public_key: bytes, message: bytes, signature: bytes) -> bool:
+        """-> True iff the signature is valid; False for malformed input"""
+
+    def sign_batch(self, secret_keys: np.ndarray, messages: list[bytes]) -> list[bytes]:
+        return [self.sign(bytes(sk), m) for sk, m in zip(secret_keys, messages)]
+
+    def verify_batch(self, public_keys: np.ndarray, messages: list[bytes],
+                     signatures: list[bytes]) -> np.ndarray:
+        return np.array([self.verify(bytes(pk), m, s)
+                         for pk, m, s in zip(public_keys, messages, signatures)])
 
 
 def expect_len(buf: bytes, expected: int, what: str, algo: str) -> None:

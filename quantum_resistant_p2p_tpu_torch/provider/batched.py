@@ -1,8 +1,9 @@
 """Async batching queue: the host-to-GPU boundary.
 
-Concurrent callers enqueue their KEM operations as futures; a flush takes
-up to ``max_batch`` of them, pads the batch to a power-of-two bucket and
-runs it as one batched call on the device, then resolves every future.  A
+Concurrent callers enqueue their KEM and signature operations as futures;
+a flush takes up to ``max_batch`` of them, pads the batch to a power-of-two
+bucket and runs it as one batched call on the device, then resolves every
+future.  A
 flush happens at ``max_batch`` pending operations or ``max_wait_ms`` after
 the first enqueue, whichever comes first.  The queues of one facade share a
 :class:`CoalescingHub`, so when one flushes, its siblings' pending work
@@ -14,9 +15,9 @@ flush raises in every future it carried: there is no CPU path to fall back
 to.
 
 Counterpart of the reference's ``provider/batched.py`` (``OpQueue``,
-``QueueStats``, ``_run_valid``, ``BatchedKEM``) without its circuit
-breaker, CPU degrade path, warm-bucket tracking, autotuner, priority lanes,
-placement scheduler and fault hooks.
+``QueueStats``, ``_run_valid``, ``BatchedKEM``, ``BatchedSignature``)
+without its circuit breaker, CPU degrade path, warm-bucket tracking and
+warm-up, autotuner, priority lanes, placement scheduler and fault hooks.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import numpy as np
 
 from ..obs.metrics import LatencyHistogram
 from ..utils.wipe import wipe
-from .base import KeyExchangeAlgorithm, next_pow2, pad_rows
+from .base import KeyExchangeAlgorithm, SignatureAlgorithm, next_pow2, pad_rows
 
 
 @dataclass
@@ -202,26 +203,45 @@ def _run_valid(items, is_valid, dispatch, invalid_result, floor=1):
     return results
 
 
-class BatchedKEM:
-    """Async facade over a KeyExchangeAlgorithm's batch operations: three
-    queues (keygen, encaps, decaps) on one hub and one device thread.
+class _Facade:
+    """Queues of one algorithm's batch functions on one hub and one device
+    thread.
 
     ``bucket_floor`` raises every padded batch to at least that power of
     two.  Call :meth:`close` (or use ``with``) to stop the worker thread.
     """
 
-    def __init__(self, algo: KeyExchangeAlgorithm, max_batch: int = 4096,
-                 max_wait_ms: float = 2.0, bucket_floor: int = 1):
+    def __init__(self, algo, batch_fns, max_batch: int, max_wait_ms: float,
+                 bucket_floor: int):
         self.algo = algo
         self.bucket_floor = min(next_pow2(max(1, bucket_floor)), max_batch)
         self._executor = ThreadPoolExecutor(max_workers=1,
                                             thread_name_prefix=f"{algo.name}-device")
         hub = CoalescingHub()
-        self._kg, self._enc, self._dec = (
-            OpQueue(lambda items, fn=fn: fn(algo, self.bucket_floor, items),
-                    self._executor, max_batch, max_wait_ms, hub)
-            for fn in (self._kg_batch, self._enc_batch, self._dec_batch)
-        )
+        self._queues = [OpQueue(lambda items, fn=fn: fn(algo, self.bucket_floor, items),
+                                self._executor, max_batch, max_wait_ms, hub)
+                        for fn in batch_fns]
+
+    def close(self) -> None:
+        """Wait for in-flight flushes and stop the device thread."""
+        self._executor.shutdown(wait=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class BatchedKEM(_Facade):
+    """Async facade over a KeyExchangeAlgorithm's batch operations: three
+    queues (keygen, encaps, decaps)."""
+
+    def __init__(self, algo: KeyExchangeAlgorithm, max_batch: int = 4096,
+                 max_wait_ms: float = 2.0, bucket_floor: int = 1):
+        super().__init__(algo, (self._kg_batch, self._enc_batch, self._dec_batch),
+                         max_batch, max_wait_ms, bucket_floor)
+        self._kg, self._enc, self._dec = self._queues
 
     @staticmethod
     def _kg_batch(algo, floor, items: list[None]) -> list[tuple[bytes, bytes]]:
@@ -274,12 +294,52 @@ class BatchedKEM:
             "decaps": self._dec.stats.as_dict(),
         }
 
-    def close(self) -> None:
-        """Wait for in-flight flushes and stop the device thread."""
-        self._executor.shutdown(wait=True)
 
-    def __enter__(self) -> BatchedKEM:
-        return self
+class BatchedSignature(_Facade):
+    """Async facade over a SignatureAlgorithm's batch operations: two
+    queues (sign, verify).
 
-    def __exit__(self, *exc) -> None:
-        self.close()
+    An item of the wrong key or signature length fails alone: a sign with
+    a ValueError, a verify with False.  A failed flush raises in every
+    future it carried, verify included."""
+
+    def __init__(self, algo: SignatureAlgorithm, max_batch: int = 4096,
+                 max_wait_ms: float = 2.0, bucket_floor: int = 1):
+        super().__init__(algo, (self._sign_batch, self._verify_batch), max_batch,
+                         max_wait_ms, bucket_floor)
+        self._sign, self._verify = self._queues
+
+    @staticmethod
+    def _sign_batch(algo, floor, items: list[tuple[bytes, bytes]]):
+        def dispatch(valid, tgt):
+            sks = pad_rows(np.stack([np.frombuffer(sk, np.uint8) for sk, _ in valid]), tgt)
+            msgs = [m for _, m in valid] + [valid[-1][1]] * (tgt - len(valid))
+            sigs = algo.sign_batch(sks, msgs)
+            wipe(sks)
+            return sigs
+
+        return _run_valid(items, lambda it: len(it[0]) == algo.secret_key_len, dispatch,
+                          lambda: ValueError("bad secret-key length"), floor)
+
+    @staticmethod
+    def _verify_batch(algo, floor, items: list[tuple[bytes, bytes, bytes]]):
+        def dispatch(valid, tgt):
+            pks = pad_rows(np.stack([np.frombuffer(pk, np.uint8) for pk, _, _ in valid]), tgt)
+            pad = tgt - len(valid)
+            msgs = [m for _, m, _ in valid] + [valid[-1][1]] * pad
+            sigs = [s for _, _, s in valid] + [valid[-1][2]] * pad
+            return [bool(ok) for ok in algo.verify_batch(pks, msgs, sigs)]
+
+        return _run_valid(
+            items,
+            lambda it: len(it[0]) == algo.public_key_len and len(it[2]) == algo.signature_len,
+            dispatch, lambda: False, floor)
+
+    async def sign(self, secret_key: bytes, message: bytes) -> bytes:
+        return await self._sign.submit((secret_key, message))
+
+    async def verify(self, public_key: bytes, message: bytes, signature: bytes) -> bool:
+        return await self._verify.submit((public_key, message, signature))
+
+    def stats(self) -> dict[str, Any]:
+        return {"sign": self._sign.stats.as_dict(), "verify": self._verify.stats.as_dict()}

@@ -12,28 +12,18 @@ to the deterministic keygen/encaps cores, the seam KATs use too.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
-import torch
 
 from ..kem import mlkem
 from ..utils.cuda import require_device
 from ..utils.wipe import wipe
-from .base import KeyExchangeAlgorithm, expect_cols
+from .base import BACKENDS, DeviceIO, KeyExchangeAlgorithm, expect_cols, random_rows
 from .opcache import DeviceOperandCache
 
 _LEVEL_TO_MLKEM = {1: mlkem.MLKEM512, 3: mlkem.MLKEM768, 5: mlkem.MLKEM1024}
-BACKENDS = ("cuda", "cpu")
-#: keys whose device state the operand cache keeps (LRU)
-OPCACHE_KEYS = 8
 
 
-def _random_rows(n: int, width: int = 32) -> np.ndarray:
-    return np.frombuffer(bytearray(os.urandom(width * n)), dtype=np.uint8).reshape(n, width)
-
-
-class MLKEMKeyExchange(KeyExchangeAlgorithm):
+class MLKEMKeyExchange(DeviceIO, KeyExchangeAlgorithm):
     """ML-KEM (FIPS 203) at NIST level 1, 3 or 5."""
 
     def __init__(self, security_level: int = 3, backend: str = "cuda"):
@@ -53,19 +43,10 @@ class MLKEMKeyExchange(KeyExchangeAlgorithm):
         self._enc_cold, self._enc_pre = mlkem.get_pre(self.params.name)
         #: per-key precompute kept on the device: repeat encaps against one
         #: peer key skip the key upload and ExpandA
-        self.opcache = DeviceOperandCache(OPCACHE_KEYS)
-
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        # always a copy, so wiping it never touches the caller's array
-        return torch.tensor(np.asarray(a, dtype=np.uint8), device=self.device)
-
-    @staticmethod
-    def _to_host(t: torch.Tensor) -> np.ndarray:
-        # always a copy, so wiping the tensor afterwards leaves the result
-        return t.to("cpu", copy=True).numpy()
+        self.opcache = DeviceOperandCache()
 
     def generate_keypair_batch(self, n: int) -> tuple[np.ndarray, np.ndarray]:
-        d, z = _random_rows(n), _random_rows(n)
+        d, z = random_rows(n), random_rows(n)
         dt, zt = self._to_device(d), self._to_device(z)
         ek, dk = self._kg(dt, zt)
         out = self._to_host(ek), self._to_host(dk)
@@ -76,7 +57,7 @@ class MLKEMKeyExchange(KeyExchangeAlgorithm):
         expect_cols(public_keys, self.public_key_len, "public keys", self.name)
         pks = np.asarray(public_keys)
         n = pks.shape[0]
-        m_host = _random_rows(n)
+        m_host = random_rows(n)
         m = self._to_device(m_host)
         if n and (pks[0] == pks).all():
             # Single-key batch (every handshake encaps; hot peers): a hit

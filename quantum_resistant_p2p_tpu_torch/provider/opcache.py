@@ -1,8 +1,10 @@
 """Device operand cache: per-key precompute kept on the device.
 
 Encaps against a key spends most of its sampling work on that key alone
-(ExpandA, the t_hat decode, H(ek)).  A node encapsulates against hot peer
-keys again and again, so the cache keeps ``kem.mlkem.precompute_ek``'s
+(ExpandA, the t_hat decode, H(ek)), and so do sign and verify (ExpandA and
+the key NTTs).  A node encapsulates against hot peer keys, signs with its
+one key and verifies a peer's again and again, so the cache keeps
+``kem.mlkem.precompute_ek``'s and ``sig.mldsa.precompute_sk/pk``'s
 tensors on the device, keyed by SHA-256 of the raw key bytes, with LRU
 eviction so peer churn cannot pin unbounded device memory.  Raw key bytes
 never appear in stats.
@@ -22,10 +24,14 @@ from typing import Any
 from ..utils.wipe import wipe
 
 
+#: keys whose device state a provider's cache keeps (LRU)
+OPCACHE_KEYS = 8
+
+
 class DeviceOperandCache:
     """Content-hash-keyed LRU of per-key dicts of device tensors."""
 
-    def __init__(self, capacity: int = 8):
+    def __init__(self, capacity: int = OPCACHE_KEYS):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.capacity = capacity

@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_initialised: set[tuple[str, int]] = set()  # (library, device index)
 
 
 def require_device(device) -> torch.device:
@@ -113,6 +114,22 @@ def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+def device_library(name: str, signatures: dict[str, list], device: torch.device,
+                   init) -> ctypes.CDLL:
+    """:func:`library`, with ``init(lib)`` run once for each device.
+
+    ``init`` fills the library's ``__constant__`` tables and returns a
+    ``cudaError_t``; constant memory is per device, so it runs the first
+    time each device is seen.  Call inside ``torch.cuda.device(device)``.
+    """
+    lib = library(name, signatures)
+    with _lock:
+        if (name, device.index) not in _initialised:
+            check(lib, init(lib), f"{name} constant upload")
+            _initialised.add((name, device.index))
+    return lib
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -7,7 +7,7 @@ without them:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -m cuda -q
 
 Each kernel is held bitwise to its plain PyTorch version on the same
-device, and the GPU path of ML-KEM-768 to the CPU path.
+device, and the GPU paths of ML-KEM and ML-DSA to the CPU paths.
 """
 
 import asyncio
@@ -18,7 +18,9 @@ import torch
 
 from quantum_resistant_p2p_tpu_torch.core import keccak, keccak_cuda
 from quantum_resistant_p2p_tpu_torch.kem import mlkem, mlkem_cuda
-from quantum_resistant_p2p_tpu_torch.provider import BatchedKEM, get_kem
+from quantum_resistant_p2p_tpu_torch.provider import (BatchedKEM, BatchedSignature, get_kem,
+                                                      get_signature)
+from quantum_resistant_p2p_tpu_torch.sig import mldsa, mldsa_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -91,3 +93,54 @@ def test_batched_kem_on_the_default_backend(gpu):
             return await asyncio.gather(*(client() for _ in range(64)))
 
     assert all(asyncio.run(run()))
+
+
+def test_mldsa_kernels_match_plain(gpu):
+    seeds = _u8(100, 300, 34).to(gpu)
+    before = mldsa_cuda.rej_ntt.launches
+    assert torch.equal(mldsa_cuda.rej_ntt(seeds), mldsa.rej_ntt_poly_plain(seeds))
+    assert mldsa_cuda.rej_ntt.launches == before + 1
+    rb = _u8(101, 300, 66).to(gpu)
+    for eta in (2, 4):
+        assert torch.equal(mldsa_cuda.rej_bounded(rb, eta), mldsa.rej_bounded_poly_plain(rb, eta))
+    f = torch.randint(0, mldsa.Q, (300, 256), dtype=torch.int32,
+                      generator=torch.Generator().manual_seed(102))
+    f[0] = mldsa.Q - 1
+    f = f.to(gpu)
+    assert torch.equal(mldsa_cuda.ntt(f), mldsa.ntt_plain(f))
+    assert torch.equal(mldsa_cuda.ntt_inv(f), mldsa.ntt_inv_plain(f))
+    torch.cuda.synchronize()
+
+
+def test_mldsa65_gpu_path_matches_cpu_path(gpu):
+    p = mldsa.MLDSA65
+    xi, mu, rnd = _u8(110, 8, 32), _u8(111, 8, 64), _u8(112, 8, 32)
+    pk, sk = mldsa.keygen(p, xi.to(gpu))
+    sig, done, kappa = mldsa.sign_mu_rounds(p, sk, mu.to(gpu), rnd.to(gpu), 0,
+                                            mldsa.MAX_SIGN_ITERS)
+    ok = mldsa.verify_mu(p, pk, mu.to(gpu), sig)
+    pk_c, sk_c = mldsa.keygen(p, xi)
+    sig_c, done_c, kappa_c = mldsa.sign_mu_rounds(p, sk_c, mu, rnd, 0, mldsa.MAX_SIGN_ITERS)
+    for a, b in ((pk, pk_c), (sk, sk_c), (sig, sig_c), (done, done_c), (kappa, kappa_c)):
+        assert torch.equal(a.cpu(), b)
+    assert ok.all()
+    bad = sig.clone()
+    bad[:, -1] ^= 0xFF
+    assert not mldsa.verify_mu(p, pk, mu.to(gpu), bad).any()
+
+
+def test_batched_signature_on_the_default_backend(gpu):
+    sig = get_signature("ML-DSA-65")
+    assert sig.backend == "cuda"
+    pk, sk = sig.generate_keypair()
+
+    async def run():
+        with BatchedSignature(sig, max_wait_ms=5.0) as bs:
+            msgs = [b"m%d" % i for i in range(32)]
+            sigs = await asyncio.gather(*(bs.sign(sk, m) for m in msgs))
+            oks = await asyncio.gather(*(bs.verify(pk, m, s) for m, s in zip(msgs, sigs)))
+            bad = await bs.verify(pk, b"m0!", sigs[0])
+            return oks, bad
+
+    oks, bad = asyncio.run(run())
+    assert all(oks) and not bad

@@ -230,12 +230,18 @@ def test_port_imports_no_jax():
     this process has jax loaded already)."""
     code = (
         "import sys, numpy as np\n"
-        "from quantum_resistant_p2p_tpu_torch.provider import get_kem\n"
+        "from quantum_resistant_p2p_tpu_torch.provider import get_kem, get_signature\n"
         "import quantum_resistant_p2p_tpu_torch.entry, quantum_resistant_p2p_tpu_torch.kem.mlkem_cuda\n"
+        "import quantum_resistant_p2p_tpu_torch.sig.mldsa_cuda\n"
+        "import quantum_resistant_p2p_tpu_torch.provider.sig_providers\n"
+        "from quantum_resistant_p2p_tpu_torch.provider import BatchedSignature\n"
         "kem = get_kem('ML-KEM-512', backend='cpu')\n"
         "pk, sk = kem.generate_keypair()\n"
         "ct, ss = kem.encapsulate(pk)\n"
         "assert kem.decapsulate(sk, ct) == ss\n"
+        "dsa = get_signature('ML-DSA-44', backend='cpu')\n"
+        "pk, sk = dsa.generate_keypair()\n"
+        "assert dsa.verify(pk, b'm', dsa.sign(sk, b'm'))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'quantum_resistant_p2p_tpu'\n"
         "             or m.startswith('quantum_resistant_p2p_tpu.'))\n"
