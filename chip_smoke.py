@@ -6,15 +6,22 @@ one NVIDIA GPU.
 
 Phases, each of which fails the run (exit 1) if anything is wrong:
 
-1. build     compile csrc/sponge.cu, csrc/mlkem.cu and csrc/mldsa.cu with
-             nvcc (sm_90a), all at once, and print the ptxas
-             register/spill summary and the SASS of K1's Keccak round loop;
+1. build     compile csrc/sponge.cu, csrc/mlkem.cu, csrc/mldsa.cu and
+             csrc/chacha.cu with nvcc (sm_90a), all at once, and print the
+             ptxas register/spill summary and the SASS of K1's Keccak round
+             loop;
 2. kernels   run every kernel and its plain PyTorch version on the GPU at
              the shapes of the batch-4096 ML-KEM-768 and ML-DSA-65 paths,
+             K1 with per-row lengths on 4096 transcripts of up to 3458
+             bytes, and K8 on 4096 x 65 and 4096 x 1025 ChaCha20 blocks;
              require bitwise equality, and time both with CUDA events;
 3. kat       tests/vectors/mlkem_768.json through keygen/encaps/decaps and
              tests/vectors/mldsa_65.json through keygen/sign/verify on the
-             GPU, byte-exact;
+             GPU, byte-exact; the RFC 8439 §2.3.2 block, §2.5.2 Poly1305
+             and §2.8.2 AEAD vectors through core.chacha on the GPU; the
+             health gate (ML-KEM-768 KAT, ML-DSA-65 round trip, fused
+             keygen_sign, AEAD KAT) on the "cuda" providers with their
+             "cpu" twins;
 4. serve     BatchedKEM over get_kem("ML-KEM-768") (GPU backend) with
              max_batch 4096 and max_wait 2 ms: 1024 concurrent clients each
              run keygen -> encaps -> decaps, then encapsulate twice to one
@@ -31,14 +38,30 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              number of attempts the sign loop ran; the CPU path builds the
              precompute from the key itself, which must equal the GPU's,
              and signs and verifies the first rows the same;
-8. profile   torch.profiler over the KEM flagship, one sign batch and five
-             verify batches: device time per kernel, and the device busy
-             share of each window from its trace (after the counts are read).
+8. handshake the default handshake pair, ML-KEM-768 + ML-DSA-65 with
+             ChaCha20-Poly1305 as the AEAD, trip by trip as the reference's
+             SecureMessaging runs it: 1024 initiators (own ML-DSA-65 keys,
+             made in the phase by one batched keygen) and one gateway,
+             through one BatchedFused a side: keygen_sign, then
+             encaps_verify_sign, then decaps_verify_sign, then the
+             gateway's verify of the confirm through BatchedSignature;
+             every secret agrees, the first signatures verify on the CPU,
+             and one more session whose init transcript is changed on the
+             way is refused (ok False);
+9. data plane session keys by HKDF-SHA256 as derive_message_key does; 1024
+             clients BatchedAEAD.encrypt a 256-byte message and the gateway
+             decrypts it (a tampered frame fails); then one seal_batch and
+             open_batch of 4096 messages of 4 KiB;
+10. profile  torch.profiler over the KEM flagship, one sign batch, five
+             verify batches and one 4096 x 4 KiB seal batch: device time
+             per kernel, launches, and the device busy share of each window
+             from its trace (after the counts are read).
 
 Every kernel wrapper counts its launches.  The counts are set to 0 just
-before each of phases 4-7 and read just after it: every ML-KEM kernel
+before each of phases 4-9 and read just after it: every ML-KEM kernel
 must have run in phase 4, every kernel that encaps runs in phase 5, every
-ML-DSA kernel and K1 in phase 6, and K1 and K7 in phase 7.  The last three
+ML-DSA kernel and K1 in phase 6, K1 and K7 in phase 7, every kernel but
+K8 (K1 with per-row lengths included) in phase 8, and K8 in phase 9.  The last three
 lines of output are the card's name and power limit (nvidia-smi), one JSON
 object with key "kernels", and the result line {"ok": true, "device":
 {...}}.  Without a GPU, or without the package beside this file, the script
@@ -52,10 +75,13 @@ import hashlib
 import json
 import re
 import statistics
+import hmac
+import os
 import subprocess
 import sys
 import tempfile
 import time
+import uuid
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -92,6 +118,7 @@ MLDSA_NTT_OPS = 8 * 128 * MLDSA_BUTTERFLY_OPS + 256 * 4
 #: + the final Shoup scaling by 8347681 and its subtraction of q
 MLDSA_NTT_INV_OPS = 8 * 128 * MLDSA_BUTTERFLY_OPS + 256 * 5
 SRC = "quantum_resistant_p2p_tpu"
+SOURCES = ("sponge", "mlkem", "mldsa", "chacha")
 #: the kernels that one encaps launches (its forward NTTs are fused in K3)
 ENCAPS_KERNELS = ("keccak_sponge", "mlkem_sample_ntt", "mlkem_prf_cbd", "mlkem_prf_cbd_ntt",
                   "mlkem_ntt_inv")
@@ -101,6 +128,27 @@ KEM_KERNELS = ENCAPS_KERNELS + ("mlkem_ntt",)
 SIG_KERNELS = ("keccak_sponge", "mldsa_rej_ntt", "mldsa_rej_bounded", "mldsa_ntt",
                "mldsa_ntt_inv")
 SIG_PRE_KERNELS = ("keccak_sponge", "mldsa_ntt", "mldsa_ntt_inv")
+#: the kernels of the handshake phase (keys are made in it, so K6 too)
+HANDSHAKE_KERNELS = KEM_KERNELS + SIG_KERNELS[1:] + ("keccak_sponge_varlen",)
+#: one ChaCha20 block: 80 quarter rounds of 4 adds, 4 xors and 4 rotates,
+#: then 16 feedforward adds (976 instructions); 48 bytes in, 64 out.  The
+#: xors (LOP3) and the rotates (one funnel shift, SHF, each) run only on the
+#: 64-lane integer pipe; the adds can run as IMAD on the FMA pipe beside
+#: them, so the integer pipe's 640 set the bound.  The build phase prints
+#: K8's SASS opcodes beside it (H100: 329 IMAD, 320 LOP3, 316 SHF).
+CHACHA_BLOCK_OPS = 80 * 8
+CHACHA_BLOCK_BYTES = 48 + 64
+#: the longest transcript the fused programs hash: tr (64) || 0 0 ||
+#: the ML-KEM-768 init template (2 x 1184 hex + 1024 of JSON room)
+VARLEN_LMAX = 64 + 2 + 2 * 1184 + 1024
+AEAD = "ChaCha20-Poly1305"
+HANDSHAKES = 1024
+#: max_batch of the handshake's queues
+HANDSHAKE_BATCH = 4096
+GATEWAY = "gateway"
+#: the bulk seal batch of phase 9: 4096 messages of 4 KiB (with a 256-byte
+#: AAD bucket, 65 ChaCha20 blocks a row: the Poly1305 key and 64 of stream)
+SEAL_BATCH, SEAL_LEN = 4096, 4096
 
 
 class PhaseFailed(RuntimeError):
@@ -131,10 +179,10 @@ def cuda_ms(torch, fn, reps: int) -> float:
 
 def phase_build(cuda) -> dict:
     t0 = time.perf_counter()
-    seconds = cuda.build(("sponge", "mlkem", "mldsa"))
+    seconds = cuda.build(SOURCES)
     print(f"[build] nvcc seconds per source {seconds}, total {time.perf_counter() - t0:.2f}")
     ptxas = {}
-    for name in ("sponge", "mlkem", "mldsa"):
+    for name in SOURCES:
         text = cuda.library_path(name).with_suffix(".ptxas.txt").read_text()
         for fn, body in re.findall(r"Function properties for (\S+)\n(.*?)Compile time",
                                    text, flags=re.S):
@@ -196,6 +244,23 @@ def keccak_round_sass(cuda) -> dict:
     return out
 
 
+def kernel_sass_opcodes(cuda, lib: str, kernel: str) -> dict:
+    """Opcode counts of the SASS of one kernel of a built library (K8 is
+    fully unrolled: its instruction count is its work)."""
+    exe = Path(cuda.nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(exe), "-sass", str(cuda.library_path(lib))], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    ops = {}
+    for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=Function : |\Z)", text, flags=re.S):
+        if kernel in fn:
+            for ins in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", body):
+                op = re.sub(r"^@!?U?P[T0-9]+\s+", "", ins).split()[0].split(".")[0]
+                ops[op] = ops.get(op, 0) + 1
+    print(f"[build] SASS {kernel}: {sum(ops.values())} instructions, opcodes "
+          f"{dict(sorted(ops.items(), key=lambda kv: -kv[1]))}")
+    return ops
+
+
 def sampler_perms(torch, accepted, per_block: int, blocks: int) -> int:
     """Keccak-f calls a rejection sampler (K2, K5, K6) needs for these
     rows, given which of its candidates pass (per_block candidates to a
@@ -230,7 +295,7 @@ def rej_bounded_perms(torch, keccak, seeds, eta: int) -> int:
 
 
 def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mldsa_cuda,
-                  int_rate) -> list:
+                  chacha, chacha_cuda, int_rate) -> list:
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
 
@@ -306,6 +371,26 @@ def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mlds
                       lambda k=kern: k(dsa_polys), lambda f=plain: f(dsa_polys),
                       2 * dsa_polys.numel() * 4, dsa_polys.shape[0] * ops,
                       f"({BATCH * p.k}, 256) int32"))
+    # K1 with per-row lengths on the fused programs' widest transcripts:
+    # the lengths run through every value from 0 to LMAX, so every residue
+    # mod 136 around each block edge; bound by the blocks these lengths need
+    transcripts = u8(BATCH, VARLEN_LMAX)
+    lens = torch.arange(BATCH, dtype=torch.int32, device=dev) % (VARLEN_LMAX + 1)
+    cases.append(("keccak_sponge_varlen", f"{SRC}/core/keccak_pallas.py:177",
+                  lambda: keccak_cuda.sponge_varlen(transcripts, lens, 136, 0x1F, 64),
+                  lambda: keccak.sponge_varlen_plain(transcripts, lens, 136, 0x1F, 64),
+                  int(lens.sum()) + BATCH * (4 + 64),
+                  int((lens // 136 + 1).sum()) * KECCAK_F_OPS,
+                  f"({BATCH}, {VARLEN_LMAX}), lengths 0..{VARLEN_LMAX} -> ({BATCH}, 64)"))
+    # K8 at the 4 KiB seal batch of phase 9 and at the 64 KiB max_len
+    for tag, blocks in (("", 65), ("[64KiB]", 1025)):
+        states = torch.from_numpy(rng.integers(-2**31, 2**31, size=(BATCH * blocks, 12),
+                                               dtype=np.int32)).to(dev)
+        cases.append((f"chacha_blocks{tag}", f"{SRC}/core/chacha_pallas.py:141",
+                      lambda s=states: chacha_cuda.chacha_blocks(s),
+                      lambda s=states: chacha.chacha_blocks_plain(s),
+                      states.shape[0] * CHACHA_BLOCK_BYTES, states.shape[0] * CHACHA_BLOCK_OPS,
+                      f"({BATCH} x {blocks}, 12) -> (.., 16) int32"))
 
     rows = []
     for name, replaces, kern, plain, nbytes, ops, shape in cases:
@@ -375,6 +460,256 @@ def phase_kat_mldsa(torch, mldsa) -> None:
                 raise PhaseFailed(f"KAT {data['algorithm']} count {rec['count']}: {name} differs")
     print(f"[kat] {data['algorithm']}: {len(recs)} vectors byte-exact on the GPU "
           "(keygen, sign; verify True)")
+
+
+#: RFC 8439 vectors: §2.3.2 (block, counter 1), §2.5.2 (Poly1305), §2.8.2 (AEAD)
+RFC_BLOCK = (bytes(range(32)), 1, bytes.fromhex("000000090000004a00000000"),
+             "10f1e7e4d13b5915500fdd1fa32071c4c7d1f4c733c068030422aa9ac3d46c4e"
+             "d2826446079faa0914c2d705d98b02a2b5129cd1de164eb9cbd083e8a2503c4e")
+RFC_POLY = (bytes.fromhex("85d6be7857556d337f4452fe42d506a80103808afb0db2fd4abff6af4149f51b"),
+            b"Cryptographic Forum Research Group", "a8061dc1305136c6c22b8baf0c0127a9")
+RFC_AEAD = (bytes(range(0x80, 0xA0)), bytes([0x07, 0, 0, 0]) + bytes(range(0x40, 0x48)),
+            bytes.fromhex("50515253c0c1c2c3c4c5c6c7"),
+            b"Ladies and Gentlemen of the class of '99: If I could offer you only one tip for "
+            b"the future, sunscreen would be it.",
+            "d31a8d34648e60db7b86afbc53ef7ec2a4aded51296e08fea9e2b5a736ee62d6"
+            "3dbea45e8ca9671282fafb69da92728b1a71de0a9e060b2905d6a5b67ecd3b36"
+            "92ddbd7f2d778b8c9803aee328091b58fab324e4fad675945585808b4831d7bc"
+            "3ff4def08e4b7a9de576d26586cec64b6116", "1ae10b594f09e26a7e902ecbd0600691")
+
+
+def phase_kat_chacha(torch, np, chacha) -> None:
+    """The RFC 8439 vectors through the port's chacha on CUDA tensors."""
+    def row(b: bytes, width: int = 0):
+        out = np.zeros((1, max(width, len(b))), np.uint8)
+        out[0, : len(b)] = np.frombuffer(b, np.uint8)
+        return torch.from_numpy(out).to("cuda")
+
+    key, ctr, nonce, want = RFC_BLOCK
+    words = np.frombuffer(key + ctr.to_bytes(4, "little") + nonce, np.int32)[None].copy()
+    block = chacha.chacha_blocks(torch.from_numpy(words).to("cuda"))
+    if bytes(block.cpu().numpy().view(np.uint8)[0]).hex() != want:
+        raise PhaseFailed("RFC 8439 §2.3.2 block differs on the GPU")
+    pkey, msg, want = RFC_POLY
+    padded = row(msg + b"\x01", 48)
+    tag = chacha.poly1305_tags(row(pkey[:16]), row(pkey[16:]), padded,
+                               torch.ones((1, 3), dtype=torch.bool, device="cuda"),
+                               hibit=torch.tensor([[True, True, False]], device="cuda"))
+    if bytes(tag.cpu().numpy()[0]).hex() != want:
+        raise PhaseFailed("RFC 8439 §2.5.2 Poly1305 tag differs on the GPU")
+    key, nonce, aad, pt, ct_hex, tag_hex = RFC_AEAD
+    lens = torch.tensor([len(pt)], device="cuda")
+    aad_lens = torch.tensor([len(aad)], device="cuda")
+    ct, tags = chacha.aead_core(row(key), row(nonce), row(pt, 128), lens, row(aad, 16), aad_lens,
+                                seal=True)
+    got_ct = bytes(ct.cpu().numpy()[0, : len(pt)])
+    if got_ct.hex() != ct_hex or bytes(tags.cpu().numpy()[0]).hex() != tag_hex:
+        raise PhaseFailed("RFC 8439 §2.8.2 seal differs on the GPU")
+    opened, tags2 = chacha.aead_core(row(key), row(nonce), row(got_ct, 128), lens, row(aad, 16),
+                                     aad_lens, seal=False)
+    if bytes(opened.cpu().numpy()[0, : len(pt)]) != pt or not torch.equal(tags2, tags):
+        raise PhaseFailed("RFC 8439 §2.8.2 open differs on the GPU")
+    print("[kat] RFC 8439 §2.3.2 block, §2.5.2 Poly1305 and §2.8.2 AEAD (seal, open) "
+          "byte-exact on the GPU")
+
+
+def phase_health(provider, health, kem, dsa, fused, aead, pk_off, ct_off) -> list:
+    """The health gate on the GPU providers, with the "cpu" providers and
+    the scalar AEAD as twins: the ML-KEM-768 KAT, the ML-DSA-65 round trip,
+    the fused keygen_sign and the AEAD KAT; gate_facades raises on a
+    failed verdict."""
+    cpu_kem = provider.get_kem(kem.name, backend="cpu")
+    cpu_dsa = provider.get_signature(dsa.name, backend="cpu")
+    with provider.BatchedKEM(kem) as bk, provider.BatchedSignature(dsa) as bs, \
+            provider.BatchedFused(fused, pk_off, ct_off) as bf, provider.BatchedAEAD(aead) as ba:
+        try:
+            verdicts = health.gate_facades(bk, bs, bf, ba, cpu_kem=cpu_kem, cpu_sig=cpu_dsa,
+                                           scalar=provider.get_symmetric(AEAD))
+        except RuntimeError as exc:
+            raise PhaseFailed(f"health: {exc}") from exc
+    for v in verdicts:
+        print(f"[health] {v.family}: ok={v.ok} ({v.detail})")
+    return [v.as_dict() for v in verdicts]
+
+
+def canonical(data: dict) -> bytes:
+    """The canonical JSON every transcript is signed as (sorted keys, no
+    spaces), as the reference's SecureMessaging writes it."""
+    return json.dumps(data, sort_keys=True, separators=(",", ":")).encode()
+
+
+def derive_message_key(shared_secret: bytes, id_a: str, id_b: str, aead_name: str) -> bytes:
+    """HKDF-SHA256 (RFC 5869) of the KEM secret, salted by the sorted peer
+    ids, bound to the AEAD name: the reference's app/messaging.py
+    derive_message_key, here on hashlib and hmac."""
+    salt = "|".join(sorted([id_a, id_b])).encode()
+    prk = hmac.new(salt, shared_secret, hashlib.sha256).digest()
+    return hmac.new(prk, b"qrp2p-tpu/msgkey/" + aead_name.encode() + b"\x01",
+                    hashlib.sha256).digest()
+
+
+async def handshake(provider, kem, dsa, fused, cpu_dsa, pk_off, ct_off) -> dict:
+    """HANDSHAKES initiators and one gateway run the fused handshake trip by
+    trip through one BatchedFused a side, then the gateway verifies each
+    confirm through BatchedSignature.  One more initiator's init transcript
+    has a byte changed on the way: the gateway must refuse it."""
+    lat = {"keygen_sign": [], "encaps_verify_sign": [], "decaps_verify_sign": [], "verify": []}
+
+    async def timed(op, coro):
+        t0 = time.perf_counter()
+        out = await coro
+        lat[op].append(time.perf_counter() - t0)
+        return out
+
+    t0 = time.perf_counter()
+    pks, sks = dsa.generate_keypair_batch(HANDSHAKES)
+    gw_pk, gw_sk = dsa.generate_keypair()
+    keygen_s = time.perf_counter() - t0
+    with provider.BatchedFused(fused, pk_off, ct_off, max_batch=HANDSHAKE_BATCH,
+                               max_wait_ms=2.0) as ini, \
+            provider.BatchedFused(fused, pk_off, ct_off, max_batch=HANDSHAKE_BATCH,
+                                  max_wait_ms=2.0) as gw, \
+            provider.BatchedSignature(dsa, max_batch=HANDSHAKE_BATCH, max_wait_ms=2.0) as gw_sig:
+        async def session(i: int, tamper: bool = False) -> dict:
+            lane = i % HANDSHAKES
+            peer, sk = f"peer-{i:04d}", bytes(sks[lane])
+            init = {"message_id": str(uuid.UUID(int=i)), "kem": kem.name, "aead": AEAD,
+                    "public_key": "0" * (2 * kem.public_key_len), "sender": peer,
+                    "recipient": GATEWAY, "timestamp": 1.7e9 + i / 1e3}
+            kem_pk, kem_sk, s1 = await timed("keygen_sign", ini.keygen_sign(sk, canonical(init)))
+            init["public_key"] = kem_pk.hex()
+            init_msg = canonical(init)
+            seen = init_msg.replace(b'"sender":"peer', b'"sender":"Peer') if tamper else init_msg
+            resp = {"message_id": str(uuid.UUID(int=1 << 64 | i)), "sender": GATEWAY,
+                    "ciphertext": "0" * (2 * kem.ciphertext_len), "recipient": peer,
+                    "timestamp": 1.7e9 + 1 + i / 1e3}
+            ok, ct, ss_gw, s2 = await timed("encaps_verify_sign", gw.encaps_verify_sign(
+                kem_pk, bytes(pks[lane]), seen, s1, gw_sk, canonical(resp)))
+            out = {"i": i, "ok": ok, "init": (init_msg, s1)}
+            if not ok:  # the secret encapsulated for a refused peer is dropped
+                return out
+            resp["ciphertext"] = ct.hex()
+            resp_msg = canonical(resp)
+            confirm = canonical({"message_id": str(uuid.UUID(int=2 << 64 | i)), "sender": peer,
+                                 "recipient": GATEWAY, "timestamp": 1.7e9 + 2 + i / 1e3})
+            ok2, ss_peer, s3 = await timed("decaps_verify_sign", ini.decaps_verify_sign(
+                kem_sk, ct, gw_pk, resp_msg, s2, sk, confirm))
+            ok3 = await timed("verify", gw_sig.verify(bytes(pks[lane]), confirm, s3))
+            out.update(ok2=ok2, ok3=ok3, agree=hmac.compare_digest(ss_gw, ss_peer),
+                       resp=(resp_msg, s2), confirm=(confirm, s3), peer=peer,
+                       keys=(derive_message_key(ss_peer, peer, GATEWAY, AEAD),
+                             derive_message_key(ss_gw, GATEWAY, peer, AEAD)))
+            return out
+
+        t0 = time.perf_counter()
+        done = await asyncio.gather(*(session(i) for i in range(HANDSHAKES)),
+                                    session(HANDSHAKES, tamper=True))
+        wall = time.perf_counter() - t0
+        stats = {"initiator.keygen_sign": ini.stats()["keygen_sign"],
+                 "gateway.encaps_verify_sign": gw.stats()["encaps_verify_sign"],
+                 "initiator.decaps_verify_sign": ini.stats()["decaps_verify_sign"],
+                 "gateway.verify": gw_sig.stats()["verify"]}
+    sessions, tampered = done[:HANDSHAKES], done[HANDSHAKES]
+    bad = [r["i"] for r in sessions if not (r["ok"] and r.get("ok2") and r.get("ok3")
+                                            and r.get("agree"))]
+    if bad:
+        raise PhaseFailed(f"handshake: {len(bad)} of {HANDSHAKES} sessions failed, first {bad[:8]}")
+    if tampered["ok"]:
+        raise PhaseFailed("handshake: the gateway accepted a changed init transcript")
+    for r in sessions[:4]:  # the signatures over the rendered transcripts, on the CPU
+        checks = ((pks[r["i"]], *r["init"]), (gw_pk, *r["resp"]), (pks[r["i"]], *r["confirm"]))
+        if not all(cpu_dsa.verify(bytes(pk), m, s) for pk, m, s in checks):
+            raise PhaseFailed(f"handshake: a signature of session {r['i']} fails on the CPU")
+    # a handshake is one operation on each of the four queues, and each
+    # operation rides one flush; the sessions coalesce when every queue
+    # flushes at most ceil(its ops / max_batch) times, so the phase takes at
+    # most four device trips per max_batch handshakes
+    ops = {k: v["ops"] for k, v in stats.items()}
+    want = dict(zip(stats, (HANDSHAKES + 1, HANDSHAKES + 1, HANDSHAKES, HANDSHAKES)))
+    if ops != want:
+        raise PhaseFailed(f"handshake: queue ops {ops} (want {want})")
+    flushes = {k: v["flushes"] for k, v in stats.items()}
+    most = {k: -(-n // HANDSHAKE_BATCH) for k, n in ops.items()}
+    if any(flushes[k] > most[k] for k in flushes):
+        raise PhaseFailed(f"handshake: flushes {flushes}, at most {most} when the sessions "
+                          "coalesce")
+    trips = sum(ops.values()) / (HANDSHAKES + 1)
+    return {"handshakes": HANDSHAKES, "keygen_s": keygen_s, "wall_s": wall,
+            "handshakes_per_s": HANDSHAKES / wall, "trips_per_handshake": trips,
+            "flushes": flushes, "device_trips": sum(flushes.values()),
+            "flush_sizes": {k: v["recent_batch_sizes"] for k, v in stats.items()},
+            "queues": stats, "sessions": [(r["peer"], *r["keys"]) for r in sessions],
+            "latency_ms": {op: {"p50": pct(v, 50), "p99": pct(v, 99)} for op, v in lat.items()}}
+
+
+async def data_plane(np, provider, device, sessions) -> dict:
+    """Each session's client seals a 256-byte message with AAD through
+    BatchedAEAD under its derived key; the gateway opens it under its own
+    derivation of the key.  One frame changed on the way must fail."""
+    rng = np.random.default_rng(9)
+    msgs = [bytes(r) for r in rng.integers(0, 256, size=(len(sessions), 256), dtype=np.uint8)]
+    with provider.BatchedAEAD(device, max_batch=4096, max_wait_ms=2.0) as cli, \
+            provider.BatchedAEAD(device, max_batch=4096, max_wait_ms=2.0) as gw:
+        async def one(i):
+            peer, k_peer, k_gw = sessions[i]
+            aad = canonical({"message_id": str(uuid.UUID(int=3 << 64 | i)), "sender": peer,
+                             "recipient": GATEWAY})
+            frame = await cli.encrypt(k_peer, msgs[i], aad)
+            return frame, aad, await gw.decrypt(k_gw, frame, aad)
+
+        t0 = time.perf_counter()
+        out = await asyncio.gather(*(one(i) for i in range(len(sessions))))
+        wall = time.perf_counter() - t0
+        frame, aad, _ = out[0]
+        changed = frame[:-1] + bytes([frame[-1] ^ 1])
+        try:
+            await gw.decrypt(sessions[0][2], changed, aad)
+            raise PhaseFailed("data plane: a changed frame opened")
+        except ValueError:
+            pass
+        stats = {"client": cli.stats(), "gateway": gw.stats()}
+    wrong = [i for i, (_, _, pt) in enumerate(out) if pt != msgs[i]]
+    if wrong:
+        raise PhaseFailed(f"data plane: {len(wrong)} frames did not open to their plaintext")
+    return {"messages": len(sessions), "message_bytes": 256, "wall_s": wall,
+            "round_trips_per_s": len(sessions) / wall, "queues": stats}
+
+
+def seal_batch_inputs(np, sessions):
+    """SEAL_BATCH messages of SEAL_LEN bytes under the sessions' keys (each
+    key SEAL_BATCH / sessions times, with its own nonce) and a 64-byte AAD."""
+    rng = np.random.default_rng(10)
+    keys = np.stack([np.frombuffer(sessions[i % len(sessions)][1], np.uint8)
+                     for i in range(SEAL_BATCH)])
+    nonces = rng.integers(0, 256, size=(SEAL_BATCH, 12), dtype=np.uint8)
+    pts = [bytes(r) for r in rng.integers(0, 256, size=(SEAL_BATCH, SEAL_LEN), dtype=np.uint8)]
+    aads = [bytes(r) for r in rng.integers(0, 256, size=(SEAL_BATCH, 64), dtype=np.uint8)]
+    return keys, nonces, pts, aads
+
+
+def phase_seal_batch(torch, device, scalar, inputs) -> dict:
+    """One seal_batch and one open_batch of SEAL_BATCH x SEAL_LEN on the GPU,
+    timed with CUDA events; the first rows are held to the scalar AEAD."""
+    keys, nonces, pts, aads = inputs
+    sealed = device.seal_batch(keys, nonces, pts, aads)
+    for i in range(4):
+        if sealed[i] != scalar.seal(bytes(keys[i]), bytes(nonces[i]), pts[i], aads[i]):
+            raise PhaseFailed(f"seal batch: row {i} differs from the scalar AEAD")
+    opened = device.open_batch(keys, nonces, sealed, aads)
+    if opened != pts:
+        raise PhaseFailed("seal batch: open_batch did not give back every plaintext")
+    seal_ms = cuda_ms(torch, lambda: device.seal_batch(keys, nonces, pts, aads), 3)
+    open_ms = cuda_ms(torch, lambda: device.open_batch(keys, nonces, sealed, aads), 3)
+    mb = SEAL_BATCH * SEAL_LEN / 1e6
+    poly_steps = (256 + SEAL_LEN) // 16 + 1  # AAD bucket, message and length blocks
+    out = {"batch": SEAL_BATCH, "message_bytes": SEAL_LEN, "seal_ms": seal_ms,
+           "open_ms": open_ms, "seal_mb_per_s": mb / (seal_ms / 1e3),
+           "open_mb_per_s": mb / (open_ms / 1e3), "poly1305_blocks_per_row": poly_steps}
+    print(f"[seal batch] {SEAL_BATCH} x {SEAL_LEN} B: seal {seal_ms:.3f} ms "
+          f"({out['seal_mb_per_s']:.1f} MB/s), open {open_ms:.3f} ms "
+          f"({out['open_mb_per_s']:.1f} MB/s) by CUDA events; Poly1305 loop of "
+          f"{poly_steps} blocks a row")
+    return out
 
 
 def pct(xs, q):
@@ -588,13 +923,16 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
                 torch.cuda.synchronize()
         trace = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(trace))
-        window_us, busy_us = busy_share(json.loads(trace.read_text())["traceEvents"], window)
+        events = json.loads(trace.read_text())["traceEvents"]
+        window_us, busy_us = busy_share(events, window)
+        launches = sum(1 for e in events if e.get("cat") == "kernel")
     device_us = {ev.key: ev.self_device_time_total for ev in prof.key_averages()
                  if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
                  and ev.key != window}  # the annotation's own span on the GPU
     total_us = sum(device_us.values())
     ours = ("::sponge_kernel<", "::sample_ntt_kernel(", "::prf_cbd_kernel<", "::ntt_kernel<",
-            "::rej_ntt_kernel(", "::rej_bounded_kernel<")
+            "::rej_ntt_kernel(", "::rej_bounded_kernel<", "::sponge_varlen_kernel<",
+            "::chacha_kernel(")
     ours_us = sum(v for k, v in device_us.items() if any(o in k for o in ours))
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:12]
     out = {"batches": reps, "window_ms_per_batch": window_us / reps / 1e3,
@@ -602,6 +940,7 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
            "unprofiled_wall_ms_per_batch": plain_wall_us / reps / 1e3,
            "device_ms_per_batch": total_us / reps / 1e3,
            "port_kernels_ms_per_batch": ours_us / reps / 1e3, "device_kinds": len(device_us),
+           "kernel_launches_per_batch": launches / reps,
            "top_device_ms_per_batch": [[k, v / reps / 1e3] for k, v in top]}
     print(f"[profile] {label} batch under the profiler: window {out['window_ms_per_batch']:.3f}"
           f" ms, device busy {out['busy_ms_per_batch']:.3f} ms (busy share "
@@ -609,7 +948,7 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
           f"window takes {out['unprofiled_wall_ms_per_batch']:.3f} ms per batch")
     print(f"[profile] {label}: kernel time {out['device_ms_per_batch']:.3f} ms per batch, of "
           f"which the port's kernels {out['port_kernels_ms_per_batch']:.3f} ms; "
-          f"{len(device_us)} kinds")
+          f"{len(device_us)} kinds, {out['kernel_launches_per_batch']:.0f} launches")
     for name, ms in out["top_device_ms_per_batch"]:
         print(f"[profile]   {ms:.4f} ms  {name[:110]}")
     return out
@@ -628,11 +967,12 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     try:
-        from quantum_resistant_p2p_tpu_torch.core import keccak, keccak_cuda
+        from quantum_resistant_p2p_tpu_torch import provider
+        from quantum_resistant_p2p_tpu_torch.core import chacha, chacha_cuda, keccak, keccak_cuda
         from quantum_resistant_p2p_tpu_torch.entry import entry
         from quantum_resistant_p2p_tpu_torch.kem import mlkem, mlkem_cuda
         from quantum_resistant_p2p_tpu_torch.provider import (BatchedKEM, BatchedSignature,
-                                                              get_kem, get_signature)
+                                                              get_kem, get_signature, health)
         from quantum_resistant_p2p_tpu_torch.sig import mldsa, mldsa_cuda
         from quantum_resistant_p2p_tpu_torch.utils import cuda
     except ImportError as exc:
@@ -650,18 +990,30 @@ def main() -> int:
                 "mlkem_prf_cbd": mlkem_cuda.prf_cbd, "mlkem_prf_cbd_ntt": mlkem_cuda.prf_cbd_ntt,
                 "mlkem_ntt": mlkem_cuda.ntt, "mlkem_ntt_inv": mlkem_cuda.ntt_inv,
                 "mldsa_rej_ntt": mldsa_cuda.rej_ntt, "mldsa_rej_bounded": mldsa_cuda.rej_bounded,
-                "mldsa_ntt": mldsa_cuda.ntt, "mldsa_ntt_inv": mldsa_cuda.ntt_inv}
-    sources = {"keccak_sponge": "quantum_resistant_p2p_tpu_torch/csrc/sponge.cu"}
+                "mldsa_ntt": mldsa_cuda.ntt, "mldsa_ntt_inv": mldsa_cuda.ntt_inv,
+                "keccak_sponge_varlen": keccak_cuda.sponge_varlen,
+                "chacha_blocks": chacha_cuda.chacha_blocks}
+    sources = {"keccak_sponge": "quantum_resistant_p2p_tpu_torch/csrc/sponge.cu",
+               "keccak_sponge_varlen": "quantum_resistant_p2p_tpu_torch/csrc/sponge.cu",
+               "chacha_blocks": "quantum_resistant_p2p_tpu_torch/csrc/chacha.cu"}
     sources.update({n: "quantum_resistant_p2p_tpu_torch/csrc/mldsa.cu" for n in wrappers
                     if n.startswith("mldsa")})
 
     try:
         ptxas = phase_build(cuda)
         sass = keccak_round_sass(cuda)
+        sass["chacha_kernel"] = kernel_sass_opcodes(cuda, "chacha", "chacha_kernel")
         rows = phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mldsa_cuda,
-                             int_rate)
+                             chacha, chacha_cuda, int_rate)
         phase_kat(torch, mlkem)
         phase_kat_mldsa(torch, mldsa)
+        phase_kat_chacha(torch, np, chacha)
+        kem, dsa = get_kem("ML-KEM-768"), get_signature("ML-DSA-65")
+        if (kem.backend, dsa.backend) != ("cuda", "cuda"):
+            raise PhaseFailed(f"default backends are {kem.backend}, {dsa.backend}")
+        fused, aead = provider.get_fused(kem, dsa), provider.get_batched_aead(AEAD)
+        pk_off, ct_off = provider.init_pk_offset(kem.name, AEAD), provider.resp_ct_offset()
+        verdicts = phase_health(provider, health, kem, dsa, fused, aead, pk_off, ct_off)
 
         def reset():
             for w in wrappers.values():
@@ -676,9 +1028,6 @@ def main() -> int:
             return counts
 
         reset()
-        kem = get_kem("ML-KEM-768")
-        if kem.backend != "cuda":
-            raise PhaseFailed(f"serve: default backend is {kem.backend}")
         served = asyncio.run(serve(BatchedKEM, kem))
         launches = {"serve": read("serve", KEM_KERNELS)}
         print(f"[serve] {SERVE_CLIENTS} clients: {served['handshakes_per_s']:.1f} handshakes/s "
@@ -691,9 +1040,6 @@ def main() -> int:
         launches["flagship"] = read("flagship", ENCAPS_KERNELS)
 
         reset()
-        dsa = get_signature("ML-DSA-65")
-        if dsa.backend != "cuda":
-            raise PhaseFailed(f"sig serve: default backend is {dsa.backend}")
         sig_served = asyncio.run(sig_serve(BatchedSignature, dsa))
         launches["sig_serve"] = read("sig serve", SIG_KERNELS)
         print(f"[sig serve] {SERVE_CLIENTS} clients, one ML-DSA-65 key (keygen "
@@ -707,6 +1053,28 @@ def main() -> int:
         reset()
         sig_flagship = phase_sig_flagship(torch, mldsa, dsa_inputs)
         launches["sig_flagship"] = read("sig flagship", SIG_PRE_KERNELS)
+
+        cpu_dsa = get_signature("ML-DSA-65", backend="cpu")
+        reset()
+        shaken = asyncio.run(handshake(provider, kem, dsa, fused, cpu_dsa, pk_off, ct_off))
+        launches["handshake"] = read("handshake", HANDSHAKE_KERNELS)
+        print(f"[handshake] {HANDSHAKES} fused ML-KEM-768 + ML-DSA-65 handshakes (keys made "
+              f"in {shaken['keygen_s']:.3f} s): {shaken['handshakes_per_s']:.1f} handshakes/s "
+              f"({shaken['wall_s']:.3f} s), {shaken['trips_per_handshake']:.3f} queue ops a "
+              f"handshake, each on one flush; {shaken['device_trips']} device trips in all, "
+              f"flushes {shaken['flushes']}; latency ms {shaken['latency_ms']}")
+        for op, sizes in shaken["flush_sizes"].items():
+            print(f"[handshake] {op} flush sizes {sizes}")
+        reset()
+        plane = asyncio.run(data_plane(np, provider, aead, shaken["sessions"]))
+        seal_inputs = seal_batch_inputs(np, shaken["sessions"])
+        plane["seal_batch"] = phase_seal_batch(torch, aead, provider.get_symmetric(AEAD),
+                                               seal_inputs)
+        launches["data_plane"] = read("data plane", ("chacha_blocks",))
+        print(f"[data plane] {plane['messages']} sessions each sealed and opened one 256-byte "
+              f"message: {plane['round_trips_per_s']:.1f} round trips/s "
+              f"({plane['wall_s']:.3f} s); queues {plane['queues']}")
+        shaken.pop("sessions")  # session keys stay out of the printed detail
 
         # launches of one batched call of each op (after the counted window)
         def count(call):
@@ -732,13 +1100,15 @@ def main() -> int:
             "sign": phase_profile(torch, "sign",
                                   lambda: mldsa.sign_mu_pre(pd, pre_sk, dmu, drnd), 1),
             "verify": phase_profile(torch, "verify",
-                                    lambda: mldsa.verify_mu_pre(pd, pre_pk, dmu, dsig), 5)}
+                                    lambda: mldsa.verify_mu_pre(pd, pre_pk, dmu, dsig), 5),
+            "seal": phase_profile(torch, "seal", lambda: aead.seal_batch(*seal_inputs), 1)}
     except PhaseFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
     # one entry per kernel wrapper at its main-path shapes; the sponge's
-    # three calls (H, G, J) are summed, eta = 3 stays in the detail line
+    # three calls (H, G, J) are summed, eta = 3 and K8's 64 KiB shape stay
+    # in the detail line
     kernels = []
     for name in wrappers:
         mine = [r for r in rows if r["name"] == name]
@@ -757,6 +1127,7 @@ def main() -> int:
     print(json.dumps({"detail": {"ptxas": ptxas, "keccak_round_sass": sass,
                                  "kernel_rows": rows, "serve": served, "flagship": flagship,
                                  "sig_serve": sig_served, "sig_flagship": sig_flagship,
+                                 "health": verdicts, "handshake": shaken, "data_plane": plane,
                                  "launches": launches, "launches_per_op": per_op,
                                  "profile": profiled}}))
     print(card)

@@ -142,6 +142,62 @@ def sponge(data: torch.Tensor, rate: int, ds_byte: int, out_len: int) -> torch.T
     return keccak_cuda.sponge(data, rate, ds_byte, out_len)
 
 
+def sponge_varlen_plain(data: torch.Tensor, lengths: torch.Tensor, rate: int, ds_byte: int,
+                        out_len: int) -> torch.Tensor:
+    """The plain varlen sponge: ``(..., LMAX)`` uint8 rows whose true byte
+    lengths are ``lengths`` (``(...,)``, each in [0, LMAX]) -> ``(..., out_len)``.
+
+    Bytes at index >= the row's length are ignored (masked to zero), the
+    domain byte lands at the length and 0x80 at the end of the block that
+    holds it (one byte when length % rate == rate - 1: the bits are
+    disjoint, so xor is the spec's or).  The absorb runs over
+    ``LMAX // rate + 1`` blocks, and a row keeps its state once its
+    message has ended."""
+    batch = data.shape[:-1]
+    lmax = data.shape[-1]
+    n = math.prod(batch)
+    nwords = rate // 8
+    nblocks = lmax // rate + 1
+    padded_len = nblocks * rate
+    dev = data.device
+    mlen = lengths.to(torch.int64).expand(batch).reshape(n, 1)
+    idx = torch.arange(padded_len, device=dev)
+    buf = torch.zeros((n, padded_len), dtype=torch.uint8, device=dev)
+    buf[:, :lmax] = data.reshape(n, lmax)
+    buf = torch.where(idx < mlen, buf, 0)
+    buf = buf ^ torch.where(idx == mlen, ds_byte, 0).to(torch.uint8)
+    last_block = mlen // rate
+    buf = buf ^ torch.where(idx == (last_block + 1) * rate - 1, 0x80, 0).to(torch.uint8)
+    blocks = buf.view(torch.int64).reshape(n, nblocks, nwords)
+    state = torch.zeros((n, 25), dtype=torch.int64, device=dev)
+    for blk in range(nblocks):
+        nxt = keccak_f1600(torch.cat([state[:, :nwords] ^ blocks[:, blk], state[:, nwords:]],
+                                     dim=1))
+        state = torch.where(blk <= last_block, nxt, state)
+    out = []
+    for blk in range(-(-out_len // rate)):
+        if blk:
+            state = keccak_f1600(state)
+        out.append(state[:, :nwords].contiguous().view(torch.uint8))
+    return torch.cat(out, dim=1)[:, :out_len].reshape(batch + (out_len,))
+
+
+def sponge_varlen(data: torch.Tensor, lengths: torch.Tensor, rate: int, ds_byte: int,
+                  out_len: int) -> torch.Tensor:
+    """Keccak sponge over per-row variable-length messages: ``(..., LMAX)``
+    uint8 rows, ``(...,)`` true lengths in [0, LMAX] -> ``(..., out_len)``
+    uint8 (see :func:`sponge_varlen_plain`).  CPU tensors take the plain
+    version; any other device goes to kernel K1's per-row-length entry."""
+    if data.device.type == "cpu":
+        return sponge_varlen_plain(data, lengths, rate, ds_byte, out_len)
+    return keccak_cuda.sponge_varlen(data, lengths, rate, ds_byte, out_len)
+
+
+def shake256_varlen(data: torch.Tensor, lengths: torch.Tensor, out_len: int) -> torch.Tensor:
+    """(..., LMAX) uint8 + (...,) true lengths -> (..., out_len) uint8."""
+    return sponge_varlen(data, lengths, 136, 0x1F, out_len)
+
+
 def seed_rows(seeds: torch.Tensor) -> tuple[torch.Tensor, tuple[int, ...]]:
     """Flatten ``(..., L)`` XOF/PRF seeds to contiguous ``(B, L)`` rows plus
     the batch shape: the input convention of the sampler kernels, which

@@ -1,5 +1,6 @@
 """The plugin boundary (counterpart of the reference's ``provider/base.py``):
-the KEM and signature interfaces.
+the KEM and signature interfaces, the fused handshake capability, and the
+AEAD interfaces (scalar and batched).
 
 An algorithm reports its ``backend`` ("cuda" or "cpu") and offers
 ``*_batch`` operations over ``(batch, ...)`` uint8 numpy arrays; the scalar
@@ -134,6 +135,115 @@ class SignatureAlgorithm(abc.ABC):
                      signatures: list[bytes]) -> np.ndarray:
         return np.array([self.verify(bytes(pk), m, s)
                          for pk, m, s in zip(public_keys, messages, signatures)])
+
+
+class FusedHandshakeOps(abc.ABC):
+    """Composite device programs for a (KEM, signature) provider pair: what
+    one handshake step runs back to back (KEM op, transcript hash,
+    signature op) in one batched call.
+
+    Found through ``provider.registry.get_fused(kem, sig)``.  ``templates``
+    are canonical transcript bytes with a zeroed gap at the given static
+    offset, where the device hex-encodes its own output (the fresh public
+    key or ciphertext) before hashing; ``msgs_in`` / ``msgs_out`` are
+    transcripts the host knows whole.  Sign raises where a lane exhausts
+    its rejection budget; verify maps any failure to False.
+    """
+
+    kem: KeyExchangeAlgorithm
+    sig: SignatureAlgorithm
+    name: str = ""
+    backend: str = "cuda"
+    #: longest template of each kind the programs take
+    init_template_len: int = 0
+    resp_template_len: int = 0
+
+    @abc.abstractmethod
+    def keygen_sign_batch(self, sig_sks: np.ndarray, templates: list[bytes], pk_off: int,
+                          rnd=None):
+        """-> (public_keys (n, pk_len), secret_keys (n, sk_len), sigs
+        list[bytes]): KEM keygen + sign(template with hex(pk) at ``pk_off``)."""
+
+    @abc.abstractmethod
+    def encaps_verify_sign_batch(self, public_keys: np.ndarray, peer_sig_pks: np.ndarray,
+                                 msgs_in: list[bytes], sigs_in: list[bytes],
+                                 sig_sks: np.ndarray, templates: list[bytes], ct_off: int,
+                                 m=None, rnd=None):
+        """-> (oks (n,) bool, cts, shared_secrets, sigs list[bytes]):
+        verify(msgs_in) + KEM encaps + sign(template with hex(ct) at ``ct_off``)."""
+
+    @abc.abstractmethod
+    def decaps_verify_sign_batch(self, secret_keys: np.ndarray, ciphertexts: np.ndarray,
+                                 peer_sig_pks: np.ndarray, msgs_in: list[bytes],
+                                 sigs_in: list[bytes], sig_sks: np.ndarray,
+                                 msgs_out: list[bytes], rnd=None):
+        """-> (oks (n,) bool, shared_secrets, sigs list[bytes]):
+        verify(msgs_in) + KEM decaps + sign(msgs_out)."""
+
+
+class SymmetricAlgorithm(abc.ABC):
+    """AEAD interface, scalar (one message a call, on the host).
+
+    The batched device path is a separate capability (:class:`BatchedAEADOps`,
+    found through ``provider.registry.get_batched_aead``).  Wire format: a
+    12-byte nonce before ``ciphertext || tag``; a failed authentication
+    raises ValueError."""
+
+    name: str = ""
+    display_name: str = ""
+    description: str = ""
+    security_level: int = 0
+    backend: str = "cpu"
+    key_size: int = 32
+    nonce_size: int = 12
+
+    @abc.abstractmethod
+    def encrypt(self, key: bytes, plaintext: bytes, associated_data: bytes | None = None) -> bytes:
+        """-> nonce || ciphertext || tag"""
+
+    @abc.abstractmethod
+    def decrypt(self, key: bytes, data: bytes, associated_data: bytes | None = None) -> bytes:
+        """-> plaintext; raises ValueError on authentication failure"""
+
+    def seal(self, key: bytes, nonce: bytes, plaintext: bytes,
+             associated_data: bytes | None = None) -> bytes:
+        """Seal under a given nonce: -> ``ciphertext || tag`` (no nonce
+        prefix); ``encrypt`` is a random nonce + seal."""
+        raise NotImplementedError(f"{self.name} has no deterministic seal")
+
+    def open_(self, key: bytes, nonce: bytes, data: bytes,
+              associated_data: bytes | None = None) -> bytes:
+        """Open ``ciphertext || tag`` under a given nonce; ValueError on
+        authentication failure."""
+        raise NotImplementedError(f"{self.name} has no deterministic open")
+
+
+class BatchedAEADOps(abc.ABC):
+    """Batched device seal/open for one AEAD.
+
+    Keys and nonces are ``(n, key_size)`` / ``(n, nonce_size)`` uint8 rows;
+    messages and AADs are ragged lists of bytes-like objects.  A failed
+    authentication is a ``ValueError`` instance in the result list, never
+    raised, so one tampered ciphertext does not fail its batch mates."""
+
+    name: str = ""
+    backend: str = "cuda"
+    key_size: int = 32
+    nonce_size: int = 12
+    tag_size: int = 16
+    #: longest message / AAD the device path takes (set by each implementation)
+    max_len: int
+    max_aad_len: int
+
+    @abc.abstractmethod
+    def seal_batch(self, keys: np.ndarray, nonces: np.ndarray, plaintexts: list,
+                   aads: list) -> list[bytes]:
+        """-> per-item ``ciphertext || tag``."""
+
+    @abc.abstractmethod
+    def open_batch(self, keys: np.ndarray, nonces: np.ndarray, data: list, aads: list) -> list:
+        """``data`` items are ``ciphertext || tag``; -> per-item plaintext
+        bytes, or a ``ValueError`` instance where authentication failed."""
 
 
 def expect_len(buf: bytes, expected: int, what: str, algo: str) -> None:

@@ -15,14 +15,16 @@ flush raises in every future it carried: there is no CPU path to fall back
 to.
 
 Counterpart of the reference's ``provider/batched.py`` (``OpQueue``,
-``QueueStats``, ``_run_valid``, ``BatchedKEM``, ``BatchedSignature``)
-without its circuit breaker, CPU degrade path, warm-bucket tracking and
-warm-up, autotuner, priority lanes, placement scheduler and fault hooks.
+``QueueStats``, ``_run_valid``, ``BatchedKEM``, ``BatchedSignature``,
+``BatchedFused``, ``BatchedAEAD``) without its circuit breaker, CPU degrade
+path, warm-bucket tracking and warm-up, autotuner, priority lanes,
+placement scheduler and fault hooks.
 """
 
 from __future__ import annotations
 
 import asyncio
+import os
 import time
 import weakref
 from concurrent.futures import ThreadPoolExecutor
@@ -33,7 +35,8 @@ import numpy as np
 
 from ..obs.metrics import LatencyHistogram
 from ..utils.wipe import wipe
-from .base import KeyExchangeAlgorithm, SignatureAlgorithm, next_pow2, pad_rows
+from .base import (BatchedAEADOps, FusedHandshakeOps, KeyExchangeAlgorithm, SignatureAlgorithm,
+                   next_pow2, pad_rows)
 
 
 @dataclass
@@ -203,6 +206,16 @@ def _run_valid(items, is_valid, dispatch, invalid_result, floor=1):
     return results
 
 
+def _stack(items, idx: int, tgt: int) -> np.ndarray:
+    """Field ``idx`` of each item as uint8 rows, padded to ``tgt`` rows."""
+    return pad_rows(np.stack([np.frombuffer(it[idx], np.uint8) for it in items]), tgt)
+
+
+def _column(items, idx: int, tgt: int) -> list:
+    """Field ``idx`` of each item, the last repeated up to ``tgt``."""
+    return [it[idx] for it in items] + [items[-1][idx]] * (tgt - len(items))
+
+
 class _Facade:
     """Queues of one algorithm's batch functions on one hub and one device
     thread.
@@ -266,9 +279,8 @@ class BatchedKEM(_Facade):
     @staticmethod
     def _dec_batch(algo, floor, items: list[tuple[bytes, bytes]]):
         def dispatch(valid, tgt):
-            sks = pad_rows(np.stack([np.frombuffer(sk, np.uint8) for sk, _ in valid]), tgt)
-            cts = pad_rows(np.stack([np.frombuffer(ct, np.uint8) for _, ct in valid]), tgt)
-            sss = algo.decapsulate_batch(sks, cts)
+            sks = _stack(valid, 0, tgt)
+            sss = algo.decapsulate_batch(sks, _stack(valid, 1, tgt))
             out = [bytes(ss) for ss in sss]
             wipe(sks, sss)
             return out
@@ -312,9 +324,8 @@ class BatchedSignature(_Facade):
     @staticmethod
     def _sign_batch(algo, floor, items: list[tuple[bytes, bytes]]):
         def dispatch(valid, tgt):
-            sks = pad_rows(np.stack([np.frombuffer(sk, np.uint8) for sk, _ in valid]), tgt)
-            msgs = [m for _, m in valid] + [valid[-1][1]] * (tgt - len(valid))
-            sigs = algo.sign_batch(sks, msgs)
+            sks = _stack(valid, 0, tgt)
+            sigs = algo.sign_batch(sks, _column(valid, 1, tgt))
             wipe(sks)
             return sigs
 
@@ -324,11 +335,9 @@ class BatchedSignature(_Facade):
     @staticmethod
     def _verify_batch(algo, floor, items: list[tuple[bytes, bytes, bytes]]):
         def dispatch(valid, tgt):
-            pks = pad_rows(np.stack([np.frombuffer(pk, np.uint8) for pk, _, _ in valid]), tgt)
-            pad = tgt - len(valid)
-            msgs = [m for _, m, _ in valid] + [valid[-1][1]] * pad
-            sigs = [s for _, _, s in valid] + [valid[-1][2]] * pad
-            return [bool(ok) for ok in algo.verify_batch(pks, msgs, sigs)]
+            oks = algo.verify_batch(_stack(valid, 0, tgt), _column(valid, 1, tgt),
+                                    _column(valid, 2, tgt))
+            return [bool(ok) for ok in oks]
 
         return _run_valid(
             items,
@@ -343,3 +352,191 @@ class BatchedSignature(_Facade):
 
     def stats(self) -> dict[str, Any]:
         return {"sign": self._sign.stats.as_dict(), "verify": self._verify.stats.as_dict()}
+
+
+class BatchedFused(_Facade):
+    """Async facade over a ``FusedHandshakeOps`` capability: three queues
+    (keygen+sign, verify+encaps+sign, verify+decaps+sign), so a handshake
+    step's KEM op, transcript hash and signature op are one device trip.
+
+    ``pk_off`` / ``ct_off`` are the static byte offsets of the hex-encoded
+    device output inside the init / response transcript templates: facts of
+    the caller's canonical-JSON layout, so one facade serves one layout.
+
+    Every field is length-checked per item: a malformed ``keygen_sign``
+    item fails alone with a ValueError, a malformed ``encaps_verify_sign``
+    or ``decaps_verify_sign`` item fails alone as ``ok=False`` (the verify
+    contract: most of their fields come from the peer).  A failed flush
+    raises in every waiter: there is no CPU path to fall back to.
+    """
+
+    def __init__(self, fused: FusedHandshakeOps, pk_off: int, ct_off: int,
+                 max_batch: int = 4096, max_wait_ms: float = 2.0, bucket_floor: int = 1):
+        self.name = fused.name
+        self.pk_off = pk_off
+        self.ct_off = ct_off
+        super().__init__(fused, (self._kg_batch, self._enc_batch, self._dec_batch), max_batch,
+                         max_wait_ms, bucket_floor)
+        self._kg, self._enc, self._dec = self._queues
+
+    def _kg_valid(self, it) -> bool:
+        sk, tmpl = it
+        return (len(sk) == self.algo.sig.secret_key_len
+                and self.pk_off + 2 * self.algo.kem.public_key_len <= len(tmpl)
+                <= self.algo.init_template_len)
+
+    def _enc_valid(self, it) -> bool:
+        peer_pk, peer_sig_pk, _msg_in, sig_in, sk, tmpl = it
+        return (len(peer_pk) == self.algo.kem.public_key_len
+                and len(peer_sig_pk) == self.algo.sig.public_key_len
+                and len(sig_in) == self.algo.sig.signature_len
+                and len(sk) == self.algo.sig.secret_key_len
+                and self.ct_off + 2 * self.algo.kem.ciphertext_len <= len(tmpl)
+                <= self.algo.resp_template_len)
+
+    def _dec_valid(self, it) -> bool:
+        kem_sk, ct, peer_sig_pk, _msg_in, sig_in, sk, _msg_out = it
+        return (len(kem_sk) == self.algo.kem.secret_key_len
+                and len(ct) == self.algo.kem.ciphertext_len
+                and len(peer_sig_pk) == self.algo.sig.public_key_len
+                and len(sig_in) == self.algo.sig.signature_len
+                and len(sk) == self.algo.sig.secret_key_len)
+
+    @staticmethod
+    def _render(tmpl: bytes, payload: bytes, off: int) -> bytes:
+        """Host twin of the device's hex insert: the transcript the
+        signature covers."""
+        return tmpl[:off] + payload.hex().encode() + tmpl[off + 2 * len(payload):]
+
+    def _kg_batch(self, fused, floor, items):
+        def dispatch(valid, tgt):
+            sks = _stack(valid, 0, tgt)
+            pks, ksks, sigs = fused.keygen_sign_batch(sks, _column(valid, 1, tgt), self.pk_off)
+            out = [(bytes(p), bytes(k), s) for p, k, s in zip(pks, ksks, sigs)]
+            wipe(sks, ksks)
+            return out
+
+        return _run_valid(items, self._kg_valid, dispatch,
+                          lambda: ValueError("bad secret-key/template length"), floor)
+
+    def _enc_batch(self, fused, floor, items):
+        def dispatch(valid, tgt):
+            sks = _stack(valid, 4, tgt)
+            oks, cts, sss, sigs = fused.encaps_verify_sign_batch(
+                _stack(valid, 0, tgt), _stack(valid, 1, tgt), _column(valid, 2, tgt),
+                _column(valid, 3, tgt), sks, _column(valid, 5, tgt), self.ct_off)
+            out = [(bool(ok), bytes(ct), bytes(ss), sig)
+                   for ok, ct, ss, sig in zip(oks, cts, sss, sigs)]
+            wipe(sks, sss)
+            return out
+
+        return _run_valid(items, self._enc_valid, dispatch, lambda: (False, b"", b"", b""),
+                          floor)
+
+    def _dec_batch(self, fused, floor, items):
+        def dispatch(valid, tgt):
+            ksks, sks = _stack(valid, 0, tgt), _stack(valid, 5, tgt)
+            oks, sss, sigs = fused.decaps_verify_sign_batch(
+                ksks, _stack(valid, 1, tgt), _stack(valid, 2, tgt), _column(valid, 3, tgt),
+                _column(valid, 4, tgt), sks, _column(valid, 6, tgt))
+            out = [(bool(ok), bytes(ss), sig) for ok, ss, sig in zip(oks, sss, sigs)]
+            wipe(ksks, sks, sss)
+            return out
+
+        return _run_valid(items, self._dec_valid, dispatch, lambda: (False, b"", b""), floor)
+
+    async def keygen_sign(self, sig_sk: bytes, template: bytes):
+        """-> (kem_pk, kem_sk, sig) for the init step, one device trip."""
+        return await self._kg.submit((sig_sk, template))
+
+    async def encaps_verify_sign(self, peer_pk: bytes, peer_sig_pk: bytes, msg_in: bytes,
+                                 sig_in: bytes, sig_sk: bytes, template: bytes):
+        """-> (ok, ct, shared_secret, sig) for the response step."""
+        return await self._enc.submit((peer_pk, peer_sig_pk, msg_in, sig_in, sig_sk, template))
+
+    async def decaps_verify_sign(self, kem_sk: bytes, ct: bytes, peer_sig_pk: bytes,
+                                 msg_in: bytes, sig_in: bytes, sig_sk: bytes, msg_out: bytes):
+        """-> (ok, shared_secret, sig) for the confirm step."""
+        return await self._dec.submit((kem_sk, ct, peer_sig_pk, msg_in, sig_in, sig_sk, msg_out))
+
+    def stats(self) -> dict[str, Any]:
+        return {"keygen_sign": self._kg.stats.as_dict(),
+                "encaps_verify_sign": self._enc.stats.as_dict(),
+                "decaps_verify_sign": self._dec.stats.as_dict()}
+
+
+class BatchedAEAD(_Facade):
+    """Async facade over a ``BatchedAEADOps`` capability: the data plane.
+    Seal and open operations of every live session coalesce into batches.
+
+    ``encrypt`` puts the same random 12-byte nonce before ``ciphertext ||
+    tag`` that the scalar ``SymmetricAlgorithm.encrypt`` does, and the
+    device seal is byte-identical to the scalar one, so a peer cannot tell
+    which path sealed a frame.  An item that is malformed or longer than
+    the device's ``max_len`` / ``max_aad_len`` fails alone with a
+    ValueError (an open: the same "authentication failed" a bad tag gives);
+    a failed flush raises in every waiter.  Operands may be ``memoryview``s.
+    """
+
+    def __init__(self, device: BatchedAEADOps, max_batch: int = 4096, max_wait_ms: float = 2.0,
+                 bucket_floor: int = 1):
+        self.name = device.name
+        self.key_size = device.key_size
+        self.nonce_size = device.nonce_size
+        self.tag_size = device.tag_size
+        super().__init__(device, (self._seal_batch, self._open_batch), max_batch, max_wait_ms,
+                         bucket_floor)
+        self._seal, self._open = self._queues
+
+    def _seal_valid(self, it) -> bool:
+        key, nonce, pt, aad = it
+        return (len(key) == self.key_size and len(nonce) == self.nonce_size
+                and len(pt) <= self.algo.max_len and len(aad) <= self.algo.max_aad_len)
+
+    def _open_valid(self, it) -> bool:
+        key, nonce, data, aad = it
+        return (len(key) == self.key_size and len(nonce) == self.nonce_size
+                and self.tag_size <= len(data) <= self.algo.max_len + self.tag_size
+                and len(aad) <= self.algo.max_aad_len)
+
+    def _seal_batch(self, device, floor, items):
+        def dispatch(valid, tgt):
+            keys = _stack(valid, 0, tgt)
+            out = device.seal_batch(keys, _stack(valid, 1, tgt), _column(valid, 2, tgt),
+                                    _column(valid, 3, tgt))
+            wipe(keys)
+            return out
+
+        return _run_valid(items, self._seal_valid, dispatch,
+                          lambda: ValueError("bad AEAD seal operand"), floor)
+
+    def _open_batch(self, device, floor, items):
+        def dispatch(valid, tgt):
+            keys = _stack(valid, 0, tgt)
+            out = device.open_batch(keys, _stack(valid, 1, tgt), _column(valid, 2, tgt),
+                                    _column(valid, 3, tgt))
+            wipe(keys)
+            return out
+
+        # every malformed input fails as the scalar decrypt's bad tag does
+        return _run_valid(items, self._open_valid, dispatch,
+                          lambda: ValueError("authentication failed"), floor)
+
+    async def encrypt(self, key: bytes, plaintext, associated_data=None) -> bytes:
+        """-> ``nonce || ciphertext || tag``, as the scalar ``encrypt`` gives."""
+        nonce = os.urandom(self.nonce_size)
+        ad = bytes(associated_data) if associated_data else b""
+        return nonce + await self._seal.submit((bytes(key), nonce, plaintext, ad))
+
+    async def decrypt(self, key: bytes, data, associated_data=None) -> bytes:
+        """Open ``nonce || ciphertext || tag``; ValueError on failure, as the
+        scalar ``decrypt``."""
+        if len(data) < self.nonce_size + self.tag_size:
+            raise ValueError("ciphertext too short")
+        view = memoryview(data)
+        ad = bytes(associated_data) if associated_data else b""
+        return await self._open.submit((bytes(key), bytes(view[: self.nonce_size]),
+                                        view[self.nonce_size:], ad))
+
+    def stats(self) -> dict[str, Any]:
+        return {"seal": self._seal.stats.as_dict(), "open": self._open.stats.as_dict()}

@@ -7,7 +7,8 @@ without them:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -m cuda -q
 
 Each kernel is held bitwise to its plain PyTorch version on the same
-device, and the GPU paths of ML-KEM and ML-DSA to the CPU paths.
+device, and the GPU paths of ML-KEM, ML-DSA, the fused handshake programs
+and the ChaCha20-Poly1305 core to the CPU paths.
 """
 
 import asyncio
@@ -16,10 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from quantum_resistant_p2p_tpu_torch.core import keccak, keccak_cuda
+from quantum_resistant_p2p_tpu_torch.core import chacha, chacha_cuda, keccak, keccak_cuda
+from quantum_resistant_p2p_tpu_torch.fused import mlkem_mldsa as fused
 from quantum_resistant_p2p_tpu_torch.kem import mlkem, mlkem_cuda
-from quantum_resistant_p2p_tpu_torch.provider import (BatchedKEM, BatchedSignature, get_kem,
-                                                      get_signature)
+from quantum_resistant_p2p_tpu_torch.provider import (BatchedAEAD, BatchedKEM, BatchedSignature,
+                                                      get_batched_aead, get_kem, get_signature,
+                                                      get_symmetric, init_pk_offset,
+                                                      resp_ct_offset)
 from quantum_resistant_p2p_tpu_torch.sig import mldsa, mldsa_cuda
 
 pytestmark = pytest.mark.cuda
@@ -144,3 +148,92 @@ def test_batched_signature_on_the_default_backend(gpu):
 
     oks, bad = asyncio.run(run())
     assert all(oks) and not bad
+
+
+def test_sponge_varlen_kernel_matches_plain(gpu):
+    """K1 with per-row lengths: every residue of the length around block
+    edges at rate 136, 0 and LMAX, garbage past each length."""
+    lmax = 1000
+    lengths = [0, lmax] + [k * 136 + o for k in range(1, 8) for o in (-2, -1, 0, 1)]
+    x = _u8(120, len(lengths), lmax).to(gpu)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=gpu)
+    before = keccak_cuda.sponge_varlen.launches
+    for rate, ds, out_len in ((136, 0x1F, 64), (72, 0x06, 64), (168, 0x1F, 300)):
+        got = keccak.sponge_varlen(x, lens, rate, ds, out_len)
+        assert torch.equal(got, keccak.sponge_varlen_plain(x, lens, rate, ds, out_len))
+    torch.cuda.synchronize()
+    assert keccak_cuda.sponge_varlen.launches == before + 3
+
+
+def test_chacha_kernel_matches_plain(gpu):
+    states = _u8(121, 5000, 48).view(torch.int32).to(gpu)
+    before = chacha_cuda.chacha_blocks.launches
+    got = chacha.chacha_blocks(states)
+    torch.cuda.synchronize()
+    assert chacha_cuda.chacha_blocks.launches == before + 1
+    assert torch.equal(got, chacha.chacha_blocks_plain(states))
+    # a view that is not 16-byte aligned is copied, not misread
+    shifted = states.reshape(-1)[1: 1 + 12 * 4999].view(4999, 12)
+    assert shifted.data_ptr() % 16
+    assert torch.equal(chacha_cuda.chacha_blocks(shifted), chacha.chacha_blocks_plain(shifted))
+
+
+def test_aead_core_gpu_matches_cpu(gpu):
+    b, width, aad_width = 37, 1024, 64
+    keys, nonces = _u8(122, b, 32), _u8(123, b, 12)
+    data, aads = _u8(124, b, width), _u8(125, b, aad_width)
+    lens = torch.tensor([(29 * i) % (width + 1) for i in range(b)])
+    aad_lens = torch.tensor([(5 * i) % (aad_width + 1) for i in range(b)])
+    for seal in (True, False):
+        want = chacha.aead_core(keys, nonces, data, lens, aads, aad_lens, seal=seal)
+        got = chacha.aead_core(*(t.to(gpu) for t in (keys, nonces, data, lens, aads, aad_lens)),
+                               seal=seal)
+        for w, g in zip(want, got):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_fused_programs_gpu_match_cpu(gpu):
+    kem, sig = "ML-KEM-768", "ML-DSA-65"
+    pk_off, ct_off = init_pk_offset(kem, "ChaCha20-Poly1305"), resp_ct_offset()
+    b = 4
+    pk, sk = mldsa.keygen(mldsa.MLDSA65, _u8(130, b, 32))
+    tmpl = torch.zeros((b, 2 * 1184 + 1024), dtype=torch.uint8)
+    tmpl[:, : pk_off + 2368 + 40] = ord("x")
+    lens = torch.tensor([pk_off + 2368 + 10 * i for i in range(b)], dtype=torch.int32)
+    rtmpl = torch.zeros((b, 2 * 1088 + 1024), dtype=torch.uint8)
+    rlens = torch.full((b,), ct_off + 2176 + 7, dtype=torch.int32)
+    d, z, m, rnd, mu = (_u8(131 + i, b, w) for i, w in enumerate((32, 32, 32, 32, 64)))
+
+    def run(dev):
+        on = [t.to(dev) for t in (d, z, sk, rnd, tmpl, lens)]
+        ek, dk, s1, done1 = fused.keygen_sign(kem, sig, pk_off, *on)
+        enc = fused.encaps_verify_sign(
+            kem, sig, ct_off, ek, m.to(dev), pk.to(dev), mu.to(dev), s1, sk.to(dev), rnd.to(dev), rtmpl.to(dev),
+            rlens.to(dev))
+        dec = fused.decaps_verify_sign(
+            kem, sig, dk, enc[1], pk.to(dev), mu.to(dev), enc[3], sk.to(dev), mu.to(dev), rnd.to(dev))
+        return [t.cpu() for t in (ek, dk, s1, done1, *enc, *dec)]
+
+    before = keccak_cuda.sponge_varlen.launches
+    got = run(gpu)
+    assert keccak_cuda.sponge_varlen.launches == before + 2
+    for g, w in zip(got, run("cpu")):
+        assert torch.equal(g, w)
+
+
+def test_batched_aead_on_the_default_backend(gpu):
+    device = get_batched_aead("ChaCha20-Poly1305")
+    assert device.backend == "cuda"
+    scalar = get_symmetric("ChaCha20-Poly1305")
+    key = bytes(range(32))
+    msgs = [bytes([i]) * (97 * i) for i in range(40)]
+
+    async def run():
+        with BatchedAEAD(device, max_wait_ms=5.0) as aead:
+            frames = await asyncio.gather(*(aead.encrypt(key, m, b"ad") for m in msgs))
+            opened = await asyncio.gather(*(aead.decrypt(key, f, b"ad") for f in frames))
+            return frames, opened
+
+    frames, opened = asyncio.run(run())
+    assert opened == msgs
+    assert [scalar.decrypt(key, f, b"ad") for f in frames] == msgs

@@ -235,6 +235,16 @@ def test_port_imports_no_jax():
         "import quantum_resistant_p2p_tpu_torch.sig.mldsa_cuda\n"
         "import quantum_resistant_p2p_tpu_torch.provider.sig_providers\n"
         "from quantum_resistant_p2p_tpu_torch.provider import BatchedSignature\n"
+        "import quantum_resistant_p2p_tpu_torch.fused.mlkem_mldsa\n"
+        "import quantum_resistant_p2p_tpu_torch.core.chacha, quantum_resistant_p2p_tpu_torch.core.chacha_cuda\n"
+        "import quantum_resistant_p2p_tpu_torch.provider.aead_device\n"
+        "import quantum_resistant_p2p_tpu_torch.provider.health\n"
+        "import quantum_resistant_p2p_tpu_torch.provider.symmetric\n"
+        "from quantum_resistant_p2p_tpu_torch.provider import get_batched_aead\n"
+        "dev = get_batched_aead('ChaCha20-Poly1305', backend='cpu')\n"
+        "k, n = np.zeros((1, 32), np.uint8), np.zeros((1, 12), np.uint8)\n"
+        "sealed = dev.seal_batch(k, n, [b'frame'], [b'ad'])\n"
+        "assert dev.open_batch(k, n, sealed, [b'ad']) == [b'frame']\n"
         "kem = get_kem('ML-KEM-512', backend='cpu')\n"
         "pk, sk = kem.generate_keypair()\n"
         "ct, ss = kem.encapsulate(pk)\n"
