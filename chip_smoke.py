@@ -6,26 +6,31 @@ one NVIDIA GPU.
 
 Phases, each of which fails the run (exit 1) if anything is wrong:
 
-1. build     compile csrc/sponge.cu, csrc/mlkem.cu, csrc/mldsa.cu and
-             csrc/chacha.cu with nvcc (sm_90a), all at once, and print the
-             ptxas register/spill summary and the SASS of K1's Keccak round
-             loop;
+1. build     compile csrc/sponge.cu, csrc/mlkem.cu, csrc/mldsa.cu,
+             csrc/chacha.cu and csrc/frodo.cu with nvcc (sm_90a), all at
+             once, and print the ptxas register/spill summary and the SASS
+             of K1's Keccak round loop;
 2. kernels   run every kernel and its plain PyTorch version on the GPU at
              the shapes of the batch-4096 ML-KEM-768 and ML-DSA-65 paths,
              K1 with per-row lengths on 4096 transcripts of up to 3458
-             bytes, and K8 on 4096 x 65 and 4096 x 1025 ChaCha20 blocks;
-             require bitwise equality, and time both with CUDA events;
-3. kat       tests/vectors/mlkem_768.json through keygen/encaps/decaps and
-             tests/vectors/mldsa_65.json through keygen/sign/verify on the
-             GPU, byte-exact; the RFC 8439 §2.3.2 block, §2.5.2 Poly1305
+             bytes, K8 on 4096 x 65 and 4096 x 1025 ChaCha20 blocks, K9 and
+             K10 at FrodoKEM-640-SHAKE, B = 1024 (BASELINE.json config 3's
+             batch) and FrodoKEM-1344-SHAKE, B = 256, and K11 at the sample
+             count of that 640 encaps batch; require bitwise equality, and
+             time both with CUDA events (K11 beside torch.searchsorted);
+3. kat       tests/vectors/mlkem_768.json through keygen/encaps/decaps,
+             tests/vectors/mldsa_65.json through keygen/sign/verify and the
+             six tests/vectors/frodo_*.json through keygen/encaps/decaps on
+             the GPU, byte-exact; the RFC 8439 §2.3.2 block, §2.5.2 Poly1305
              and §2.8.2 AEAD vectors through core.chacha on the GPU; the
              health gate (ML-KEM-768 KAT, ML-DSA-65 round trip, fused
-             keygen_sign, AEAD KAT) on the "cuda" providers with their
-             "cpu" twins;
+             keygen_sign, AEAD KAT, FrodoKEM-640-SHAKE KAT, FrodoKEM-640-AES
+             round trip) on the "cuda" providers with their "cpu" twins;
 4. serve     BatchedKEM over get_kem("ML-KEM-768") (GPU backend) with
              max_batch 4096 and max_wait 2 ms: 1024 concurrent clients each
              run keygen -> encaps -> decaps, then encapsulate twice to one
-             server key (the operand cache must hit); all secrets agree;
+             server key (the operand cache must hit); all secrets agree,
+             and a tampered ciphertext does not give the secret;
 5. flagship  entry(): batched ML-KEM-768 encaps at B = 4096, checked
              against the CPU path on its first rows, timed with CUDA events;
 6. sig serve BatchedSignature over get_signature("ML-DSA-65") (GPU
@@ -52,16 +57,25 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              clients BatchedAEAD.encrypt a 256-byte message and the gateway
              decrypts it (a tampered frame fails); then one seal_batch and
              open_batch of 4096 messages of 4 KiB;
-10. profile  torch.profiler over the KEM flagship, one sign batch, five
-             verify batches and one 4096 x 4 KiB seal batch: device time
-             per kernel, launches, and the device busy share of each window
+10. frodo serve  phase 4 over get_kem("FrodoKEM-640-SHAKE"): a gateway
+             serving FrodoKEM peers;
+11. frodo batch  BASELINE.json config 3: encaps at B = 1024 of
+             FrodoKEM-640-AES and FrodoKEM-640-SHAKE, to 1024 keys (K10,
+             resp. the AES chunk loop) and to one key over its precompute
+             (encaps_pre), checked against the CPU path on the first rows,
+             timed with CUDA events and the host clock;
+12. profile  torch.profiler over the KEM flagship, one sign batch, five
+             verify batches, one 4096 x 4 KiB seal batch and one
+             FrodoKEM-640-SHAKE encaps batch of 1024 keys: device time per
+             kernel, launches, and the device busy share of each window
              from its trace (after the counts are read).
 
 Every kernel wrapper counts its launches.  The counts are set to 0 just
-before each of phases 4-9 and read just after it: every ML-KEM kernel
+before each of phases 4-11 and read just after it: every ML-KEM kernel
 must have run in phase 4, every kernel that encaps runs in phase 5, every
 ML-DSA kernel and K1 in phase 6, K1 and K7 in phase 7, every kernel but
-K8 (K1 with per-row lengths included) in phase 8, and K8 in phase 9.  The last three
+K8 (K1 with per-row lengths included) in phase 8, K8 in phase 9, K1 and
+K9-K11 in phase 10, and K1, K10 and K11 in phase 11.  The last three
 lines of output are the card's name and power limit (nvidia-smi), one JSON
 object with key "kernels", and the result line {"ok": true, "device":
 {...}}.  Without a GPU, or without the package beside this file, the script
@@ -118,7 +132,7 @@ MLDSA_NTT_OPS = 8 * 128 * MLDSA_BUTTERFLY_OPS + 256 * 4
 #: + the final Shoup scaling by 8347681 and its subtraction of q
 MLDSA_NTT_INV_OPS = 8 * 128 * MLDSA_BUTTERFLY_OPS + 256 * 5
 SRC = "quantum_resistant_p2p_tpu"
-SOURCES = ("sponge", "mlkem", "mldsa", "chacha")
+SOURCES = ("sponge", "mlkem", "mldsa", "chacha", "frodo")
 #: the kernels that one encaps launches (its forward NTTs are fused in K3)
 ENCAPS_KERNELS = ("keccak_sponge", "mlkem_sample_ntt", "mlkem_prf_cbd", "mlkem_prf_cbd_ntt",
                   "mlkem_ntt_inv")
@@ -149,6 +163,16 @@ GATEWAY = "gateway"
 #: the bulk seal batch of phase 9: 4096 messages of 4 KiB (with a 256-byte
 #: AAD bucket, 65 ChaCha20 blocks a row: the Poly1305 key and 64 of stream)
 SEAL_BATCH, SEAL_LEN = 4096, 4096
+#: BASELINE.json config 3 is "FrodoKEM-640-AES batch=1024"
+FRODO_BATCH = 1024
+FRODO_SHAKE, FRODO_AES = "FrodoKEM-640-SHAKE", "FrodoKEM-640-AES"
+#: the widest set's products in the kernel phase, at a quarter of that batch
+FRODO_WIDE = ("FrodoKEM-1344-SHAKE", 256)
+FRODO_VECTORS = ("640_aes", "640_shake", "976_aes", "976_shake", "1344_aes", "1344_shake")
+#: the kernels of the Frodo serve phase (keygen K9, multi-key encaps and
+#: decaps K10) and of the batch phase (encaps only)
+FRODO_KERNELS = ("keccak_sponge", "frodo_a_times_s", "frodo_s_times_a", "frodo_cdf_sample")
+FRODO_ENCAPS_KERNELS = ("keccak_sponge", "frodo_s_times_a", "frodo_cdf_sample")
 
 
 class PhaseFailed(RuntimeError):
@@ -294,8 +318,15 @@ def rej_bounded_perms(torch, keccak, seeds, eta: int) -> int:
     return sampler_perms(torch, z < (15 if eta == 2 else 9), 272, 4)
 
 
+def frodo_sample_ops(p) -> int:
+    """32-bit operations of one CDF sample as the work needs them: a
+    compare and an add for each table entry but the last, then the shift,
+    the sign (and, negate, select) and the mask."""
+    return 2 * (len(p.cdf) - 1) + 5
+
+
 def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mldsa_cuda,
-                  chacha, chacha_cuda, int_rate) -> list:
+                  chacha, chacha_cuda, frodo, frodo_cuda, int_rate) -> list:
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
 
@@ -391,6 +422,37 @@ def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mlds
                       lambda s=states: chacha.chacha_blocks_plain(s),
                       states.shape[0] * CHACHA_BLOCK_BYTES, states.shape[0] * CHACHA_BLOCK_OPS,
                       f"({BATCH} x {blocks}, 12) -> (.., 16) int32"))
+    # K9 and K10 at BASELINE config 3's batch of 640-SHAKE and at 1344-SHAKE,
+    # B = 256: a row of A is ceil(2n / 168) permutations; bytes are seed_A and
+    # S or S' in, the product out.  The plain versions run the plain sponge.
+    for pname, lanes in ((FRODO_SHAKE, FRODO_BATCH), FRODO_WIDE):
+        fp = frodo.PARAMS[pname]
+        seed_a = u8(lanes, 16)
+        s = torch.from_numpy(rng.integers(0, fp.q, size=(lanes, fp.n, 8), dtype=np.int32)).to(dev)
+        sp = torch.from_numpy(rng.integers(0, fp.q, size=(lanes, 8, fp.n),
+                                           dtype=np.int32)).to(dev)
+        perms = lanes * fp.n * -(-2 * fp.n // 168)
+        nbytes = lanes * (16 + 2 * 4 * 8 * fp.n)
+        tag = "" if fp.n == 640 else f"[{fp.n}]"
+        cases.append((f"frodo_a_times_s{tag}", f"{SRC}/kem/frodo_pallas.py:256",
+                      lambda fp=fp, s=s, a=seed_a: frodo_cuda.a_times_s(fp, s, a),
+                      lambda fp=fp, s=s, a=seed_a: frodo.a_times_s_plain(fp, s, a),
+                      nbytes, perms * KECCAK_F_OPS, f"n={fp.n}: ({lanes}, {fp.n}, 8) int32"))
+        cases.append((f"frodo_s_times_a{tag}", f"{SRC}/kem/frodo_pallas.py:223",
+                      lambda fp=fp, s=sp, a=seed_a: frodo_cuda.s_times_a(fp, s, a),
+                      lambda fp=fp, s=sp, a=seed_a: frodo.s_times_a_plain(fp, s, a),
+                      nbytes, perms * KECCAK_F_OPS, f"n={fp.n}: ({lanes}, 8, {fp.n}) int32"))
+    # K11 at the sample count of one 640 encaps batch: S', E' and E''
+    fp = frodo.PARAMS[FRODO_SHAKE]
+    m = FRODO_BATCH * (2 * 8 * fp.n + 64)
+    r16 = torch.from_numpy(rng.integers(0, 1 << 16, size=m, dtype=np.int32)).to(dev)
+    cases.append(("frodo_cdf_sample", f"{SRC}/kem/frodo_pallas.py:291",
+                  lambda: frodo_cuda.cdf_sample(fp, r16), lambda: frodo.cdf_sample_plain(fp, r16),
+                  8 * m, m * frodo_sample_ops(fp), f"({m},) int32"))
+    # the one PyTorch call for a kernel's function, timed as a yardstick:
+    # searchsorted gives K11's magnitude (not constant-time; never used)
+    table, half = torch.tensor(fp.cdf[:-1], dtype=torch.int32, device=dev), r16 >> 1
+    library = {"frodo_cdf_sample": lambda: torch.searchsorted(table, half)}
 
     rows = []
     for name, replaces, kern, plain, nbytes, ops, shape in cases:
@@ -399,13 +461,17 @@ def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mlds
         err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         if not torch.equal(got, want):
             raise PhaseFailed(f"{name} {shape}: kernel differs from plain (max |err| {err})")
-        ms, plain_ms = cuda_ms(torch, kern, 20), cuda_ms(torch, plain, 3)
+        ms = cuda_ms(torch, kern, 20)
+        plain_ms = cuda_ms(torch, plain, 1 if name.startswith("frodo_") else 3)
+        library_ms = cuda_ms(torch, library[name], 20) if name in library else None
         bound_ms, bound_by = bound(nbytes, ops)
         rows.append({"name": name, "replaces": replaces, "shape": shape, "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "bytes": nbytes, "int32_ops": ops})
+                     "bound_by": bound_by, "library_ms": library_ms, "bytes": nbytes,
+                     "int32_ops": ops})
+        lib_txt = f", library {library_ms:.4f} ms" if library_ms is not None else ""
         print(f"[kernels] {name} {shape}: equal, {ms:.4f} ms (plain {plain_ms:.3f} ms, "
-              f"bound {bound_ms:.4f} ms by {bound_by})")
+              f"bound {bound_ms:.4f} ms by {bound_by}{lib_txt})")
     return rows
 
 
@@ -460,6 +526,38 @@ def phase_kat_mldsa(torch, mldsa) -> None:
                 raise PhaseFailed(f"KAT {data['algorithm']} count {rec['count']}: {name} differs")
     print(f"[kat] {data['algorithm']}: {len(recs)} vectors byte-exact on the GPU "
           "(keygen, sign; verify True)")
+
+
+def phase_kat_frodo(torch, frodo) -> None:
+    """The six FrodoKEM vector files through keygen/encaps/decaps on the
+    GPU: pk, sk and ct by their sha256, ss by value; a tampered ciphertext
+    must not give ss back."""
+    for tag in FRODO_VECTORS:
+        data = json.loads((ROOT / "tests" / "vectors" / f"frodo_{tag}.json").read_text())
+        p = frodo.PARAMS[data["algorithm"]]
+        recs = data["tests"]
+
+        def col(key):
+            return torch.tensor([list(bytes.fromhex(r[key])) for r in recs], dtype=torch.uint8,
+                                device="cuda")
+
+        pk, sk = frodo.keygen(p, col("s"), col("seed_se"), col("z"))
+        ct, ss = frodo.encaps(p, pk, col("mu"))
+        bad = ct.clone()
+        bad[:, -1] ^= 1
+        ss2, rej = frodo.decaps(p, sk.repeat(2, 1), torch.cat([ct, bad])).split(len(recs))
+        for i, rec in enumerate(recs):
+            for name, t in (("pk", pk), ("sk", sk), ("ct", ct)):
+                if hashlib.sha256(bytes(t[i].cpu().numpy())).hexdigest() != rec[name + "_sha256"]:
+                    raise PhaseFailed(f"KAT {p.name} count {rec['count']}: {name} differs")
+            for name, t in (("ss", ss), ("ss after decaps", ss2)):
+                if bytes(t[i].cpu().numpy()).hex() != rec["ss"]:
+                    raise PhaseFailed(f"KAT {p.name} count {rec['count']}: {name} differs")
+            if bytes(rej[i].cpu().numpy()).hex() == rec["ss"]:
+                raise PhaseFailed(f"KAT {p.name} count {rec['count']}: a tampered ciphertext "
+                                  "gave the secret")
+        print(f"[kat] {p.name}: {len(recs)} vectors byte-exact on the GPU "
+              "(keygen, encaps, decaps, implicit rejection)")
 
 
 #: RFC 8439 vectors: §2.3.2 (block, counter 1), §2.5.2 (Poly1305), §2.8.2 (AEAD)
@@ -527,6 +625,22 @@ def phase_health(provider, health, kem, dsa, fused, aead, pk_off, ct_off) -> lis
                                            scalar=provider.get_symmetric(AEAD))
         except RuntimeError as exc:
             raise PhaseFailed(f"health: {exc}") from exc
+    for v in verdicts:
+        print(f"[health] {v.family}: ok={v.ok} ({v.detail})")
+    return [v.as_dict() for v in verdicts]
+
+
+def phase_health_frodo(provider, health) -> list:
+    """The health gate on the GPU providers of FrodoKEM-640-SHAKE (its KAT)
+    and FrodoKEM-640-AES (a round trip whose ciphertext the "cpu" twin
+    decapsulates)."""
+    verdicts = []
+    for name in (FRODO_SHAKE, FRODO_AES):
+        with provider.BatchedKEM(provider.get_kem(name)) as bk:
+            try:
+                verdicts += health.gate_facades(bk, cpu_kem=provider.get_kem(name, backend="cpu"))
+            except RuntimeError as exc:
+                raise PhaseFailed(f"health: {exc}") from exc
     for v in verdicts:
         print(f"[health] {v.family}: ok={v.ok} ({v.detail})")
     return [v.as_dict() for v in verdicts]
@@ -716,6 +830,14 @@ def pct(xs, q):
     return 1e3 * sorted(xs)[min(len(xs) - 1, int(q / 100 * len(xs)))]
 
 
+def print_served(tag: str, name: str, served: dict) -> None:
+    print(f"[{tag}] {name}, {SERVE_CLIENTS} clients: {served['handshakes_per_s']:.1f} "
+          f"handshakes/s (keygen+encaps+decaps, {served['handshake_wall_s']:.3f} s); "
+          f"latency ms {served['latency_ms']}; opcache {served['opcache']}")
+    for op, st in served["queues"].items():
+        print(f"[{tag}] {op} queue: {st}")
+
+
 async def serve(BatchedKEM, kem) -> dict:
     lat = {"keygen": [], "encaps": [], "decaps": []}
 
@@ -743,6 +865,10 @@ async def serve(BatchedKEM, kem) -> dict:
             keys = await asyncio.gather(*(bk.decapsulate(server_sk, ct) for ct, _ in outs))
             if any(k != ss for k, (_, ss) in zip(keys, outs)):
                 raise PhaseFailed("serve: a server-key secret differs")
+        ct, ss = outs[0]
+        tampered = ct[:-1] + bytes([ct[-1] ^ 1])
+        if await bk.decapsulate(server_sk, tampered) == ss:  # implicit rejection
+            raise PhaseFailed("serve: a tampered ciphertext gave the secret")
         stats = bk.stats()
     cache = kem.opcache.stats()
     if cache["hits"] < 1:
@@ -882,6 +1008,59 @@ def phase_sig_flagship(torch, mldsa, inputs) -> dict:
     return out
 
 
+def frodo_batch_inputs(torch, np, frodo, name: str):
+    """FRODO_BATCH key pairs of one set made by one keygen batch, the first
+    key's precompute, and FRODO_BATCH seeded mu rows, all on the GPU."""
+    p = frodo.PARAMS[name]
+    rng = np.random.default_rng(p.n + p.aes)
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, size=shape, dtype=np.uint8)).to("cuda")
+
+    pk, sk = frodo.keygen(p, *(u8(FRODO_BATCH, p.len_sec) for _ in range(3)))
+    return p, pk, sk, frodo.precompute_pk(p, pk[0]), u8(FRODO_BATCH, p.len_sec)
+
+
+def phase_frodo_batch(torch, frodo, inputs) -> dict:
+    """BASELINE config 3: encaps at B = 1024 to 1024 keys and, over the
+    first key's precompute, to one key; the first rows held to the CPU path;
+    timed with CUDA events and the host clock."""
+    p, pk, sk, pre, mu = inputs
+    ct, ss = frodo.encaps(p, pk, mu)
+    ct1, ss1 = frodo.encaps_pre(p, pre, mu)
+    torch.cuda.synchronize()
+    for what, c, k in (("encaps", ct, ss), ("encaps_pre", ct1, ss1)):
+        if c.shape != (FRODO_BATCH, p.ct_len) or k.shape != (FRODO_BATCH, p.len_sec):
+            raise PhaseFailed(f"{p.name} {what}: shapes {tuple(c.shape)} {tuple(k.shape)}")
+    rows = 2
+    ref_ct, ref_ss = frodo.encaps(p, pk[:rows].cpu(), mu[:rows].cpu())
+    one_ct, one_ss = frodo.encaps(p, pk[:1].expand(rows, -1).cpu(), mu[:rows].cpu())
+    if not (torch.equal(ct[:rows].cpu(), ref_ct) and torch.equal(ss[:rows].cpu(), ref_ss)):
+        raise PhaseFailed(f"{p.name}: GPU encaps differs from the CPU path")
+    if not (torch.equal(ct1[:rows].cpu(), one_ct) and torch.equal(ss1[:rows].cpu(), one_ss)):
+        raise PhaseFailed(f"{p.name}: GPU encaps_pre differs from the CPU path's encaps")
+    if not torch.equal(frodo.decaps(p, sk[:rows], ct[:rows]), ss[:rows]):
+        raise PhaseFailed(f"{p.name}: GPU decaps of the batch's first rows differs")
+    out = {"name": p.name, "batch": FRODO_BATCH}
+    for what, fn in (("many_keys", lambda: frodo.encaps(p, pk, mu)),
+                     ("one_key_pre", lambda: frodo.encaps_pre(p, pre, mu))):
+        reps = 5
+        ms = cuda_ms(torch, fn, reps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+        out[what] = {"ms_per_batch_cuda_events": ms, "ms_per_batch_wall": wall_ms,
+                     "encaps_per_s": FRODO_BATCH / (ms / 1e3),
+                     "encaps_per_s_wall": FRODO_BATCH / (wall_ms / 1e3)}
+        print(f"[frodo batch] {p.name} encaps B={FRODO_BATCH} {what}: {ms:.3f} ms/batch (CUDA "
+              f"events), {out[what]['encaps_per_s']:.0f} encaps/s; host wall {wall_ms:.3f} "
+              f"ms/batch ({out[what]['encaps_per_s_wall']:.0f}/s)")
+    return out
+
+
 def busy_share(events: list, window: str) -> tuple[float, float]:
     """-> (window us, device-busy us inside it) from a chrome trace: the
     union of kernel, memcpy and memset intervals clipped to the span of
@@ -932,7 +1111,7 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
     total_us = sum(device_us.values())
     ours = ("::sponge_kernel<", "::sample_ntt_kernel(", "::prf_cbd_kernel<", "::ntt_kernel<",
             "::rej_ntt_kernel(", "::rej_bounded_kernel<", "::sponge_varlen_kernel<",
-            "::chacha_kernel(")
+            "::chacha_kernel(", "::a_times_s_kernel<", "::s_times_a_kernel<", "::cdf_kernel(")
     ours_us = sum(v for k, v in device_us.items() if any(o in k for o in ours))
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:12]
     out = {"batches": reps, "window_ms_per_batch": window_us / reps / 1e3,
@@ -970,7 +1149,7 @@ def main() -> int:
         from quantum_resistant_p2p_tpu_torch import provider
         from quantum_resistant_p2p_tpu_torch.core import chacha, chacha_cuda, keccak, keccak_cuda
         from quantum_resistant_p2p_tpu_torch.entry import entry
-        from quantum_resistant_p2p_tpu_torch.kem import mlkem, mlkem_cuda
+        from quantum_resistant_p2p_tpu_torch.kem import frodo, frodo_cuda, mlkem, mlkem_cuda
         from quantum_resistant_p2p_tpu_torch.provider import (BatchedKEM, BatchedSignature,
                                                               get_kem, get_signature, health)
         from quantum_resistant_p2p_tpu_torch.sig import mldsa, mldsa_cuda
@@ -992,21 +1171,25 @@ def main() -> int:
                 "mldsa_rej_ntt": mldsa_cuda.rej_ntt, "mldsa_rej_bounded": mldsa_cuda.rej_bounded,
                 "mldsa_ntt": mldsa_cuda.ntt, "mldsa_ntt_inv": mldsa_cuda.ntt_inv,
                 "keccak_sponge_varlen": keccak_cuda.sponge_varlen,
-                "chacha_blocks": chacha_cuda.chacha_blocks}
+                "chacha_blocks": chacha_cuda.chacha_blocks,
+                "frodo_a_times_s": frodo_cuda.a_times_s, "frodo_s_times_a": frodo_cuda.s_times_a,
+                "frodo_cdf_sample": frodo_cuda.cdf_sample}
     sources = {"keccak_sponge": "quantum_resistant_p2p_tpu_torch/csrc/sponge.cu",
                "keccak_sponge_varlen": "quantum_resistant_p2p_tpu_torch/csrc/sponge.cu",
                "chacha_blocks": "quantum_resistant_p2p_tpu_torch/csrc/chacha.cu"}
-    sources.update({n: "quantum_resistant_p2p_tpu_torch/csrc/mldsa.cu" for n in wrappers
-                    if n.startswith("mldsa")})
+    for prefix in ("mldsa", "frodo"):
+        sources.update({n: f"quantum_resistant_p2p_tpu_torch/csrc/{prefix}.cu" for n in wrappers
+                        if n.startswith(prefix)})
 
     try:
         ptxas = phase_build(cuda)
         sass = keccak_round_sass(cuda)
         sass["chacha_kernel"] = kernel_sass_opcodes(cuda, "chacha", "chacha_kernel")
         rows = phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mldsa_cuda,
-                             chacha, chacha_cuda, int_rate)
+                             chacha, chacha_cuda, frodo, frodo_cuda, int_rate)
         phase_kat(torch, mlkem)
         phase_kat_mldsa(torch, mldsa)
+        phase_kat_frodo(torch, frodo)
         phase_kat_chacha(torch, np, chacha)
         kem, dsa = get_kem("ML-KEM-768"), get_signature("ML-DSA-65")
         if (kem.backend, dsa.backend) != ("cuda", "cuda"):
@@ -1014,6 +1197,7 @@ def main() -> int:
         fused, aead = provider.get_fused(kem, dsa), provider.get_batched_aead(AEAD)
         pk_off, ct_off = provider.init_pk_offset(kem.name, AEAD), provider.resp_ct_offset()
         verdicts = phase_health(provider, health, kem, dsa, fused, aead, pk_off, ct_off)
+        verdicts += phase_health_frodo(provider, health)
 
         def reset():
             for w in wrappers.values():
@@ -1030,11 +1214,7 @@ def main() -> int:
         reset()
         served = asyncio.run(serve(BatchedKEM, kem))
         launches = {"serve": read("serve", KEM_KERNELS)}
-        print(f"[serve] {SERVE_CLIENTS} clients: {served['handshakes_per_s']:.1f} handshakes/s "
-              f"(keygen+encaps+decaps, {served['handshake_wall_s']:.3f} s); "
-              f"latency ms {served['latency_ms']}; opcache {served['opcache']}")
-        for op, st in served["queues"].items():
-            print(f"[serve] {op} queue: {st}")
+        print_served("serve", kem.name, served)
         reset()
         flagship = phase_flagship(torch, mlkem, entry)
         launches["flagship"] = read("flagship", ENCAPS_KERNELS)
@@ -1076,6 +1256,18 @@ def main() -> int:
               f"({plane['wall_s']:.3f} s); queues {plane['queues']}")
         shaken.pop("sessions")  # session keys stay out of the printed detail
 
+        frodo_kem = get_kem(FRODO_SHAKE)
+        reset()
+        frodo_served = asyncio.run(serve(BatchedKEM, frodo_kem))
+        launches["frodo_serve"] = read("frodo serve", FRODO_KERNELS)
+        print_served("frodo serve", frodo_kem.name, frodo_served)
+        frodo_inputs = {name: frodo_batch_inputs(torch, np, frodo, name)
+                        for name in (FRODO_AES, FRODO_SHAKE)}
+        reset()
+        frodo_batch = {name: phase_frodo_batch(torch, frodo, inputs)
+                       for name, inputs in frodo_inputs.items()}
+        launches["frodo_batch"] = read("frodo batch", FRODO_ENCAPS_KERNELS)
+
         # launches of one batched call of each op (after the counted window)
         def count(call):
             reset()
@@ -1093,6 +1285,12 @@ def main() -> int:
         (dpk, dsk), per_op["mldsa_keygen"] = count(lambda: mldsa.keygen(pd, d))
         (dsig, _), per_op["mldsa_sign"] = count(lambda: mldsa.sign_mu(pd, dsk, dmu, drnd))
         _, per_op["mldsa_verify"] = count(lambda: mldsa.verify_mu(pd, dpk, dmu, dsig))
+        for name, (fp, fpk, fsk, fpre, fmu) in frodo_inputs.items():
+            fs = fmu[:16]
+            _, per_op[f"{name}_keygen"] = count(lambda: frodo.keygen(fp, fs, fs, fs))
+            (fct, _), per_op[f"{name}_encaps"] = count(lambda: frodo.encaps(fp, fpk[:16], fs))
+            _, per_op[f"{name}_decaps"] = count(lambda: frodo.decaps(fp, fsk[:16], fct))
+            _, per_op[f"{name}_encaps_pre"] = count(lambda: frodo.encaps_pre(fp, fpre, fs))
         print(f"[launches] per batched op: {per_op}")
         fn, args = entry()
         profiled = {
@@ -1102,6 +1300,9 @@ def main() -> int:
             "verify": phase_profile(torch, "verify",
                                     lambda: mldsa.verify_mu_pre(pd, pre_pk, dmu, dsig), 5),
             "seal": phase_profile(torch, "seal", lambda: aead.seal_batch(*seal_inputs), 1)}
+        fp, fpk, _, _, fmu = frodo_inputs[FRODO_SHAKE]
+        profiled["frodo_encaps"] = phase_profile(torch, "frodo_encaps",
+                                                 lambda: frodo.encaps(fp, fpk, fmu), 1)
     except PhaseFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1122,12 +1323,15 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": sum(r["ms"] for r in mine), "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": (None if any(r["library_ms"] is None for r in mine)
+                           else sum(r["library_ms"] for r in mine)),
             "shapes": [r["shape"] for r in mine]})
     print(json.dumps({"detail": {"ptxas": ptxas, "keccak_round_sass": sass,
                                  "kernel_rows": rows, "serve": served, "flagship": flagship,
                                  "sig_serve": sig_served, "sig_flagship": sig_flagship,
                                  "health": verdicts, "handshake": shaken, "data_plane": plane,
+                                 "frodo_serve": frodo_served, "frodo_batch": frodo_batch,
                                  "launches": launches, "launches_per_op": per_op,
                                  "profile": profiled}}))
     print(card)

@@ -1,12 +1,12 @@
-"""The provider boundary: KEM, signature and AEAD providers, the fused
-handshake capability, their registry and the batching queues that coalesce
-concurrent operations into GPU batches."""
+"""The provider boundary: KEM (ML-KEM, FrodoKEM), signature and AEAD
+providers, the fused handshake capability, their registry and the batching
+queues that coalesce concurrent operations into GPU batches."""
 
 from .aead_device import ChaChaPolyDevice
 from .batched import (BatchedAEAD, BatchedFused, BatchedKEM, BatchedSignature, OpQueue,
                       QueueStats)
 from .fused_providers import FusedMLKEMMLDSA, init_pk_offset, resp_ct_offset
-from .kem_providers import MLKEMKeyExchange
+from .kem_providers import FrodoKEMKeyExchange, MLKEMKeyExchange
 from .registry import (get_batched_aead, get_fused, get_kem, get_signature, get_symmetric,
                        list_batched_aeads, list_fused, list_kems, list_signatures,
                        list_symmetrics)
@@ -14,8 +14,8 @@ from .sig_providers import MLDSASignature
 from .symmetric import AES256GCM, ChaCha20Poly1305
 
 __all__ = ["AES256GCM", "BatchedAEAD", "BatchedFused", "BatchedKEM", "BatchedSignature",
-           "ChaCha20Poly1305", "ChaChaPolyDevice", "FusedMLKEMMLDSA", "MLDSASignature",
-           "MLKEMKeyExchange", "OpQueue", "QueueStats", "get_batched_aead", "get_fused",
-           "get_kem", "get_signature", "get_symmetric", "init_pk_offset",
+           "ChaCha20Poly1305", "ChaChaPolyDevice", "FrodoKEMKeyExchange", "FusedMLKEMMLDSA",
+           "MLDSASignature", "MLKEMKeyExchange", "OpQueue", "QueueStats", "get_batched_aead",
+           "get_fused", "get_kem", "get_signature", "get_symmetric", "init_pk_offset",
            "list_batched_aeads", "list_fused", "list_kems", "list_signatures",
            "list_symmetrics", "resp_ct_offset"]

@@ -5,9 +5,13 @@ Counterpart of the reference's ``provider/health.py``.  The probes:
 
 * **ML-KEM-768**: a pinned known-answer vector (deterministic keygen and
   encaps from fixed seeds, FIPS 203) through the provider's device;
+* **FrodoKEM, SHAKE sets**: the pinned FrodoKEM-640-SHAKE vector through
+  the device (K9, K10 and K11 with K1), standing for the family;
+* **other KEMs** (the FrodoKEM AES sets, ML-KEM-512/1024): a round trip on
+  the device provider, and its ciphertext decapsulated by the CPU twin;
 * **signatures**: a round trip on the device provider and agreement with
   its CPU twin (device signatures verify on the CPU and a tampered one
-  does not); no other KEM has a probe yet, and gating one fails;
+  does not);
 * **the fused handshake** (``BatchedFused``): one batch-1 ``keygen_sign``
   at the facade's offsets; the signature over the rendered template must
   verify on the CPU twin and the KEM key pair must round-trip through it;
@@ -32,7 +36,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..kem import mlkem
+from ..kem import frodo, mlkem
 from ..utils.wipe import wipe
 from .base import (BatchedAEADOps, FusedHandshakeOps, KeyExchangeAlgorithm,
                    SignatureAlgorithm)
@@ -46,6 +50,19 @@ _MLKEM768_KAT = {
     "ek_sha256": "0b7934c83125c788995e2ba6bd761e33046b3e40571be53e023309a29f398cc9",
     "ct_sha256": "dbf4e9aa48b078ad46ec1c9c47bda8c2d2fec9d0e7a21bd48d2238a2abedb856",
     "ss_hex": "9cddd089ffe70e3996e76f7c8d06746df34d07e8657bc0fcf2bb0e1c3084aea1",
+}
+
+#: pinned FrodoKEM-640-SHAKE KAT, the reference's (from its pure-Python
+#: FrodoKEM): keygen seeds s = 00..0f, seedSE = 10..1f, z = 20..2f; encaps
+#: mu = 30..3f
+_FRODO640SHAKE_KAT = {
+    "s": bytes(range(16)),
+    "seed_se": bytes(range(16, 32)),
+    "z": bytes(range(32, 48)),
+    "mu": bytes(range(48, 64)),
+    "pk_sha256": "e1933f44de4f6410af9155c4baa3b7454c6e93ec7701971daee3c7d2be3e03f3",
+    "ct_sha256": "eefd2976cb8656e208526b33babf14eccd8f9a123db06e6032a30c449c1fc211",
+    "ss_hex": "c2cb61ee5b4f5f6679259f09fc6b253b",
 }
 
 #: pinned RFC 8439 §2.8.2 AEAD vector (sha256 of ciphertext || tag)
@@ -89,6 +106,47 @@ def _check_mlkem_kat(algo) -> HealthVerdict:
     if bytes(dec(dk, ct)[0].cpu().numpy()) != ss_b:
         return HealthVerdict(algo.name, False, "decaps KAT mismatch")
     return HealthVerdict(algo.name, True, "FIPS 203 KAT ok (keygen/encaps/decaps)")
+
+
+def _check_frodo_kat(algo) -> HealthVerdict:
+    """The pinned FrodoKEM-640-SHAKE vector through ``algo``'s device, batch
+    1.  The SHAKE sets share the kernels that make A's rows inside the
+    products (K9, K10) and the sampler (K11), so one set stands for them."""
+    kat = _FRODO640SHAKE_KAT
+    kg, enc, dec = frodo.get("FrodoKEM-640-SHAKE")
+
+    def row(b: bytes) -> torch.Tensor:
+        return torch.tensor(list(b), dtype=torch.uint8, device=algo.device)[None]
+
+    pk, sk = kg(row(kat["s"]), row(kat["seed_se"]), row(kat["z"]))
+    if hashlib.sha256(bytes(pk[0].cpu().numpy())).hexdigest() != kat["pk_sha256"]:
+        return HealthVerdict(algo.name, False, "keygen KAT mismatch (pk)")
+    ct, ss = enc(pk, row(kat["mu"]))
+    ss_b = bytes(ss[0].cpu().numpy())
+    if hashlib.sha256(bytes(ct[0].cpu().numpy())).hexdigest() != kat["ct_sha256"]:
+        return HealthVerdict(algo.name, False, "encaps KAT mismatch (ct)")
+    if ss_b.hex() != kat["ss_hex"]:
+        return HealthVerdict(algo.name, False, "encaps KAT mismatch (ss)")
+    if bytes(dec(sk, ct)[0].cpu().numpy()) != ss_b:
+        return HealthVerdict(algo.name, False, "decaps KAT mismatch")
+    return HealthVerdict(algo.name, True, "FrodoKEM-640-SHAKE KAT ok (keygen/encaps/decaps)")
+
+
+def _check_kem_roundtrip(algo, cpu_twin) -> HealthVerdict:
+    """Device keygen/encaps/decaps round trip, and the device ciphertext
+    decapsulated to the same secret by the CPU twin."""
+    pk, sk = algo.generate_keypair()
+    ss = b""
+    try:
+        ct, ss = algo.encapsulate(pk)
+        if not hmac.compare_digest(algo.decapsulate(sk, ct), ss):
+            return HealthVerdict(algo.name, False, "device decaps != device encaps")
+        if cpu_twin is not None and not hmac.compare_digest(cpu_twin.decapsulate(sk, ct), ss):
+            return HealthVerdict(algo.name, False, "cpu twin decaps disagrees with device encaps")
+        agree = " + cpu agreement" if cpu_twin is not None else ""
+        return HealthVerdict(algo.name, True, f"device roundtrip ok{agree}")
+    finally:
+        wipe(sk, ss)  # probe-only key material
 
 
 def _check_sig_roundtrip(algo, cpu_twin) -> HealthVerdict:
@@ -168,6 +226,10 @@ def _probe(algo, cpu_twin) -> HealthVerdict:
     if algo.name == "ML-KEM-768":
         # the pinned vector covers keygen/encaps/decaps end to end
         return _check_mlkem_kat(algo)
+    if algo.name.startswith("FrodoKEM") and algo.name.endswith("SHAKE"):
+        return _check_frodo_kat(algo)
+    if isinstance(algo, KeyExchangeAlgorithm):
+        return _check_kem_roundtrip(algo, cpu_twin)
     if isinstance(algo, SignatureAlgorithm):
         return _check_sig_roundtrip(algo, cpu_twin)
     raise ValueError(f"no device probe for {algo.name}")

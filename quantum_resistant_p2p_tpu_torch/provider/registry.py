@@ -16,7 +16,7 @@ from .aead_device import ChaChaPolyDevice
 from .base import (BACKENDS, BatchedAEADOps, FusedHandshakeOps, KeyExchangeAlgorithm,
                    SignatureAlgorithm, SymmetricAlgorithm)
 from .fused_providers import FusedMLKEMMLDSA
-from .kem_providers import MLKEMKeyExchange
+from .kem_providers import FrodoKEMKeyExchange, MLKEMKeyExchange
 from .sig_providers import MLDSASignature
 from .symmetric import AES256GCM, ChaCha20Poly1305
 
@@ -116,6 +116,11 @@ def list_batched_aeads() -> list[str]:
 
 for _level, _name in ((1, "ML-KEM-512"), (3, "ML-KEM-768"), (5, "ML-KEM-1024")):
     register_kem(_name, lambda backend, _level=_level: MLKEMKeyExchange(_level, backend))
+for _level, _size in ((1, 640), (3, 976), (5, 1344)):
+    for _aes in (True, False):
+        register_kem(f"FrodoKEM-{_size}-{'AES' if _aes else 'SHAKE'}",
+                     lambda backend, _level=_level, _aes=_aes: FrodoKEMKeyExchange(
+                         _level, backend, use_aes=_aes))
 for _level, _name in ((2, "ML-DSA-44"), (3, "ML-DSA-65"), (5, "ML-DSA-87")):
     register_signature(_name, lambda backend, _level=_level: MLDSASignature(_level, backend))
 register_batched_aead("ChaCha20-Poly1305", ChaChaPolyDevice)

@@ -368,15 +368,19 @@ def test_health_checks_pass_and_fail_on_a_broken_device(providers):
 
 
 def test_round_trip_probes_pass_and_fail(providers):
-    """The probe ensure_validated runs for a GPU signature, here on CPU
-    providers as their own twins; a GPU KEM other than ML-KEM-768 has no
-    probe, so its verdict fails."""
+    """The probes ensure_validated runs for a GPU signature and for a GPU
+    KEM without a pinned vector (here ML-KEM-512), on CPU providers as their
+    own twins; a KEM whose twin decapsulates to another secret fails."""
     kem, sig, _ = providers
     assert _check_sig_roundtrip(sig, sig).ok
     other = get_kem("ML-KEM-512", backend="cpu")
     other.backend = "cuda"
-    verdict = ensure_validated(other)
-    assert not verdict.ok and "no device probe for ML-KEM-512" in verdict.detail
+    twin = get_kem("ML-KEM-512", backend="cpu")
+    verdict = ensure_validated(other, twin)
+    assert verdict.ok and verdict.detail == "device roundtrip ok + cpu agreement"
+    twin.decapsulate_batch = lambda sks, cts: np.zeros((len(sks), 32), np.uint8)
+    verdict = ensure_validated(other, twin)
+    assert not verdict.ok and "cpu twin" in verdict.detail
     lax = get_signature(SIG, backend="cpu")
     lax.verify = lambda pk, msg, s: True  # accepts anything, tampered signatures too
     verdict = _check_sig_roundtrip(lax, sig)

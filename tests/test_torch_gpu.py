@@ -8,10 +8,14 @@ without them:
 
 Each kernel is held bitwise to its plain PyTorch version on the same
 device, and the GPU paths of ML-KEM, ML-DSA, the fused handshake programs
-and the ChaCha20-Poly1305 core to the CPU paths.
+and the ChaCha20-Poly1305 core to the CPU paths; FrodoKEM's GPU path to
+the vectors in tests/vectors/frodo_*.json.
 """
 
 import asyncio
+import hashlib
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,7 +23,7 @@ import torch
 
 from quantum_resistant_p2p_tpu_torch.core import chacha, chacha_cuda, keccak, keccak_cuda
 from quantum_resistant_p2p_tpu_torch.fused import mlkem_mldsa as fused
-from quantum_resistant_p2p_tpu_torch.kem import mlkem, mlkem_cuda
+from quantum_resistant_p2p_tpu_torch.kem import frodo, frodo_cuda, mlkem, mlkem_cuda
 from quantum_resistant_p2p_tpu_torch.provider import (BatchedAEAD, BatchedKEM, BatchedSignature,
                                                       get_batched_aead, get_kem, get_signature,
                                                       get_symmetric, init_pk_offset,
@@ -27,6 +31,7 @@ from quantum_resistant_p2p_tpu_torch.provider import (BatchedAEAD, BatchedKEM, B
 from quantum_resistant_p2p_tpu_torch.sig import mldsa, mldsa_cuda
 
 pytestmark = pytest.mark.cuda
+VECTOR_DIR = Path(__file__).parent / "vectors"
 
 
 @pytest.fixture
@@ -237,3 +242,79 @@ def test_batched_aead_on_the_default_backend(gpu):
     frames, opened = asyncio.run(run())
     assert opened == msgs
     assert [scalar.decrypt(key, f, b"ad") for f in frames] == msgs
+
+
+@pytest.mark.parametrize("name", ["FrodoKEM-640-SHAKE", "FrodoKEM-976-SHAKE",
+                                  "FrodoKEM-1344-SHAKE"])
+def test_frodo_kernels_match_plain(gpu, name):
+    """K9 and K10 on random S / S' of every residue (full int32 range for
+    K9), K11 on 16-bit randoms and on arbitrary int32 values."""
+    p = frodo.PARAMS[name]
+    rng = np.random.default_rng(p.n)
+    seed_a = torch.tensor(rng.integers(0, 256, (3, 16), dtype=np.uint8), device=gpu)
+    s = torch.tensor(rng.integers(-2**31, 2**31, (3, p.n, 8), dtype=np.int64).astype(np.int32),
+                     device=gpu)
+    sp = torch.tensor(rng.integers(0, p.q, (3, 8, p.n), dtype=np.int32), device=gpu)
+    counts = (frodo_cuda.a_times_s.launches, frodo_cuda.s_times_a.launches,
+              frodo_cuda.cdf_sample.launches)
+    assert torch.equal(frodo.a_times_s(p, s, seed_a), frodo.a_times_s_plain(p, s, seed_a))
+    assert torch.equal(frodo.s_times_a(p, sp, seed_a), frodo.s_times_a_plain(p, sp, seed_a))
+    r = torch.tensor(np.concatenate([rng.integers(0, 1 << 16, 20000),
+                                     rng.integers(-2**31, 2**31, 1000)]).astype(np.int32),
+                     device=gpu)
+    assert torch.equal(frodo._sample(p, r), frodo.cdf_sample_plain(p, r))
+    torch.cuda.synchronize()
+    assert (frodo_cuda.a_times_s.launches, frodo_cuda.s_times_a.launches,
+            frodo_cuda.cdf_sample.launches) == tuple(c + 1 for c in counts)
+
+
+@pytest.mark.parametrize("tag", ["640_shake", "640_aes", "976_shake", "976_aes", "1344_shake",
+                                 "1344_aes"])
+def test_frodo_gpu_path_matches_vectors(gpu, tag):
+    data = json.loads((VECTOR_DIR / f"frodo_{tag}.json").read_text())
+    p = frodo.PARAMS[data["algorithm"]]
+    recs = data["tests"]
+
+    def col(key):
+        return torch.tensor([list(bytes.fromhex(r[key])) for r in recs], dtype=torch.uint8,
+                            device=gpu)
+
+    pk, sk = frodo.keygen(p, col("s"), col("seed_se"), col("z"))
+    ct, ss = frodo.encaps(p, pk, col("mu"))
+    ss2 = frodo.decaps(p, sk, ct)
+    bad = ct.clone()
+    bad[:, 0] ^= 1
+    rej = frodo.decaps(p, sk, bad)
+    for i, rec in enumerate(recs):
+        for key, t in (("pk", pk), ("sk", sk), ("ct", ct)):
+            assert hashlib.sha256(bytes(t[i].cpu().numpy())).hexdigest() == rec[key + "_sha256"]
+        assert bytes(ss[i].cpu().numpy()).hex() == rec["ss"]
+        assert bytes(ss2[i].cpu().numpy()).hex() == rec["ss"]
+        assert bytes(rej[i].cpu().numpy()).hex() != rec["ss"]
+    pre = frodo.precompute_pk(p, pk[0])
+    ct_pre, ss_pre = frodo.encaps_pre(p, pre, col("mu")[:1])
+    assert torch.equal(ct_pre, frodo.encaps(p, pk[:1], col("mu")[:1])[0])
+    assert torch.equal(ss_pre, ss[:1])
+
+
+def test_batched_frodo_on_the_default_backend(gpu):
+    kem = get_kem("FrodoKEM-640-SHAKE")
+    assert kem.backend == "cuda"
+
+    async def run():
+        with BatchedKEM(kem, max_wait_ms=5.0) as bk:
+            async def client():
+                pk, sk = await bk.generate_keypair()
+                ct, ss = await bk.encapsulate(pk)
+                return ss == await bk.decapsulate(sk, ct)
+
+            agreed = await asyncio.gather(*(client() for _ in range(32)))
+            server_pk, server_sk = await bk.generate_keypair()
+            for _ in range(2):  # the first round fills the operand cache
+                outs = await asyncio.gather(*(bk.encapsulate(server_pk) for _ in range(16)))
+                keys = await asyncio.gather(*(bk.decapsulate(server_sk, ct) for ct, _ in outs))
+                agreed += [k == ss for k, (_, ss) in zip(keys, outs)]
+            return agreed
+
+    assert all(asyncio.run(run()))
+    assert kem.opcache.stats()["hits"] >= 1

@@ -86,7 +86,9 @@ def test_cuda_backend_raises_without_gpu():
 
 
 def test_registry_names_and_backends():
-    assert list_kems() == ["ML-KEM-1024", "ML-KEM-512", "ML-KEM-768"]
+    assert list_kems() == ["FrodoKEM-1344-AES", "FrodoKEM-1344-SHAKE", "FrodoKEM-640-AES",
+                           "FrodoKEM-640-SHAKE", "FrodoKEM-976-AES", "FrodoKEM-976-SHAKE",
+                           "ML-KEM-1024", "ML-KEM-512", "ML-KEM-768"]
     with pytest.raises(KeyError):
         get_kem("Kyber768", backend="cpu")
     for bad in ("auto", "tpu"):
@@ -252,6 +254,12 @@ def test_port_imports_no_jax():
         "dsa = get_signature('ML-DSA-44', backend='cpu')\n"
         "pk, sk = dsa.generate_keypair()\n"
         "assert dsa.verify(pk, b'm', dsa.sign(sk, b'm'))\n"
+        "import quantum_resistant_p2p_tpu_torch.kem.frodo, quantum_resistant_p2p_tpu_torch.kem.frodo_cuda\n"
+        "import quantum_resistant_p2p_tpu_torch.core.aes\n"
+        "frodo = get_kem('FrodoKEM-640-SHAKE', backend='cpu')\n"
+        "pk, sk = frodo.generate_keypair()\n"
+        "ct, ss = frodo.encapsulate(pk)\n"
+        "assert frodo.decapsulate(sk, ct) == ss\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'quantum_resistant_p2p_tpu'\n"
         "             or m.startswith('quantum_resistant_p2p_tpu.'))\n"
