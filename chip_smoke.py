@@ -7,25 +7,33 @@ one NVIDIA GPU.
 Phases, each of which fails the run (exit 1) if anything is wrong:
 
 1. build     compile csrc/sponge.cu, csrc/mlkem.cu, csrc/mldsa.cu,
-             csrc/chacha.cu and csrc/frodo.cu with nvcc (sm_90a), all at
-             once, and print the ptxas register/spill summary and the SASS
-             of K1's Keccak round loop;
+             csrc/chacha.cu, csrc/frodo.cu and csrc/sha2.cu with nvcc
+             (sm_90a), all at once, and print the ptxas register/spill
+             summary, the SASS of K1's Keccak round loop, K8's opcodes and
+             those of K12's and K13's block loops (their bound counts them);
 2. kernels   run every kernel and its plain PyTorch version on the GPU at
              the shapes of the batch-4096 ML-KEM-768 and ML-DSA-65 paths,
              K1 with per-row lengths on 4096 transcripts of up to 3458
              bytes, K8 on 4096 x 65 and 4096 x 1025 ChaCha20 blocks, K9 and
              K10 at FrodoKEM-640-SHAKE, B = 1024 (BASELINE.json config 3's
              batch) and FrodoKEM-1344-SHAKE, B = 256, and K11 at the sample
-             count of that 640 encaps batch; require bitwise equality, and
-             time both with CUDA events (K11 beside torch.searchsorted);
+             count of that 640 encaps batch, K12 at a 128f chain step
+             (1024 x 8 x 35 rows) and at the 128f FORS leaves (1024 x 33 x 64)
+             of B = 1024, K13 at 192f's first FORS level of B = 256
+             (256 x 33 x 128), both over 10-block rows (a WOTS public key's
+             T_l) too; require bitwise equality, and time both with CUDA
+             events (K11 beside torch.searchsorted);
 3. kat       tests/vectors/mlkem_768.json through keygen/encaps/decaps,
              tests/vectors/mldsa_65.json through keygen/sign/verify and the
              six tests/vectors/frodo_*.json through keygen/encaps/decaps on
              the GPU, byte-exact; the RFC 8439 §2.3.2 block, §2.5.2 Poly1305
              and §2.8.2 AEAD vectors through core.chacha on the GPU; the
-             health gate (ML-KEM-768 KAT, ML-DSA-65 round trip, fused
+             six tests/vectors/slhdsa_*.json through keygen/sign/verify and
+             the keygen records of acvp_slhdsa128f_fixture.json on the GPU;
+             the health gate (ML-KEM-768 KAT, ML-DSA-65 round trip, fused
              keygen_sign, AEAD KAT, FrodoKEM-640-SHAKE KAT, FrodoKEM-640-AES
-             round trip) on the "cuda" providers with their "cpu" twins;
+             round trip, SPHINCS+-SHA2-128s and -128f round trips) on the
+             "cuda" providers with their "cpu" twins;
 4. serve     BatchedKEM over get_kem("ML-KEM-768") (GPU backend) with
              max_batch 4096 and max_wait 2 ms: 1024 concurrent clients each
              run keygen -> encaps -> decaps, then encapsulate twice to one
@@ -64,22 +72,38 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              resp. the AES chunk loop) and to one key over its precompute
              (encaps_pre), checked against the CPU path on the first rows,
              timed with CUDA events and the host clock;
-12. profile  torch.profiler over the KEM flagship, one sign batch, five
-             verify batches, one 4096 x 4 KiB seal batch and one
-             FrodoKEM-640-SHAKE encaps batch of 1024 keys: device time per
-             kernel, launches, and the device busy share of each window
+12. sphincs serve  BASELINE.json config 4's "SPHINCS+-SHA2-128s verify":
+             2048 SPHINCS+-SHA2-128s keys from one batched keygen, one
+             message signed under each by sign_batch (in chunks that fit the
+             device's free memory), then 2048 asyncio clients verify through
+             one BatchedSignature (max_batch 4096, max_wait 2 ms); all
+             verify, a flipped byte does not, the "cpu" twin verifies one;
+13. sphincs batch  keygen, sign_digest and verify_digest at B = 1024 of
+             SPHINCS+-SHA2-128f and at B = 256 of SPHINCS+-SHA2-192f (its
+             H and T_l run K13), timed with CUDA events; all verify, a
+             flipped byte does not; then the memory rule of sign_batch's
+             chunks: every set's device bytes a row in flight at the peak
+             of one sign_digest (B = 16) within sphincs.BYTES_PER_ROW, and
+             one SPHINCS+-SHA2-256s sign_batch of three chunks whose peak
+             stays within the provider's budget, every signature verified;
+14. profile  torch.profiler over the KEM flagship, one sign batch, five
+             verify batches, one 4096 x 4 KiB seal batch, one
+             FrodoKEM-640-SHAKE encaps batch of 1024 keys, one 128f sign
+             batch of 1024 and one 128s verify batch of 2048: device time
+             per kernel, launches, and the device busy share of each window
              from its trace (after the counts are read).
 
 Every kernel wrapper counts its launches.  The counts are set to 0 just
-before each of phases 4-11 and read just after it: every ML-KEM kernel
+before each of phases 4-13 and read just after it: every ML-KEM kernel
 must have run in phase 4, every kernel that encaps runs in phase 5, every
 ML-DSA kernel and K1 in phase 6, K1 and K7 in phase 7, every kernel but
 K8 (K1 with per-row lengths included) in phase 8, K8 in phase 9, K1 and
-K9-K11 in phase 10, and K1, K10 and K11 in phase 11.  The last three
-lines of output are the card's name and power limit (nvidia-smi), one JSON
-object with key "kernels", and the result line {"ok": true, "device":
-{...}}.  Without a GPU, or without the package beside this file, the script
-prints no result and exits non-zero.
+K9-K11 in phase 10, K1, K10 and K11 in phase 11, K12 in phase 12 and in
+each set of phase 13, and K13 in phase 13's 192f run and in its memory
+check.  The last three lines of output are the card's name and power
+limit (nvidia-smi), one JSON object with key "kernels", and the result
+line {"ok": true, "device": {...}}.  Without a GPU, or without the package
+beside this file, the script prints no result and exits non-zero.
 """
 
 from __future__ import annotations
@@ -132,7 +156,7 @@ MLDSA_NTT_OPS = 8 * 128 * MLDSA_BUTTERFLY_OPS + 256 * 4
 #: + the final Shoup scaling by 8347681 and its subtraction of q
 MLDSA_NTT_INV_OPS = 8 * 128 * MLDSA_BUTTERFLY_OPS + 256 * 5
 SRC = "quantum_resistant_p2p_tpu"
-SOURCES = ("sponge", "mlkem", "mldsa", "chacha", "frodo")
+SOURCES = ("sponge", "mlkem", "mldsa", "chacha", "frodo", "sha2")
 #: the kernels that one encaps launches (its forward NTTs are fused in K3)
 ENCAPS_KERNELS = ("keccak_sponge", "mlkem_sample_ntt", "mlkem_prf_cbd", "mlkem_prf_cbd_ntt",
                   "mlkem_ntt_inv")
@@ -173,6 +197,21 @@ FRODO_VECTORS = ("640_aes", "640_shake", "976_aes", "976_shake", "1344_aes", "13
 #: decaps K10) and of the batch phase (encaps only)
 FRODO_KERNELS = ("keccak_sponge", "frodo_a_times_s", "frodo_s_times_a", "frodo_cdf_sample")
 FRODO_ENCAPS_KERNELS = ("keccak_sponge", "frodo_s_times_a", "frodo_cdf_sample")
+SLH_VECTORS = ("128f", "128s", "192f", "192s", "256f", "256s")
+#: BASELINE.json config 4's SPHINCS+ half, "SPHINCS+-SHA2-128s verify":
+#: keys made and signed in one batch each, then verified by as many clients
+SLH_SERVE, SLH_SERVE_KEYS = "SPHINCS+-SHA2-128s-simple", 2048
+#: the batch phase: the fast 128-bit set, and a SHA-512 set (K13 on its path)
+SLH_BATCHES = (("SPHINCS+-SHA2-128f-simple", 1024), ("SPHINCS+-SHA2-192f-simple", 256))
+SLH_HEALTH = ("SPHINCS+-SHA2-128s-simple", "SPHINCS+-SHA2-128f-simple")
+#: the memory check: every set's bytes a row in flight at this batch, then
+#: one sign_batch of the widest set (360,448 FORS rows a signature, n = 32,
+#: SHA-512 H and T_l) over a batch that needs SLH_CHUNKS chunks
+SLH_ROW_BATCH, SLH_WIDEST, SLH_CHUNKS = 16, "SPHINCS+-SHA2-256s-simple", 3
+#: SASS opcodes of K12/K13's block loop that do not issue on the 64-lane
+#: integer pipe: IMAD goes to the FMA pipe beside it (K8's finding), U*
+#: run once a warp on the uniform datapath, memory and branches elsewhere
+NON_INT_PIPE = ("IMAD", "LDG", "STG", "BRA", "NOP", "EXIT")
 
 
 class PhaseFailed(RuntimeError):
@@ -221,13 +260,12 @@ def phase_build(cuda) -> dict:
     return ptxas
 
 
-def keccak_round_sass(cuda) -> dict:
-    """SASS of the built K1: for each sponge kernel, the instruction count
-    of the innermost loops of 100 to 400 instructions (the round loop of
-    each inlined keccak_f1600, kept rolled) and their opcodes, to hold
-    KECCAK_ROUND_OPS against what the card runs."""
+def sass_loops(cuda, lib: str) -> dict:
+    """SASS of a built library: for each kernel, the instruction count and
+    opcodes of every innermost loop (the body between a backward branch and
+    its target)."""
     exe = Path(cuda.nvcc()).with_name("cuobjdump")
-    text = subprocess.run([str(exe), "-sass", str(cuda.library_path("sponge"))], check=True,
+    text = subprocess.run([str(exe), "-sass", str(cuda.library_path(lib))], check=True,
                           capture_output=True, text=True, timeout=120).stdout
     out = {}
     for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=Function : |\Z)", text, flags=re.S):
@@ -251,8 +289,7 @@ def keccak_round_sass(cuda) -> dict:
                     back.append((index[to], last))
         loops = []
         for first, last in back:
-            innermost = not any(first <= f and l < last for f, l in back)
-            if innermost and 100 <= last - first + 1 <= 400:
+            if not any(first <= f and l < last for f, l in back):  # innermost
                 ops = {}
                 for _, ins in insns[first:last + 1]:
                     op = re.sub(r"^@!?U?P[T0-9]+\s+", "", ins).split()[0].split(".")[0]
@@ -260,6 +297,19 @@ def keccak_round_sass(cuda) -> dict:
                 loops.append({"instructions": last - first + 1, "opcodes": ops})
         if loops:
             out[fn] = loops
+    return out
+
+
+def keccak_round_sass(cuda) -> dict:
+    """SASS of the built K1: for each sponge kernel, the instruction count
+    of the innermost loops of 100 to 400 instructions (the round loop of
+    each inlined keccak_f1600, kept rolled) and their opcodes, to hold
+    KECCAK_ROUND_OPS against what the card runs."""
+    out = {}
+    for fn, loops in sass_loops(cuda, "sponge").items():
+        rounds = [lp for lp in loops if 100 <= lp["instructions"] <= 400]
+        if rounds:
+            out[fn] = rounds
     for fn, loops in out.items():
         print(f"[build] SASS {fn}: round loop instructions {[lp['instructions'] for lp in loops]};"
               f" opcodes of the first {loops[0]['opcodes']}")
@@ -283,6 +333,26 @@ def kernel_sass_opcodes(cuda, lib: str, kernel: str) -> dict:
     print(f"[build] SASS {kernel}: {sum(ops.values())} instructions, opcodes "
           f"{dict(sorted(ops.items(), key=lambda kv: -kv[1]))}")
     return ops
+
+
+def sha2_block_sass(cuda) -> dict:
+    """K12 and K13: the opcodes of the loop over a row's message blocks (one
+    fully unrolled compression) and the integer-pipe instructions it issues,
+    which set the kernels' bound by operations."""
+    out = {}
+    for fn, loops in sass_loops(cuda, "sha2").items():
+        kernel = next((k for k in ("sha256_kernel", "sha512_kernel") if k in fn), None)
+        if kernel is not None:
+            body = max(loops, key=lambda lp: lp["instructions"])
+            ops = sum(c for op, c in body["opcodes"].items()
+                      if not (op.startswith("U") or op in NON_INT_PIPE))
+            out[kernel] = dict(body, int_pipe_ops=ops)
+            print(f"[build] SASS {kernel}: block loop {body['instructions']} instructions, "
+                  f"{ops} on the integer pipe; opcodes "
+                  f"{dict(sorted(body['opcodes'].items(), key=lambda kv: -kv[1]))}")
+    if set(out) != {"sha256_kernel", "sha512_kernel"}:
+        raise PhaseFailed(f"SASS: no block loop found in K12/K13 (found {sorted(out)})")
+    return out
 
 
 def sampler_perms(torch, accepted, per_block: int, blocks: int) -> int:
@@ -325,8 +395,18 @@ def frodo_sample_ops(p) -> int:
     return 2 * (len(p.cdf) - 1) + 5
 
 
+def plain_absorb(mod, states, blocks, rows_per_state: int, width: int):
+    """The plain version of K12/K13's launch: each state's rows, block by
+    block, through ``compress_plain`` (``mod`` is core.sha256 or sha512)."""
+    st = states[:, None, :]
+    rows = blocks.reshape(states.shape[0], rows_per_state, blocks.shape[-1])
+    for i in range(blocks.shape[-1] // width):
+        st = mod.compress_plain(st, rows[..., i * width:(i + 1) * width])
+    return st.reshape(-1, 8)
+
+
 def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mldsa_cuda,
-                  chacha, chacha_cuda, frodo, frodo_cuda, int_rate) -> list:
+                  chacha, chacha_cuda, frodo, frodo_cuda, sha2, sha2_ops, int_rate) -> list:
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
 
@@ -449,6 +529,34 @@ def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mlds
     cases.append(("frodo_cdf_sample", f"{SRC}/kem/frodo_pallas.py:291",
                   lambda: frodo_cuda.cdf_sample(fp, r16), lambda: frodo.cdf_sample_plain(fp, r16),
                   8 * m, m * frodo_sample_ops(fp), f"({m},) int32"))
+    # K12 and K13 as the SPHINCS+ batch phases launch them: one pk_seed
+    # midstate a signature serves its rows; a WOTS public key's T_l is one
+    # launch over all its blocks.  Bytes: the states, the blocks, the words
+    # out; operations: the integer-pipe instructions of one block's SASS.
+    sha256, sha256_cuda, sha512, sha512_cuda = sha2
+    for name, mod, kern, width, lanes, per, nblocks, what in (
+            ("sha256_compress", sha256, sha256_cuda.compress, 64, 1024, 8 * 35, 1,
+             "128f chain step, B = 1024"),
+            ("sha256_compress", sha256, sha256_cuda.compress, 64, 1024, 33 * 64, 1,
+             "128f FORS leaves, B = 1024"),
+            ("sha256_compress[T_l]", sha256, sha256_cuda.compress, 64, 1024, 8, 10,
+             "128f WOTS pk T_l, B = 1024"),
+            ("sha512_compress", sha512, sha512_cuda.compress, 128, 256, 33 * 128, 1,
+             "192f FORS level 1, B = 256"),
+            ("sha512_compress[T_l]", sha512, sha512_cuda.compress, 128, 256, 8, 10,
+             "192f WOTS pk T_l, B = 256")):
+        lo, hi = (0, 2**32) if width == 64 else (-2**63, 2**63)
+        states = torch.from_numpy(rng.integers(lo, hi, size=(lanes, 8), dtype=np.int64)).to(dev)
+        blocks = u8(lanes * per, nblocks * width)
+        rows = lanes * per
+        ops = rows * nblocks * sha2_ops["sha256_kernel" if width == 64 else "sha512_kernel"]
+        cases.append((name, f"{SRC}/core/sha{256 if width == 64 else 512}_pallas.py:"
+                            f"{74 if width == 64 else 102}",
+                      lambda k=kern, s=states, b=blocks, r=per: k(s, b, r),
+                      lambda m=mod, s=states, b=blocks, r=per, w=width: plain_absorb(m, s, b, r, w),
+                      states.numel() * 8 + blocks.numel() + rows * 64, ops,
+                      f"{what}: ({lanes}, 8) states x {per} rows, {nblocks} block(s) -> "
+                      f"({rows}, 8)"))
     # the one PyTorch call for a kernel's function, timed as a yardstick:
     # searchsorted gives K11's magnitude (not constant-time; never used)
     table, half = torch.tensor(fp.cdf[:-1], dtype=torch.int32, device=dev), r16 >> 1
@@ -462,7 +570,7 @@ def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mlds
         if not torch.equal(got, want):
             raise PhaseFailed(f"{name} {shape}: kernel differs from plain (max |err| {err})")
         ms = cuda_ms(torch, kern, 20)
-        plain_ms = cuda_ms(torch, plain, 1 if name.startswith("frodo_") else 3)
+        plain_ms = cuda_ms(torch, plain, 1 if name.startswith(("frodo_", "sha")) else 3)
         library_ms = cuda_ms(torch, library[name], 20) if name in library else None
         bound_ms, bound_by = bound(nbytes, ops)
         rows.append({"name": name, "replaces": replaces, "shape": shape, "max_abs_err": err,
@@ -560,6 +668,60 @@ def phase_kat_frodo(torch, frodo) -> None:
               "(keygen, encaps, decaps, implicit rejection)")
 
 
+def slh_host_digests(p, slhdsa_params, sks, msgs) -> tuple[list, list]:
+    """The provider's host half of a deterministic sign: PRF_msg with
+    opt_rand = pk_seed, then H_msg, for each (secret key, message)."""
+    rs, digests = [], []
+    for skb, msg in zip(sks, msgs):
+        pk_seed, pk_root = skb[2 * p.n: 3 * p.n], skb[3 * p.n:]
+        r = slhdsa_params.prf_msg(p, skb[p.n: 2 * p.n], pk_seed, msg)
+        rs.append(list(r))
+        digests.append(list(slhdsa_params.h_msg(p, r, pk_seed, pk_root, msg)))
+    return rs, digests
+
+
+def phase_kat_slhdsa(torch, sphincs, slhdsa_params) -> None:
+    """The six tests/vectors/slhdsa_*.json through keygen (pk), deterministic
+    sign (sig by its sha256) and verify on the GPU, a flipped byte refused;
+    then the keygen records of acvp_slhdsa128f_fixture.json (pk, sk)."""
+    def rows(values):
+        return torch.tensor([list(v) for v in values], dtype=torch.uint8, device="cuda")
+
+    for tag in SLH_VECTORS:
+        data = json.loads((ROOT / "tests" / "vectors" / f"slhdsa_{tag}.json").read_text())
+        p = slhdsa_params.PARAMS[data["algorithm"]]
+        recs = data["tests"]
+        kg, sign, verify = sphincs.get(p.name)
+        pk, sk = kg(*(rows(bytes.fromhex(r[k]) for r in recs)
+                      for k in ("sk_seed", "sk_prf", "pk_seed")))
+        rs, digests = slh_host_digests(p, slhdsa_params, [bytes(x.tolist()) for x in sk],
+                                       [bytes.fromhex(r["msg"]) for r in recs])
+        digest = rows(digests)
+        sig = sign(sk, rows(rs), digest)
+        bad = sig.clone()
+        bad[:, -1] ^= 1
+        ok = verify(pk.repeat(2, 1), digest.repeat(2, 1), torch.cat([sig, bad])).tolist()
+        for i, rec in enumerate(recs):
+            if bytes(pk[i].tolist()).hex() != rec["pk"]:
+                raise PhaseFailed(f"KAT {p.name} count {rec['count']}: pk differs")
+            if hashlib.sha256(bytes(sig[i].tolist())).hexdigest() != rec["sig_sha256"]:
+                raise PhaseFailed(f"KAT {p.name} count {rec['count']}: sig differs")
+        if ok != [True] * len(recs) + [False] * len(recs):
+            raise PhaseFailed(f"KAT {p.name}: verify gave {ok}")
+        print(f"[kat] {p.name}: {len(recs)} vectors byte-exact on the GPU (keygen, sign; "
+              "verify True, a flipped byte False)")
+    data = json.loads((ROOT / "tests" / "vectors" / "acvp_slhdsa128f_fixture.json").read_text())
+    p = slhdsa_params.PARAMS[data["algorithm"]]
+    (group,) = [g for g in data["testGroups"] if "skSeed" in g["tests"][0]]
+    tests = group["tests"]
+    pk, sk = sphincs.keygen(p, *(rows(bytes.fromhex(t[k]) for t in tests)
+                                 for k in ("skSeed", "skPrf", "pkSeed")))
+    for i, t in enumerate(tests):
+        if bytes(pk[i].tolist()).hex() != t["pk"] or bytes(sk[i].tolist()).hex() != t["sk"]:
+            raise PhaseFailed(f"ACVP {p.name} keygen tcId {t['tcId']}: pk or sk differs")
+    print(f"[kat] {p.name}: {len(tests)} ACVP-format keygen records byte-exact on the GPU")
+
+
 #: RFC 8439 vectors: §2.3.2 (block, counter 1), §2.5.2 (Poly1305), §2.8.2 (AEAD)
 RFC_BLOCK = (bytes(range(32)), 1, bytes.fromhex("000000090000004a00000000"),
              "10f1e7e4d13b5915500fdd1fa32071c4c7d1f4c733c068030422aa9ac3d46c4e"
@@ -639,6 +801,23 @@ def phase_health_frodo(provider, health) -> list:
         with provider.BatchedKEM(provider.get_kem(name)) as bk:
             try:
                 verdicts += health.gate_facades(bk, cpu_kem=provider.get_kem(name, backend="cpu"))
+            except RuntimeError as exc:
+                raise PhaseFailed(f"health: {exc}") from exc
+    for v in verdicts:
+        print(f"[health] {v.family}: ok={v.ok} ({v.detail})")
+    return [v.as_dict() for v in verdicts]
+
+
+def phase_health_sphincs(provider, health) -> list:
+    """The health gate on the GPU providers of SPHINCS+-SHA2-128s and -128f:
+    a round trip, the "cpu" twin's verify of the device signature, and a
+    tampered signature refused."""
+    verdicts = []
+    for name in SLH_HEALTH:
+        with provider.BatchedSignature(provider.get_signature(name)) as bs:
+            try:
+                verdicts += health.gate_facades(
+                    bs, cpu_sig=provider.get_signature(name, backend="cpu"))
             except RuntimeError as exc:
                 raise PhaseFailed(f"health: {exc}") from exc
     for v in verdicts:
@@ -1061,6 +1240,160 @@ def phase_frodo_batch(torch, frodo, inputs) -> dict:
     return out
 
 
+async def sphincs_serve(torch, provider, sphincs, slhdsa_params) -> tuple[dict, tuple]:
+    """BASELINE config 4's SPHINCS+ half: SLH_SERVE_KEYS 128s keys from one
+    batched keygen, one message signed under each by one sign_batch (which
+    cuts the batch into chunks that fit the device's memory), then as many
+    asyncio clients verify through one BatchedSignature; a flipped byte is
+    refused, and the "cpu" twin verifies the first signature."""
+    dsa = provider.get_signature(SLH_SERVE)
+    p = dsa.params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pks, sks = dsa.generate_keypair_batch(SLH_SERVE_KEYS)
+    keygen_s = time.perf_counter() - t0
+    msgs = [b"peer %04d handshake transcript" % i for i in range(SLH_SERVE_KEYS)]
+    per_chunk = sphincs.signatures_per_chunk(p, dsa.memory_budget())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sigs = dsa.sign_batch(sks, msgs)
+    sign_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lat = []
+
+    async def verify(pk, m, sig):
+        t0 = time.perf_counter()
+        out = await bs.verify(bytes(pk), m, sig)
+        lat.append(time.perf_counter() - t0)
+        return out
+
+    with provider.BatchedSignature(dsa, max_batch=4096, max_wait_ms=2.0) as bs:
+        t0 = time.perf_counter()
+        oks = await asyncio.gather(*(verify(pk, m, sig) for pk, m, sig in zip(pks, msgs, sigs)))
+        wall = time.perf_counter() - t0
+        flipped = bytearray(sigs[0])
+        flipped[len(flipped) // 2] ^= 1
+        flipped_ok = await bs.verify(bytes(pks[0]), msgs[0], bytes(flipped))
+        stats = bs.stats()
+    if not all(oks):
+        raise PhaseFailed(f"sphincs serve: {oks.count(False)} of {SLH_SERVE_KEYS} signatures "
+                          "did not verify")
+    if flipped_ok:
+        raise PhaseFailed("sphincs serve: a signature with a flipped byte verified")
+    if not provider.get_signature(SLH_SERVE, backend="cpu").verify(bytes(pks[0]), msgs[0],
+                                                                   sigs[0]):
+        raise PhaseFailed("sphincs serve: the cpu twin rejects a GPU signature")
+    out = {"name": SLH_SERVE, "keys": SLH_SERVE_KEYS, "keygen_s": keygen_s,
+           "keygens_per_s": SLH_SERVE_KEYS / keygen_s, "sign_s": sign_s,
+           "signs_per_s": SLH_SERVE_KEYS / sign_s, "signatures_per_chunk": per_chunk,
+           "sign_chunks": -(-SLH_SERVE_KEYS // per_chunk), "sign_peak_gb": peak_gb,
+           "verify_wall_s": wall, "verifies_per_s": SLH_SERVE_KEYS / wall,
+           "verify_latency_ms": {"p50": pct(lat, 50), "p99": pct(lat, 99)},
+           "verify_flush_sizes": stats["verify"]["recent_batch_sizes"], "queues": stats}
+    print(f"[sphincs serve] {SLH_SERVE}: keygen of {SLH_SERVE_KEYS} keys {keygen_s:.3f} s "
+          f"({out['keygens_per_s']:.0f}/s); sign_batch {sign_s:.3f} s ({out['signs_per_s']:.0f}"
+          f"/s) in {out['sign_chunks']} chunk(s) of up to {per_chunk}, peak {peak_gb:.1f} GB; "
+          f"{SLH_SERVE_KEYS} clients verified in {wall:.3f} s ({out['verifies_per_s']:.0f}/s), "
+          f"latency ms {out['verify_latency_ms']}, flush sizes {out['verify_flush_sizes']}")
+    return out, (pks, msgs, sigs)
+
+
+def sphincs_batch_inputs(torch, np, slhdsa_params, name: str, batch: int):
+    """Seeded (sk_seed, sk_prf, pk_seed), randomizer and digest rows on the GPU."""
+    p = slhdsa_params.PARAMS[name]
+    rng = np.random.default_rng(p.n * p.hp)
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, size=shape, dtype=np.uint8)).to("cuda")
+
+    return p, [u8(batch, p.n) for _ in range(3)], u8(batch, p.n), u8(batch, p.m)
+
+
+def phase_sphincs_batch(torch, sphincs, inputs) -> tuple[dict, tuple]:
+    """keygen, sign_digest and verify_digest of one set at its batch, timed
+    with CUDA events; every signature verifies, a flipped byte does not."""
+    p, seeds, r, digest = inputs
+    kg, sign, verify = sphincs.get(p.name)
+    batch = digest.shape[0]
+    pk, sk = kg(*seeds)
+    sig = sign(sk, r, digest)
+    ok = verify(pk, digest, sig)
+    bad = sig.clone()
+    bad[:, p.n + 7] ^= 1
+    torch.cuda.synchronize()
+    if sig.shape != (batch, p.sig_len) or not bool(ok.all()):
+        raise PhaseFailed(f"{p.name} batch: shape {tuple(sig.shape)}, {int(ok.sum())} of "
+                          f"{batch} verified")
+    if bool(verify(pk, digest, bad).any()):
+        raise PhaseFailed(f"{p.name} batch: a signature with a flipped byte verified")
+    out = {"name": p.name, "batch": batch}
+    for what, fn, reps in (("keygen", lambda: kg(*seeds), 3),
+                           ("sign", lambda: sign(sk, r, digest), 3),
+                           ("verify", lambda: verify(pk, digest, sig), 5)):
+        ms = cuda_ms(torch, fn, reps)
+        out[what] = {"ms_per_batch_cuda_events": ms, "per_s": batch / (ms / 1e3)}
+    print(f"[sphincs batch] {p.name} B={batch} by CUDA events: keygen "
+          f"{out['keygen']['ms_per_batch_cuda_events']:.2f} ms ({out['keygen']['per_s']:.0f}/s), "
+          f"sign {out['sign']['ms_per_batch_cuda_events']:.2f} ms ({out['sign']['per_s']:.0f}/s), "
+          f"verify {out['verify']['ms_per_batch_cuda_events']:.2f} ms "
+          f"({out['verify']['per_s']:.0f}/s)")
+    return out, (pk, sk, sig)
+
+
+def phase_sphincs_memory(torch, np, provider, sphincs, slhdsa_params) -> dict:
+    """The chunk rule of SPHINCSSignature.sign_batch held to the card: the
+    device bytes one sign_digest call adds at its peak, per row in flight,
+    stay within sphincs.BYTES_PER_ROW at every set; then SLH_WIDEST signs a
+    batch of SLH_CHUNKS chunks under the provider's own budget, whose peak
+    must stay within that budget, and every signature verifies."""
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    out = {"bytes_per_row_rule": sphincs.BYTES_PER_ROW, "bytes_per_row": {}}
+    for name in slhdsa_params.PARAMS:
+        p, seeds, r, digest = sphincs_batch_inputs(torch, np, slhdsa_params, name,
+                                                   SLH_ROW_BATCH)
+        kg, sign, _ = sphincs.get(name)
+        _, sk = kg(*seeds)
+        _, peak = peak_of(lambda: sign(sk, r, digest))
+        out["bytes_per_row"][name] = peak / (SLH_ROW_BATCH * sphincs.rows_in_flight(p))
+    print(f"[sphincs memory] device bytes a row in flight at the peak of one sign_digest "
+          f"(B = {SLH_ROW_BATCH}, rule {sphincs.BYTES_PER_ROW}): "
+          f"{ {k: round(v, 1) for k, v in out['bytes_per_row'].items()} }")
+    over = {k: v for k, v in out["bytes_per_row"].items() if v > sphincs.BYTES_PER_ROW}
+    if over:
+        raise PhaseFailed(f"sphincs memory: more bytes a row than the chunk rule allows: {over}")
+
+    dsa = provider.get_signature(SLH_WIDEST)
+    budget = dsa.memory_budget()
+    per_chunk = sphincs.signatures_per_chunk(dsa.params, budget)
+    n = (SLH_CHUNKS - 1) * per_chunk + 1
+    pks, sks = dsa.generate_keypair_batch(n)
+    msgs = [b"chunked %d" % i for i in range(n)]
+    t0 = time.perf_counter()
+    sigs, peak = peak_of(lambda: dsa.sign_batch(sks, msgs))
+    sign_s = time.perf_counter() - t0
+    oks = dsa.verify_batch(pks, msgs, sigs)
+    out.update({"name": SLH_WIDEST, "signatures": n, "signatures_per_chunk": per_chunk,
+                "chunks": -(-n // per_chunk), "budget_gb": budget / 1e9, "peak_gb": peak / 1e9,
+                "sign_s": sign_s, "signs_per_s": n / sign_s})
+    print(f"[sphincs memory] {SLH_WIDEST}: sign_batch of {n} in {out['chunks']} chunks of up "
+          f"to {per_chunk}: peak {peak / 1e9:.2f} GB above the start, budget "
+          f"{budget / 1e9:.2f} GB; {sign_s:.3f} s ({out['signs_per_s']:.0f} signs/s)")
+    if out["chunks"] != SLH_CHUNKS:
+        raise PhaseFailed(f"sphincs memory: {out['chunks']} chunks, not {SLH_CHUNKS}")
+    if peak > budget:
+        raise PhaseFailed(f"sphincs memory: peak {peak} bytes over the budget of {budget}")
+    if not oks.all():
+        raise PhaseFailed(f"sphincs memory: {int((~oks).sum())} of {n} signatures rejected")
+    return out
+
+
 def busy_share(events: list, window: str) -> tuple[float, float]:
     """-> (window us, device-busy us inside it) from a chrome trace: the
     union of kernel, memcpy and memset intervals clipped to the span of
@@ -1111,7 +1444,8 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
     total_us = sum(device_us.values())
     ours = ("::sponge_kernel<", "::sample_ntt_kernel(", "::prf_cbd_kernel<", "::ntt_kernel<",
             "::rej_ntt_kernel(", "::rej_bounded_kernel<", "::sponge_varlen_kernel<",
-            "::chacha_kernel(", "::a_times_s_kernel<", "::s_times_a_kernel<", "::cdf_kernel(")
+            "::chacha_kernel(", "::a_times_s_kernel<", "::s_times_a_kernel<", "::cdf_kernel(",
+            "::sha256_kernel(", "::sha512_kernel(")
     ours_us = sum(v for k, v in device_us.items() if any(o in k for o in ours))
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:12]
     out = {"batches": reps, "window_ms_per_batch": window_us / reps / 1e3,
@@ -1147,12 +1481,14 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     try:
         from quantum_resistant_p2p_tpu_torch import provider
-        from quantum_resistant_p2p_tpu_torch.core import chacha, chacha_cuda, keccak, keccak_cuda
+        from quantum_resistant_p2p_tpu_torch.core import (chacha, chacha_cuda, keccak, keccak_cuda,
+                                                          sha256, sha256_cuda, sha512,
+                                                          sha512_cuda)
         from quantum_resistant_p2p_tpu_torch.entry import entry
         from quantum_resistant_p2p_tpu_torch.kem import frodo, frodo_cuda, mlkem, mlkem_cuda
         from quantum_resistant_p2p_tpu_torch.provider import (BatchedKEM, BatchedSignature,
                                                               get_kem, get_signature, health)
-        from quantum_resistant_p2p_tpu_torch.sig import mldsa, mldsa_cuda
+        from quantum_resistant_p2p_tpu_torch.sig import mldsa, mldsa_cuda, slhdsa_params, sphincs
         from quantum_resistant_p2p_tpu_torch.utils import cuda
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script: {exc}", file=sys.stderr)
@@ -1173,10 +1509,13 @@ def main() -> int:
                 "keccak_sponge_varlen": keccak_cuda.sponge_varlen,
                 "chacha_blocks": chacha_cuda.chacha_blocks,
                 "frodo_a_times_s": frodo_cuda.a_times_s, "frodo_s_times_a": frodo_cuda.s_times_a,
-                "frodo_cdf_sample": frodo_cuda.cdf_sample}
+                "frodo_cdf_sample": frodo_cuda.cdf_sample,
+                "sha256_compress": sha256_cuda.compress, "sha512_compress": sha512_cuda.compress}
     sources = {"keccak_sponge": "quantum_resistant_p2p_tpu_torch/csrc/sponge.cu",
                "keccak_sponge_varlen": "quantum_resistant_p2p_tpu_torch/csrc/sponge.cu",
-               "chacha_blocks": "quantum_resistant_p2p_tpu_torch/csrc/chacha.cu"}
+               "chacha_blocks": "quantum_resistant_p2p_tpu_torch/csrc/chacha.cu",
+               "sha256_compress": "quantum_resistant_p2p_tpu_torch/csrc/sha2.cu",
+               "sha512_compress": "quantum_resistant_p2p_tpu_torch/csrc/sha2.cu"}
     for prefix in ("mldsa", "frodo"):
         sources.update({n: f"quantum_resistant_p2p_tpu_torch/csrc/{prefix}.cu" for n in wrappers
                         if n.startswith(prefix)})
@@ -1185,12 +1524,16 @@ def main() -> int:
         ptxas = phase_build(cuda)
         sass = keccak_round_sass(cuda)
         sass["chacha_kernel"] = kernel_sass_opcodes(cuda, "chacha", "chacha_kernel")
+        sass.update(sha2_block_sass(cuda))
+        sha2_ops = {k: sass[k]["int_pipe_ops"] for k in ("sha256_kernel", "sha512_kernel")}
         rows = phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mldsa_cuda,
-                             chacha, chacha_cuda, frodo, frodo_cuda, int_rate)
+                             chacha, chacha_cuda, frodo, frodo_cuda,
+                             (sha256, sha256_cuda, sha512, sha512_cuda), sha2_ops, int_rate)
         phase_kat(torch, mlkem)
         phase_kat_mldsa(torch, mldsa)
         phase_kat_frodo(torch, frodo)
         phase_kat_chacha(torch, np, chacha)
+        phase_kat_slhdsa(torch, sphincs, slhdsa_params)
         kem, dsa = get_kem("ML-KEM-768"), get_signature("ML-DSA-65")
         if (kem.backend, dsa.backend) != ("cuda", "cuda"):
             raise PhaseFailed(f"default backends are {kem.backend}, {dsa.backend}")
@@ -1198,6 +1541,7 @@ def main() -> int:
         pk_off, ct_off = provider.init_pk_offset(kem.name, AEAD), provider.resp_ct_offset()
         verdicts = phase_health(provider, health, kem, dsa, fused, aead, pk_off, ct_off)
         verdicts += phase_health_frodo(provider, health)
+        verdicts += phase_health_sphincs(provider, health)
 
         def reset():
             for w in wrappers.values():
@@ -1268,6 +1612,24 @@ def main() -> int:
                        for name, inputs in frodo_inputs.items()}
         launches["frodo_batch"] = read("frodo batch", FRODO_ENCAPS_KERNELS)
 
+        reset()
+        slh_served, slh_signed = asyncio.run(sphincs_serve(torch, provider, sphincs,
+                                                           slhdsa_params))
+        launches["sphincs_serve"] = read("sphincs serve", ("sha256_compress",))
+        slh_inputs = {name: sphincs_batch_inputs(torch, np, slhdsa_params, name, batch)
+                      for name, batch in SLH_BATCHES}
+        slh_batch, slh_outputs = {}, {}
+        for name, inputs in slh_inputs.items():
+            reset()
+            slh_batch[name], slh_outputs[name] = phase_sphincs_batch(torch, sphincs, inputs)
+            launches[f"sphincs_batch_{name}"] = read(
+                f"sphincs batch {name}",
+                ("sha256_compress",) + (("sha512_compress",) if inputs[0].big_hash else ()))
+        reset()
+        slh_memory = phase_sphincs_memory(torch, np, provider, sphincs, slhdsa_params)
+        launches["sphincs_memory"] = read("sphincs memory", ("sha256_compress",
+                                                             "sha512_compress"))
+
         # launches of one batched call of each op (after the counted window)
         def count(call):
             reset()
@@ -1291,6 +1653,13 @@ def main() -> int:
             (fct, _), per_op[f"{name}_encaps"] = count(lambda: frodo.encaps(fp, fpk[:16], fs))
             _, per_op[f"{name}_decaps"] = count(lambda: frodo.decaps(fp, fsk[:16], fct))
             _, per_op[f"{name}_encaps_pre"] = count(lambda: frodo.encaps_pre(fp, fpre, fs))
+        sp, sseeds, sr, sdigest = slh_inputs[SLH_BATCHES[0][0]]
+        skg, ssign, sverify = sphincs.get(sp.name)
+        spk, ssk, ssig = slh_outputs[sp.name]
+        _, per_op["sphincs_128f_keygen"] = count(lambda: skg(*(x[:16] for x in sseeds)))
+        _, per_op["sphincs_128f_sign"] = count(lambda: ssign(ssk[:16], sr[:16], sdigest[:16]))
+        _, per_op["sphincs_128f_verify"] = count(lambda: sverify(spk[:16], sdigest[:16],
+                                                                 ssig[:16]))
         print(f"[launches] per batched op: {per_op}")
         fn, args = entry()
         profiled = {
@@ -1303,6 +1672,21 @@ def main() -> int:
         fp, fpk, _, _, fmu = frodo_inputs[FRODO_SHAKE]
         profiled["frodo_encaps"] = phase_profile(torch, "frodo_encaps",
                                                  lambda: frodo.encaps(fp, fpk, fmu), 1)
+        profiled["sphincs_sign_128f"] = phase_profile(torch, "sphincs_sign_128f",
+                                                      lambda: ssign(ssk, sr, sdigest), 1)
+        vp = slhdsa_params.PARAMS[SLH_SERVE]
+        vpks, vmsgs, vsigs = slh_signed
+        vdigests = [list(slhdsa_params.h_msg(vp, sig[: vp.n], bytes(pk[: vp.n]),
+                                             bytes(pk[vp.n:]), m))
+                    for pk, m, sig in zip(vpks, vmsgs, vsigs)]
+        vargs = (torch.from_numpy(np.asarray(vpks)).to("cuda"),
+                 torch.tensor(vdigests, dtype=torch.uint8, device="cuda"),
+                 torch.tensor([list(sig) for sig in vsigs], dtype=torch.uint8, device="cuda"))
+        vverify = sphincs.get(vp.name)[2]
+        if not bool(vverify(*vargs).all()):
+            raise PhaseFailed("profile: the 128s verify batch rejects a signature")
+        profiled["sphincs_verify_128s"] = phase_profile(torch, "sphincs_verify_128s",
+                                                        lambda: vverify(*vargs), 1)
     except PhaseFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1332,6 +1716,8 @@ def main() -> int:
                                  "sig_serve": sig_served, "sig_flagship": sig_flagship,
                                  "health": verdicts, "handshake": shaken, "data_plane": plane,
                                  "frodo_serve": frodo_served, "frodo_batch": frodo_batch,
+                                 "sphincs_serve": slh_served, "sphincs_batch": slh_batch,
+                                 "sphincs_memory": slh_memory,
                                  "launches": launches, "launches_per_op": per_op,
                                  "profile": profiled}}))
     print(card)

@@ -17,7 +17,7 @@ from .base import (BACKENDS, BatchedAEADOps, FusedHandshakeOps, KeyExchangeAlgor
                    SignatureAlgorithm, SymmetricAlgorithm)
 from .fused_providers import FusedMLKEMMLDSA
 from .kem_providers import FrodoKEMKeyExchange, MLKEMKeyExchange
-from .sig_providers import MLDSASignature
+from .sig_providers import MLDSASignature, SPHINCSSignature
 from .symmetric import AES256GCM, ChaCha20Poly1305
 
 # name -> factory(backend) -> algorithm
@@ -123,6 +123,11 @@ for _level, _size in ((1, 640), (3, 976), (5, 1344)):
                          _level, backend, use_aes=_aes))
 for _level, _name in ((2, "ML-DSA-44"), (3, "ML-DSA-65"), (5, "ML-DSA-87")):
     register_signature(_name, lambda backend, _level=_level: MLDSASignature(_level, backend))
+for _level, _size in ((1, 128), (3, 192), (5, 256)):
+    for _fast in (True, False):
+        register_signature(f"SPHINCS+-SHA2-{_size}{'f' if _fast else 's'}-simple",
+                           lambda backend, _level=_level, _fast=_fast: SPHINCSSignature(
+                               _level, backend, fast=_fast))
 register_batched_aead("ChaCha20-Poly1305", ChaChaPolyDevice)
 for _kem_name in ("ML-KEM-512", "ML-KEM-768", "ML-KEM-1024"):
     for _sig_name in ("ML-DSA-44", "ML-DSA-65", "ML-DSA-87"):

@@ -1,16 +1,17 @@
-"""ML-DSA provider on the port's two backends.
+"""Signature providers on the port's two backends: ML-DSA and SPHINCS+-SHA2.
 
-``backend="cuda"`` (the default) runs ``sig.mldsa`` on the GPU, where every
-sampling, NTT and hash step is one of the port's CUDA kernels;
-``backend="cpu"`` runs the same functions on CPU tensors, which take the
-kernels' plain PyTorch versions.  Asking for "cuda" without a GPU raises:
-nothing falls back to the CPU.
+``backend="cuda"`` (the default) runs ``sig.mldsa`` / ``sig.sphincs`` on the
+GPU, where every sampling, NTT and hash step is one of the port's CUDA
+kernels; ``backend="cpu"`` runs the same functions on CPU tensors, which
+take the kernels' plain PyTorch versions.  Asking for "cuda" without a GPU
+raises: nothing falls back to the CPU.
 
-Host/device split: a variable-length message is hashed to the fixed
-64-byte ``mu = SHAKE256(tr || M', 64)`` on the host with ``hashlib``
-(public data, cheap); the lattice math runs as fixed-shape batched calls on
-the device.  Randomness (xi for keygen, rnd for the hedged signing) is
-drawn host-side from ``os.urandom``.
+Host/device split: a variable-length message is hashed to a fixed-size
+digest on the host with ``hashlib`` (public data, cheap): ML-DSA's 64-byte
+``mu = SHAKE256(tr || M', 64)``, SPHINCS+'s PRF_msg randomizer and m-byte
+H_msg digest.  The lattice and hash-tree work runs as fixed-shape batched
+calls on the device.  Randomness (seeds for keygen, rnd for ML-DSA's hedged
+signing) is drawn host-side from ``os.urandom``.
 """
 
 from __future__ import annotations
@@ -18,8 +19,9 @@ from __future__ import annotations
 import hashlib
 
 import numpy as np
+import torch
 
-from ..sig import mldsa
+from ..sig import mldsa, slhdsa_params, sphincs
 from ..utils.cuda import require_device
 from ..utils.wipe import wipe
 from .base import (BACKENDS, DeviceIO, SignatureAlgorithm, expect_cols, expect_len,
@@ -163,4 +165,124 @@ class MLDSASignature(DeviceIO, SignatureAlgorithm):
                 oks = self._verify_pre(pre, mu, sig)
         else:
             oks = self._verify_mu(self._to_device(pks), mu, sig)
+        return self._to_host(oks) & sized
+
+
+_LEVEL_TO_SLH = {
+    (1, True): slhdsa_params.SLH128F, (1, False): slhdsa_params.SLH128S,
+    (3, True): slhdsa_params.SLH192F, (3, False): slhdsa_params.SLH192S,
+    (5, True): slhdsa_params.SLH256F, (5, False): slhdsa_params.SLH256S,
+}
+
+#: the host memory a sign call on the "cpu" backend may fill
+CPU_SIGN_BUDGET_BYTES = 1 << 30
+
+
+class SPHINCSSignature(DeviceIO, SignatureAlgorithm):
+    """SPHINCS+-SHA2 'simple' (FIPS 205 SLH-DSA) at NIST level 1, 3 or 5, the
+    fast ('f') or small ('s') variant.
+
+    Signing is the deterministic variant (PRF_msg with opt_rand = pk_seed),
+    as the reference provider signs.  ``sign_batch`` cuts a batch into
+    chunks that fit the device's free memory: one s-set signature puts up
+    to 360k hash rows in flight at once.  ``verify`` returns False for a
+    malformed or invalid signature; a device failure raises."""
+
+    def __init__(self, security_level: int = 1, backend: str = "cuda", fast: bool = True):
+        if (security_level, fast) not in _LEVEL_TO_SLH:
+            raise ValueError(f"SPHINCS+ level must be 1/3/5, got {security_level}")
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r} not supported (have {BACKENDS})")
+        self.device = require_device(backend)
+        self.params = _LEVEL_TO_SLH[(security_level, fast)]
+        self.security_level = security_level
+        self.fast = fast
+        self.backend = backend
+        self.name = self.params.name
+        self.public_key_len = self.params.pk_len
+        self.secret_key_len = self.params.sk_len
+        self.signature_len = self.params.sig_len
+        self._kg, self._sign_digest, self._verify_digest = sphincs.get(self.name)
+
+    def generate_keypair(self) -> tuple[bytes, bytes]:
+        pks, sks = self.generate_keypair_batch(1)
+        out = bytes(pks[0]), bytes(sks[0])
+        wipe(sks)
+        return out
+
+    def generate_keypair_batch(self, n: int) -> tuple[np.ndarray, np.ndarray]:
+        w = self.params.n
+        seeds = random_rows(n, 3 * w)  # sk_seed || sk_prf || pk_seed
+        seeds_t = self._to_device(seeds)
+        pk, sk = self._kg(seeds_t[:, :w], seeds_t[:, w:2 * w], seeds_t[:, 2 * w:])
+        out = self._to_host(pk), self._to_host(sk)
+        wipe(seeds, seeds_t, sk)
+        return out
+
+    def sign(self, secret_key: bytes, message: bytes) -> bytes:
+        expect_len(secret_key, self.secret_key_len, "secret key", self.name)
+        return self.sign_batch(np.frombuffer(secret_key, np.uint8)[None], [message])[0]
+
+    def verify(self, public_key: bytes, message: bytes, signature: bytes) -> bool:
+        if len(public_key) != self.public_key_len:
+            return False
+        pk = np.frombuffer(public_key, np.uint8)[None]
+        return bool(self.verify_batch(pk, [message], [signature])[0])
+
+    def memory_budget(self) -> int:
+        """Bytes one sign call may fill: half of what the device has free
+        (the caching allocator's idle blocks counted as free), or a fixed
+        budget on the CPU."""
+        if self.device.type == "cpu":
+            return CPU_SIGN_BUDGET_BYTES
+        free, _ = torch.cuda.mem_get_info(self.device)
+        idle = torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
+        return (free + idle) // 2
+
+    def sign_batch(self, secret_keys: np.ndarray, messages: list[bytes]) -> list[bytes]:
+        """Deterministic signatures of ``messages`` under the matching rows
+        of ``secret_keys``, in chunks of as many signatures as
+        :meth:`memory_budget` holds."""
+        expect_cols(secret_keys, self.secret_key_len, "secret keys", self.name)
+        sks = np.asarray(secret_keys)
+        if len(sks) != len(messages):
+            raise ValueError(f"{self.name}: {len(sks)} keys for {len(messages)} messages")
+        p = self.params
+        rs, digests = [], []
+        for sk, m in zip(sks, messages):
+            skb = sk.tobytes()
+            pk_seed, pk_root = skb[2 * p.n: 3 * p.n], skb[3 * p.n:]
+            r = slhdsa_params.prf_msg(p, skb[p.n: 2 * p.n], pk_seed, m)
+            rs.append(np.frombuffer(r, np.uint8))
+            digests.append(np.frombuffer(slhdsa_params.h_msg(p, r, pk_seed, pk_root, m),
+                                         np.uint8))
+        step = sphincs.signatures_per_chunk(p, self.memory_budget())
+        sigs = []
+        for i in range(0, len(sks), step):
+            sk_t = self._to_device(sks[i:i + step])
+            sig = self._sign_digest(sk_t, self._to_device(np.stack(rs[i:i + step])),
+                                    self._to_device(np.stack(digests[i:i + step])))
+            sigs += [bytes(s) for s in self._to_host(sig)]
+            wipe(sk_t)
+        return sigs
+
+    def verify_batch(self, public_keys: np.ndarray, messages: list[bytes],
+                     signatures: list[bytes]) -> np.ndarray:
+        """-> (n,) bool; a signature of the wrong length is False."""
+        expect_cols(public_keys, self.public_key_len, "public keys", self.name)
+        pks = np.asarray(public_keys)
+        if not len(pks) == len(messages) == len(signatures):
+            raise ValueError(f"{self.name}: {len(pks)} keys, {len(messages)} messages, "
+                             f"{len(signatures)} signatures")
+        p = self.params
+        sized = np.array([len(s) == self.signature_len for s in signatures], dtype=bool)
+        blank = bytes(self.signature_len)
+        sigs = [bytes(s) if ok else blank for s, ok in zip(signatures, sized)]
+        digests = np.stack([
+            np.frombuffer(slhdsa_params.h_msg(p, sig[: p.n], pk[: p.n].tobytes(),
+                                              pk[p.n:].tobytes(), m), np.uint8)
+            for pk, m, sig in zip(pks, messages, sigs)])
+        oks = self._verify_digest(self._to_device(pks), self._to_device(digests),
+                                  self._to_device(np.stack([np.frombuffer(s, np.uint8)
+                                                            for s in sigs])))
         return self._to_host(oks) & sized

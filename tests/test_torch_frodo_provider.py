@@ -14,8 +14,8 @@ from quantum_resistant_p2p_tpu.provider.kem_providers import \
 from quantum_resistant_p2p_tpu_torch.kem import frodo
 from quantum_resistant_p2p_tpu_torch.provider import (BatchedKEM, FrodoKEMKeyExchange, get_kem,
                                                       list_kems)
-from quantum_resistant_p2p_tpu_torch.provider import kem_providers
-from quantum_resistant_p2p_tpu_torch.provider.health import (_check_frodo_kat,
+from quantum_resistant_p2p_tpu_torch.provider import health, kem_providers
+from quantum_resistant_p2p_tpu_torch.provider.health import (HealthVerdict, _check_frodo_kat,
                                                              _check_kem_roundtrip,
                                                              ensure_validated, gate_facades)
 
@@ -145,3 +145,25 @@ def test_cuda_backend_raises_without_gpu():
     for name in ("FrodoKEM-640-AES", "FrodoKEM-1344-SHAKE"):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             get_kem(name)
+
+
+def test_health_of_a_wider_shake_set_runs_its_own_round_trip(monkeypatch):
+    """FrodoKEM-976-SHAKE: the pinned 640 vector, then a round trip through
+    this set's own kernels with its CPU twin; a twin that decapsulates to
+    another secret fails the verdict."""
+    kem = get_kem("FrodoKEM-976-SHAKE", backend="cpu")
+    kem.backend = "cuda"
+    verdict = ensure_validated(kem, get_kem("FrodoKEM-976-SHAKE", backend="cpu"))
+    kat = "FrodoKEM-640-SHAKE KAT ok (keygen/encaps/decaps)"
+    assert verdict.ok
+    assert verdict.detail == f"{kat}; FrodoKEM-976-SHAKE device roundtrip ok + cpu agreement"
+
+    class WrongTwin(FrodoKEMKeyExchange):
+        def decapsulate_batch(self, secret_keys, ciphertexts):
+            return super().decapsulate_batch(secret_keys, ciphertexts) ^ 1
+
+    # the pinned vector passed above: the wrong twin's round trip is what is left
+    monkeypatch.setattr(health, "_check_frodo_kat",
+                        lambda algo: HealthVerdict(algo.name, True, kat))
+    verdict = ensure_validated(kem, WrongTwin(3, backend="cpu", use_aes=False))
+    assert not verdict.ok and "cpu twin decaps disagrees" in verdict.detail

@@ -9,7 +9,8 @@ without them:
 Each kernel is held bitwise to its plain PyTorch version on the same
 device, and the GPU paths of ML-KEM, ML-DSA, the fused handshake programs
 and the ChaCha20-Poly1305 core to the CPU paths; FrodoKEM's GPU path to
-the vectors in tests/vectors/frodo_*.json.
+the vectors in tests/vectors/frodo_*.json, and SPHINCS+-SHA2's to
+tests/vectors/slhdsa_*.json.
 """
 
 import asyncio
@@ -21,14 +22,15 @@ import numpy as np
 import pytest
 import torch
 
-from quantum_resistant_p2p_tpu_torch.core import chacha, chacha_cuda, keccak, keccak_cuda
+from quantum_resistant_p2p_tpu_torch.core import (chacha, chacha_cuda, keccak, keccak_cuda,
+                                                  sha256, sha256_cuda, sha512, sha512_cuda)
 from quantum_resistant_p2p_tpu_torch.fused import mlkem_mldsa as fused
 from quantum_resistant_p2p_tpu_torch.kem import frodo, frodo_cuda, mlkem, mlkem_cuda
 from quantum_resistant_p2p_tpu_torch.provider import (BatchedAEAD, BatchedKEM, BatchedSignature,
                                                       get_batched_aead, get_kem, get_signature,
                                                       get_symmetric, init_pk_offset,
                                                       resp_ct_offset)
-from quantum_resistant_p2p_tpu_torch.sig import mldsa, mldsa_cuda
+from quantum_resistant_p2p_tpu_torch.sig import mldsa, mldsa_cuda, slhdsa_params, sphincs
 
 pytestmark = pytest.mark.cuda
 VECTOR_DIR = Path(__file__).parent / "vectors"
@@ -318,3 +320,105 @@ def test_batched_frodo_on_the_default_backend(gpu):
 
     assert all(asyncio.run(run()))
     assert kem.opcache.stats()["hits"] >= 1
+
+
+@pytest.mark.parametrize("rows", [1000, 70000])
+def test_sha2_kernels_match_plain(gpu, rows):
+    """K12 and K13, one block a row, on random states (every bit pattern for
+    SHA-512's int64 words) against the plain compressions on the GPU."""
+    rng = np.random.default_rng(rows)
+    for mod, kern, width, words in ((sha256, sha256_cuda.compress, 64, (0, 2**32)),
+                                    (sha512, sha512_cuda.compress, 128, (-2**63, 2**63))):
+        state = torch.tensor(rng.integers(*words, (rows, 8), dtype=np.int64), device=gpu)
+        block = torch.tensor(rng.integers(0, 256, (rows, width), dtype=np.uint8), device=gpu)
+        before = kern.launches
+        got = mod.compress(state, block)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        assert torch.equal(got, mod.compress_plain(state, block))
+
+
+@pytest.mark.parametrize("blocks", [1, 10, 17])
+def test_sha2_multiblock_and_shared_state_match_plain(gpu, blocks):
+    """The multi-block entry (all blocks of a row in one launch) against the
+    plain block-by-block _absorb, with one state serving 7 x 5 rows."""
+    rng = np.random.default_rng(blocks)
+    for mod, kern, width in ((sha256, sha256_cuda.compress, 64),
+                             (sha512, sha512_cuda.compress, 128)):
+        prefix = torch.tensor(rng.integers(0, 256, (3, width), dtype=np.uint8), device=gpu)
+        mid = mod.midstate(prefix)[:, None, None, :]
+        data = torch.tensor(rng.integers(0, 256, (3, 7, 5, blocks * width), dtype=np.uint8),
+                            device=gpu)
+        before = kern.launches
+        got = mod._absorb(mid, data)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        want = mod._absorb(mid.cpu(), data.cpu())
+        assert torch.equal(got.cpu(), want)
+        hasher = hashlib.sha256 if width == 64 else hashlib.sha512
+        tail = data[1, 6, 4, : width - 9].cpu().numpy().tobytes()
+        digest = (mod.sha256 if width == 64 else mod.sha512)(data[1:2, 6, 4, : width - 9])
+        assert bytes(digest[0].cpu().numpy()) == hasher(tail).digest()
+
+
+def _slhdsa_on_gpu(gpu, data):
+    """keygen -> pk, deterministic sign -> sig_sha256, verify, on the GPU."""
+    p = slhdsa_params.PARAMS[data["algorithm"]]
+    recs = data["tests"]
+
+    def col(key):
+        return torch.tensor([list(bytes.fromhex(r[key])) for r in recs], dtype=torch.uint8,
+                            device=gpu)
+
+    kg, sign, verify = sphincs.get(p.name)
+    pk, sk = kg(col("sk_seed"), col("sk_prf"), col("pk_seed"))
+    rs, digests = [], []
+    for i, rec in enumerate(recs):
+        skb, msg = bytes(sk[i].cpu().numpy()), bytes.fromhex(rec["msg"])
+        r = slhdsa_params.prf_msg(p, skb[p.n:2 * p.n], skb[2 * p.n:3 * p.n], msg)
+        rs.append(list(r))
+        digests.append(list(slhdsa_params.h_msg(p, r, skb[2 * p.n:3 * p.n], skb[3 * p.n:], msg)))
+    digest = torch.tensor(digests, dtype=torch.uint8, device=gpu)
+    sig = sign(sk, torch.tensor(rs, dtype=torch.uint8, device=gpu), digest)
+    bad = sig.clone()
+    bad[:, -1] ^= 1
+    ok = verify(pk.repeat(2, 1), digest.repeat(2, 1), torch.cat([sig, bad]))
+    return recs, pk, sig, ok
+
+
+@pytest.mark.parametrize("size", ["128f", "128s", "192f", "192s", "256f", "256s"])
+def test_slhdsa_gpu_path_matches_vectors(gpu, size):
+    data = json.loads((VECTOR_DIR / f"slhdsa_{size}.json").read_text())
+    before = sha256_cuda.compress.launches, sha512_cuda.compress.launches
+    recs, pk, sig, ok = _slhdsa_on_gpu(gpu, data)
+    for i, rec in enumerate(recs):
+        assert bytes(pk[i].cpu().numpy()).hex() == rec["pk"]
+        assert hashlib.sha256(bytes(sig[i].cpu().numpy())).hexdigest() == rec["sig_sha256"]
+    assert ok.tolist() == [True] * len(recs) + [False] * len(recs)
+    assert sha256_cuda.compress.launches > before[0]
+    assert (sha512_cuda.compress.launches > before[1]) == (size[:3] != "128")
+
+
+def test_batched_sphincs_on_the_default_backend(gpu, monkeypatch):
+    """BatchedSignature over SPHINCS+-SHA2-128s-simple: clients sign with
+    their own keys, signatures verify and one with a flipped byte does not;
+    the memory-chunked sign_batch gives the bytes of one call."""
+    dsa = get_signature("SPHINCS+-SHA2-128s-simple")
+    assert dsa.backend == "cuda"
+    pks, sks = dsa.generate_keypair_batch(6)
+    msgs = [b"client %d" % i for i in range(6)]
+
+    async def run():
+        with BatchedSignature(dsa, max_wait_ms=5.0) as bs:
+            sigs = await asyncio.gather(*(bs.sign(bytes(sk), m) for sk, m in zip(sks, msgs)))
+            oks = await asyncio.gather(*(bs.verify(bytes(pk), m, s)
+                                         for pk, m, s in zip(pks, msgs, sigs)))
+            bad = bytearray(sigs[0])
+            bad[0] ^= 1
+            return sigs, oks, await bs.verify(bytes(pks[0]), msgs[0], bytes(bad))
+
+    sigs, oks, bad_ok = asyncio.run(run())
+    assert oks == [True] * 6 and not bad_ok
+    budget = 2 * sphincs.rows_in_flight(dsa.params) * sphincs.BYTES_PER_ROW
+    monkeypatch.setattr(dsa, "memory_budget", lambda: budget)
+    assert dsa.sign_batch(sks, msgs) == sigs

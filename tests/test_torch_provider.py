@@ -260,6 +260,13 @@ def test_port_imports_no_jax():
         "pk, sk = frodo.generate_keypair()\n"
         "ct, ss = frodo.encapsulate(pk)\n"
         "assert frodo.decapsulate(sk, ct) == ss\n"
+        "import hashlib, torch\n"
+        "from quantum_resistant_p2p_tpu_torch.core import sha256, sha512, sha256_cuda, sha512_cuda\n"
+        "import quantum_resistant_p2p_tpu_torch.sig.sphincs, quantum_resistant_p2p_tpu_torch.sig.slhdsa_params\n"
+        "msg = torch.tensor(list(b'abc'), dtype=torch.uint8)[None]\n"
+        "assert bytes(sha256.sha256(msg)[0].tolist()) == hashlib.sha256(b'abc').digest()\n"
+        "assert bytes(sha512.sha512(msg)[0].tolist()) == hashlib.sha512(b'abc').digest()\n"
+        "assert get_signature('SPHINCS+-SHA2-128s-simple', backend='cpu').signature_len == 7856\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'quantum_resistant_p2p_tpu'\n"
         "             or m.startswith('quantum_resistant_p2p_tpu.'))\n"

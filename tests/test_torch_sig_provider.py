@@ -145,7 +145,9 @@ def test_batched_signature_failure_reaches_every_waiter():
 
 
 def test_registry_names_and_backends():
-    assert list_signatures() == ["ML-DSA-44", "ML-DSA-65", "ML-DSA-87"]
+    assert list_signatures() == sorted(
+        ["ML-DSA-44", "ML-DSA-65", "ML-DSA-87"]
+        + [f"SPHINCS+-SHA2-{s}-simple" for s in ("128f", "128s", "192f", "192s", "256f", "256s")])
     with pytest.raises(KeyError):
         get_signature("Dilithium3", backend="cpu")
     for bad in ("auto", "tpu"):
