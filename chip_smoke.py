@@ -9,20 +9,27 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
 1. build     compile csrc/sponge.cu, csrc/mlkem.cu, csrc/mldsa.cu,
              csrc/chacha.cu, csrc/frodo.cu and csrc/sha2.cu with nvcc
              (sm_90a), all at once, and print the ptxas register/spill
-             summary, the SASS of K1's Keccak round loop, K8's opcodes and
-             those of K12's and K13's block loops (their bound counts them);
+             summary, the SASS of K1's round loops (the rows path's and the
+             split path's), K8's opcodes and those of K12's and K13's block
+             loops (their bound counts them);
 2. kernels   run every kernel and its plain PyTorch version on the GPU at
-             the shapes of the batch-4096 ML-KEM-768 and ML-DSA-65 paths,
-             K1 with per-row lengths on 4096 transcripts of up to 3458
-             bytes, K8 on 4096 x 65 and 4096 x 1025 ChaCha20 blocks, K9 and
-             K10 at FrodoKEM-640-SHAKE, B = 1024 (BASELINE.json config 3's
-             batch) and FrodoKEM-1344-SHAKE, B = 256, and K11 at the sample
-             count of that 640 encaps batch, K12 at a 128f chain step
-             (1024 x 8 x 35 rows) and at the 128f FORS leaves (1024 x 33 x 64)
-             of B = 1024, K13 at 192f's first FORS level of B = 256
-             (256 x 33 x 128), both over 10-block rows (a WOTS public key's
-             T_l) too; require bitwise equality, and time both with CUDA
-             events (K11 beside torch.searchsorted);
+             the shapes of the batch-4096 ML-KEM-768 and ML-DSA-65 paths:
+             K1 at H, G and J, at one ML-DSA-65 sign attempt's ExpandMask,
+             c~ and SampleInBall, at FrodoKEM-640-SHAKE's noise stream and
+             one chunk of its A rows (B = 1024), and at the H shape just
+             below and past its split rule; K1 with per-row lengths on 4096
+             transcripts of up to 3458 bytes; K7 forward and inverse at
+             4096, 20480 and 24576 polynomials; K8 on 4096 x 65 and 4096 x
+             1025 ChaCha20 blocks, K9 and K10 at FrodoKEM-640-SHAKE, B = 1024
+             (BASELINE.json config 3's batch) and FrodoKEM-1344-SHAKE,
+             B = 256, and K11 at the sample count of that 640 encaps batch,
+             K12 at a 128f chain step (1024 x 8 x 35 rows) and at the 128f
+             FORS leaves (1024 x 33 x 64) of B = 1024, K13 at 192f's first
+             FORS level of B = 256 (256 x 33 x 128), both over 10-block rows
+             (a WOTS public key's T_l) too; require bitwise equality, and
+             time each kernel with CUDA events, as the host launches it
+             (ms) and on the device alone (device_ms: the launch enqueued
+             while the GPU sleeps; K11 beside torch.searchsorted);
 3. kat       tests/vectors/mlkem_768.json through keygen/encaps/decaps,
              tests/vectors/mldsa_65.json through keygen/sign/verify and the
              six tests/vectors/frodo_*.json through keygen/encaps/decaps on
@@ -90,8 +97,9 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              verify batches, one 4096 x 4 KiB seal batch, one
              FrodoKEM-640-SHAKE encaps batch of 1024 keys, one 128f sign
              batch of 1024 and one 128s verify batch of 2048: device time
-             per kernel, launches, and the device busy share of each window
-             from its trace (after the counts are read).
+             per kernel (K1's and K7's apart), launches, and the device busy
+             share of each window from its trace (after the counts are
+             read).
 
 Every kernel wrapper counts its launches.  The counts are set to 0 just
 before each of phases 4-13 and read just after it: every ML-KEM kernel
@@ -155,6 +163,11 @@ MLDSA_BUTTERFLY_OPS = 3 + 2 + 2
 MLDSA_NTT_OPS = 8 * 128 * MLDSA_BUTTERFLY_OPS + 256 * 4
 #: + the final Shoup scaling by 8347681 and its subtraction of q
 MLDSA_NTT_INV_OPS = 8 * 128 * MLDSA_BUTTERFLY_OPS + 256 * 5
+#: ~1.5 ms of GPU sleep before each timed kernel run (device_ms)
+SLEEP_CYCLES = 3_000_000
+#: csrc/sponge.cu's kRowsPerSm: K1 runs a sponge a thread from this many
+#: rows an SM on, five lanes a sponge below it
+K1_ROWS_PER_SM = 64
 SRC = "quantum_resistant_p2p_tpu"
 SOURCES = ("sponge", "mlkem", "mldsa", "chacha", "frodo", "sha2")
 #: the kernels that one encaps launches (its forward NTTs are fused in K3)
@@ -225,13 +238,35 @@ def smi(query: str) -> str:
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
-    """Median device time of fn() in ms over reps runs, after one warm run."""
+    """Median time of fn() in ms over reps runs, after one warm run, by CUDA
+    events recorded around it: the host's time to launch its kernels
+    counts wherever the GPU waits for it."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Median device time of fn() in ms over reps runs: each run is
+    enqueued while the GPU sleeps (torch.cuda._sleep), so the events hold
+    the kernels' own time without the host's time to launch them, which
+    cuda_ms counts."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -302,9 +337,10 @@ def sass_loops(cuda, lib: str) -> dict:
 
 def keccak_round_sass(cuda) -> dict:
     """SASS of the built K1: for each sponge kernel, the instruction count
-    of the innermost loops of 100 to 400 instructions (the round loop of
-    each inlined keccak_f1600, kept rolled) and their opcodes, to hold
-    KECCAK_ROUND_OPS against what the card runs."""
+    of the innermost loops of 100 to 400 instructions and their opcodes:
+    the rows path's round loop (keccak_f1600, kept rolled), to hold
+    KECCAK_ROUND_OPS against what the card runs, and the split path's loop
+    of two rounds on a fifth of the state.  Both must be found."""
     out = {}
     for fn, loops in sass_loops(cuda, "sponge").items():
         rounds = [lp for lp in loops if 100 <= lp["instructions"] <= 400]
@@ -313,8 +349,9 @@ def keccak_round_sass(cuda) -> dict:
     for fn, loops in out.items():
         print(f"[build] SASS {fn}: round loop instructions {[lp['instructions'] for lp in loops]};"
               f" opcodes of the first {loops[0]['opcodes']}")
-    if not out:
-        print("[build] SASS: no round loop found in the sponge kernels")
+    for path in ("sponge_rows_kernel", "sponge_split_kernel"):
+        if not any(path in fn for fn in out):
+            raise PhaseFailed(f"SASS: no round loop found in K1's {path}")
     return out
 
 
@@ -405,6 +442,104 @@ def plain_absorb(mod, states, blocks, rows_per_state: int, width: int):
     return st.reshape(-1, 8)
 
 
+def sponge_case(name, keccak, keccak_cuda, x, rate, ds, out_len, shape):
+    """A K1 case: bytes are the rows in and the digests out; operations
+    4,320 a Keccak-f times the permutations each row needs."""
+    rows, length = x.shape
+    perms = length // rate + 1 + -(-out_len // rate) - 1
+    return (name, f"{SRC}/core/keccak_pallas.py:177",
+            lambda: keccak_cuda.sponge(x, rate, ds, out_len),
+            lambda: keccak.sponge_plain(x, rate, ds, out_len),
+            x.numel() + rows * out_len, rows * perms * KECCAK_F_OPS,
+            f"{shape}: ({rows}, {length}) -> ({rows}, {out_len})")
+
+
+def k1_k7_cases(torch, np, rng, keccak, keccak_cuda, mldsa, mldsa_cuda) -> list:
+    """K1 and K7 at every shape the main path and FrodoKEM give them, and
+    K1 on both sides of its split rule.  The untagged
+    names (H + G + J, K7 at 24,576 polynomials, the varlen transcripts) are
+    the ones the kernels line sums."""
+    dev = torch.device("cuda")
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, size=shape, dtype=np.uint8)).to(dev)
+
+    p = mldsa.MLDSA65
+    edge = K1_ROWS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
+    fp_n, fp_rows = 640, 640 // 16  # FrodoKEM-640: n, and the rows of one of 16 A chunks
+    shapes = [("keccak_sponge", "H", BATCH, 1184, 136, 0x06, 32),
+              ("keccak_sponge", "G", BATCH, 64, 72, 0x06, 64),
+              ("keccak_sponge", "J", BATCH, 1120, 136, 0x1F, 32),
+              ("keccak_sponge[ExpandMask]", "ML-DSA-65 sign attempt, ExpandMask",
+               BATCH * p.l, 66, 136, 0x1F, 32 * p.z_bits),
+              ("keccak_sponge[c~]", "ML-DSA-65 sign attempt, c~", BATCH, 64 + 128 * p.k, 136,
+               0x1F, p.ctilde_len),
+              ("keccak_sponge[SampleInBall]", "ML-DSA-65 sign attempt, SampleInBall", BATCH,
+               p.ctilde_len, 136, 0x1F, 8 + 1024),
+              ("keccak_sponge[Frodo noise]", "FrodoKEM-640-SHAKE encaps noise, B = 1024",
+               FRODO_BATCH, 33, 168, 0x1F, (2 * 8 * fp_n + 64) * 2),
+              ("keccak_sponge[Frodo A rows]", "FrodoKEM-640-SHAKE A, one chunk of 1024 keys",
+               FRODO_BATCH * fp_rows, 18, 168, 0x1F, 2 * fp_n),
+              ("keccak_sponge[1 row]", "H shape, one sponge: the split path's latency", 1,
+               1184, 136, 0x06, 32),
+              ("keccak_sponge[split edge - 1]", "H shape, last row count of the split path",
+               edge - 1, 1184, 136, 0x06, 32),
+              ("keccak_sponge[rows edge + 5]", "H shape, past the split rule", edge + 5, 1184,
+               136, 0x06, 32)]
+    cases = [sponge_case(name, keccak, keccak_cuda, u8(rows, length), rate, ds, out_len, what)
+             for name, what, rows, length, rate, ds, out_len in shapes]
+    # K1 with per-row lengths on the fused programs' widest transcripts:
+    # the lengths run through every value from 0 to LMAX, so every residue
+    # mod 136 around each block edge; bound by the blocks these lengths need
+    transcripts = u8(BATCH, VARLEN_LMAX)
+    lens = torch.arange(BATCH, dtype=torch.int32, device=dev) % (VARLEN_LMAX + 1)
+    cases.append(("keccak_sponge_varlen", f"{SRC}/core/keccak_pallas.py:177",
+                  lambda: keccak_cuda.sponge_varlen(transcripts, lens, 136, 0x1F, 64),
+                  lambda: keccak.sponge_varlen_plain(transcripts, lens, 136, 0x1F, 64),
+                  int(lens.sum()) + BATCH * (4 + 64),
+                  int((lens // 136 + 1).sum()) * KECCAK_F_OPS,
+                  f"({BATCH}, {VARLEN_LMAX}), lengths 0..{VARLEN_LMAX} -> ({BATCH}, 64)"))
+    # K7 at one sign attempt's widths: c (B), the l = 5 vectors, the k = 6
+    for polys, tag in ((BATCH * p.k, ""), (BATCH * p.l, f"[{BATCH * p.l}]"), (BATCH, f"[{BATCH}]")):
+        f = torch.from_numpy(rng.integers(0, mldsa.Q, size=(polys, 256), dtype=np.int32)).to(dev)
+        for name, kern, plain, ops in (
+                ("mldsa_ntt", mldsa_cuda.ntt, mldsa.ntt_plain, MLDSA_NTT_OPS),
+                ("mldsa_ntt_inv", mldsa_cuda.ntt_inv, mldsa.ntt_inv_plain, MLDSA_NTT_INV_OPS)):
+            cases.append((name + tag, f"{SRC}/sig/mldsa_pallas.py:227",
+                          lambda k=kern, f=f: k(f), lambda pl=plain, f=f: pl(f),
+                          2 * f.numel() * 4, polys * ops, f"({polys}, 256) int32"))
+    return cases
+
+
+def run_cases(torch, cases, library: dict, int_rate: float) -> list:
+    """Each case's kernel against its plain version (bitwise), then its
+    time as the host launches it (ms, cuda_ms), its device time alone
+    (device_ms), the plain version's time, the bound, and the library
+    call's time where there is one."""
+    rows = []
+    for name, replaces, kern, plain, nbytes, ops, shape in cases:
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if not torch.equal(got, want):
+            raise PhaseFailed(f"{name} {shape}: kernel differs from plain (max |err| {err})")
+        ms, dev_ms = cuda_ms(torch, kern, 20), device_ms(torch, kern, 20)
+        slow_plain = name.startswith(("frodo_", "sha", "keccak_sponge[Frodo"))
+        plain_ms = cuda_ms(torch, plain, 1 if slow_plain else 3)
+        library_ms = cuda_ms(torch, library[name], 20) if name in library else None
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / int_rate
+        bound_ms, bound_by = 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        rows.append({"name": name, "replaces": replaces, "shape": shape, "max_abs_err": err,
+                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms, "bytes": nbytes,
+                     "int32_ops": ops})
+        lib_txt = f", library {library_ms:.4f} ms" if library_ms is not None else ""
+        print(f"[kernels] {name} {shape}: equal, {ms:.4f} ms ({dev_ms:.4f} on the device "
+              f"alone; plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}"
+              f"{lib_txt})")
+    return rows
+
+
 def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mldsa_cuda,
                   chacha, chacha_cuda, frodo, frodo_cuda, sha2, sha2_ops, int_rate) -> list:
     dev = torch.device("cuda")
@@ -413,21 +548,8 @@ def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mlds
     def u8(*shape):
         return torch.from_numpy(rng.integers(0, 256, size=shape, dtype=np.uint8)).to(dev)
 
-    def bound(nbytes, ops):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / int_rate
-        return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-    cases = []  # (name, replaces, kernel, plain, in bytes, out bytes, int32 ops, shape)
-    sponge_calls = [("H", 1184, 136, 0x06, 32), ("G", 64, 72, 0x06, 64),
-                    ("J", 1120, 136, 0x1F, 32)]
-    for tag, length, rate, ds, out_len in sponge_calls:
-        x = u8(BATCH, length)
-        perms = length // rate + 1 + -(-out_len // rate) - 1
-        cases.append(("keccak_sponge", f"{SRC}/core/keccak_pallas.py:177",
-                      lambda x=x, r=rate, d=ds, o=out_len: keccak_cuda.sponge(x, r, d, o),
-                      lambda x=x, r=rate, d=ds, o=out_len: keccak.sponge_plain(x, r, d, o),
-                      x.numel() + BATCH * out_len, BATCH * perms * KECCAK_F_OPS,
-                      f"{tag}: ({BATCH}, {length}) -> ({BATCH}, {out_len})"))
+    # (name, replaces, kernel, plain, bytes, int32 ops, shape)
+    cases = k1_k7_cases(torch, np, rng, keccak, keccak_cuda, mldsa, mldsa_cuda)
     seeds = u8(BATCH * 9, 34)
     cases.append(("mlkem_sample_ntt", f"{SRC}/kem/mlkem_pallas.py:97",
                   lambda: mlkem_cuda.sample_ntt(seeds), lambda: mlkem.sample_ntt_plain(seeds),
@@ -473,26 +595,6 @@ def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mlds
                       s_seeds.numel() + 4 * 256 * n_s,
                       rej_bounded_perms(torch, keccak, s_seeds, eta) * KECCAK_F_OPS,
                       f"eta={eta}: ({n_s}, 66) -> ({n_s}, 256)"))
-    dsa_polys = torch.from_numpy(rng.integers(0, mldsa.Q, size=(BATCH * p.k, 256),
-                                              dtype=np.int32)).to(dev)
-    for name, kern, plain, ops in (
-            ("mldsa_ntt", mldsa_cuda.ntt, mldsa.ntt_plain, MLDSA_NTT_OPS),
-            ("mldsa_ntt_inv", mldsa_cuda.ntt_inv, mldsa.ntt_inv_plain, MLDSA_NTT_INV_OPS)):
-        cases.append((name, f"{SRC}/sig/mldsa_pallas.py:227",
-                      lambda k=kern: k(dsa_polys), lambda f=plain: f(dsa_polys),
-                      2 * dsa_polys.numel() * 4, dsa_polys.shape[0] * ops,
-                      f"({BATCH * p.k}, 256) int32"))
-    # K1 with per-row lengths on the fused programs' widest transcripts:
-    # the lengths run through every value from 0 to LMAX, so every residue
-    # mod 136 around each block edge; bound by the blocks these lengths need
-    transcripts = u8(BATCH, VARLEN_LMAX)
-    lens = torch.arange(BATCH, dtype=torch.int32, device=dev) % (VARLEN_LMAX + 1)
-    cases.append(("keccak_sponge_varlen", f"{SRC}/core/keccak_pallas.py:177",
-                  lambda: keccak_cuda.sponge_varlen(transcripts, lens, 136, 0x1F, 64),
-                  lambda: keccak.sponge_varlen_plain(transcripts, lens, 136, 0x1F, 64),
-                  int(lens.sum()) + BATCH * (4 + 64),
-                  int((lens // 136 + 1).sum()) * KECCAK_F_OPS,
-                  f"({BATCH}, {VARLEN_LMAX}), lengths 0..{VARLEN_LMAX} -> ({BATCH}, 64)"))
     # K8 at the 4 KiB seal batch of phase 9 and at the 64 KiB max_len
     for tag, blocks in (("", 65), ("[64KiB]", 1025)):
         states = torch.from_numpy(rng.integers(-2**31, 2**31, size=(BATCH * blocks, 12),
@@ -562,25 +664,7 @@ def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mlds
     table, half = torch.tensor(fp.cdf[:-1], dtype=torch.int32, device=dev), r16 >> 1
     library = {"frodo_cdf_sample": lambda: torch.searchsorted(table, half)}
 
-    rows = []
-    for name, replaces, kern, plain, nbytes, ops, shape in cases:
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
-        if not torch.equal(got, want):
-            raise PhaseFailed(f"{name} {shape}: kernel differs from plain (max |err| {err})")
-        ms = cuda_ms(torch, kern, 20)
-        plain_ms = cuda_ms(torch, plain, 1 if name.startswith(("frodo_", "sha")) else 3)
-        library_ms = cuda_ms(torch, library[name], 20) if name in library else None
-        bound_ms, bound_by = bound(nbytes, ops)
-        rows.append({"name": name, "replaces": replaces, "shape": shape, "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms, "bytes": nbytes,
-                     "int32_ops": ops})
-        lib_txt = f", library {library_ms:.4f} ms" if library_ms is not None else ""
-        print(f"[kernels] {name} {shape}: equal, {ms:.4f} ms (plain {plain_ms:.3f} ms, "
-              f"bound {bound_ms:.4f} ms by {bound_by}{lib_txt})")
-    return rows
+    return run_cases(torch, cases, library, int_rate)
 
 
 def phase_kat(torch, mlkem) -> None:
@@ -1442,11 +1526,17 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
                  if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
                  and ev.key != window}  # the annotation's own span on the GPU
     total_us = sum(device_us.values())
-    ours = ("::sponge_kernel<", "::sample_ntt_kernel(", "::prf_cbd_kernel<", "::ntt_kernel<",
-            "::rej_ntt_kernel(", "::rej_bounded_kernel<", "::sponge_varlen_kernel<",
+    calls = {ev.key: ev.count for ev in prof.key_averages() if ev.key in device_us}
+    ours = ("::sponge_rows_kernel<", "::sponge_split_kernel<", "::sample_ntt_kernel(",
+            "::prf_cbd_kernel<", "::ntt_kernel<", "::rej_ntt_kernel(", "::rej_bounded_kernel<",
             "::chacha_kernel(", "::a_times_s_kernel<", "::s_times_a_kernel<", "::cdf_kernel(",
             "::sha256_kernel(", "::sha512_kernel(")
     ours_us = sum(v for k, v in device_us.items() if any(o in k for o in ours))
+    # K1 (both paths, both entries) and K7 (mldsa.cu's ntt_kernel takes the
+    # polynomial count; mlkem.cu's K4 does not)
+    redesigned = {"k1": lambda k: "::sponge_rows_kernel<" in k or "::sponge_split_kernel<" in k,
+                  "k7": lambda k: "::ntt_kernel<" in k and k.endswith(", long)")}
+    mine = {name: [k for k in device_us if hit(k)] for name, hit in redesigned.items()}
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:12]
     out = {"batches": reps, "window_ms_per_batch": window_us / reps / 1e3,
            "busy_ms_per_batch": busy_us / reps / 1e3, "device_busy_share": busy_us / window_us,
@@ -1455,6 +1545,9 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
            "port_kernels_ms_per_batch": ours_us / reps / 1e3, "device_kinds": len(device_us),
            "kernel_launches_per_batch": launches / reps,
            "top_device_ms_per_batch": [[k, v / reps / 1e3] for k, v in top]}
+    for name, keys in mine.items():
+        out[f"{name}_device_ms_per_batch"] = sum(device_us[k] for k in keys) / reps / 1e3
+        out[f"{name}_launches_per_batch"] = sum(calls[k] for k in keys) / reps
     print(f"[profile] {label} batch under the profiler: window {out['window_ms_per_batch']:.3f}"
           f" ms, device busy {out['busy_ms_per_batch']:.3f} ms (busy share "
           f"{out['device_busy_share']:.3f}, from the trace); without the profiler the same "
@@ -1462,6 +1555,9 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
     print(f"[profile] {label}: kernel time {out['device_ms_per_batch']:.3f} ms per batch, of "
           f"which the port's kernels {out['port_kernels_ms_per_batch']:.3f} ms; "
           f"{len(device_us)} kinds, {out['kernel_launches_per_batch']:.0f} launches")
+    print(f"[profile] {label}: K1 {out['k1_device_ms_per_batch']:.4f} ms in "
+          f"{out['k1_launches_per_batch']:.0f} launches, K7 {out['k7_device_ms_per_batch']:.4f} ms "
+          f"in {out['k7_launches_per_batch']:.0f} launches per batch")
     for name, ms in out["top_device_ms_per_batch"]:
         print(f"[profile]   {ms:.4f} ms  {name[:110]}")
     return out
@@ -1705,7 +1801,8 @@ def main() -> int:
             "replaces": mine[0]["replaces"],
             "launches": sum(counts[name] for counts in launches.values()),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": sum(r["ms"] for r in mine), "plain_ms": sum(r["plain_ms"] for r in mine),
+            "ms": sum(r["ms"] for r in mine), "device_ms": sum(r["device_ms"] for r in mine),
+            "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": (None if any(r["library_ms"] is None for r in mine)

@@ -172,6 +172,71 @@ def test_sponge_varlen_kernel_matches_plain(gpu):
     assert keccak_cuda.sponge_varlen.launches == before + 3
 
 
+def _split_edge(gpu) -> int:
+    """Row count from which K1 runs a sponge a thread (csrc/sponge.cu:
+    kRowsPerSm = 64 rows an SM); below it, five lanes a sponge."""
+    return 64 * torch.cuda.get_device_properties(gpu).multi_processor_count
+
+
+@pytest.mark.parametrize("rate,ds", [(72, 0x06), (136, 0x06), (136, 0x1F), (168, 0x1F)])
+def test_sponge_split_and_rows_paths_match_plain(gpu, rate, ds):
+    """K1 on both sides of its split rule and at row counts that fill no
+    block (1, 7, 25, 31), every message length residue around the first
+    block edge, digests of several squeezes, rows skewed off alignment."""
+    edge = _split_edge(gpu)
+    for rows in (1, 7, 25, 31, edge - 1, edge):
+        lengths = range(rate - 9, rate + 9) if rows < 32 else (0, rate - 1, rate, 2 * rate + 3)
+        for length in lengths:
+            base = _u8(rows * 1000 + length, rows * length + 1).to(gpu)
+            x = base[1:].reshape(rows, length)  # one byte off the allocation's alignment
+            out_len = 3 * rate + 5
+            got = keccak_cuda.sponge(x, rate, ds, out_len)
+            assert torch.equal(got, keccak.sponge_plain(x, rate, ds, out_len)), (rows, length)
+    torch.cuda.synchronize()
+
+
+def test_sponge_kernels_take_zero_rows(gpu):
+    before = (keccak_cuda.sponge.launches, keccak_cuda.sponge_varlen.launches)
+    x = torch.empty((0, 40), dtype=torch.uint8, device=gpu)
+    assert keccak_cuda.sponge(x, 136, 0x1F, 32).shape == (0, 32)
+    lens = torch.empty((0,), dtype=torch.int32, device=gpu)
+    assert keccak_cuda.sponge_varlen(x, lens, 136, 0x1F, 64).shape == (0, 64)
+    assert (keccak_cuda.sponge.launches, keccak_cuda.sponge_varlen.launches) == before
+
+
+def test_sponge_varlen_both_paths_match_plain(gpu):
+    """Per-row lengths around every block edge of rate 136 in one launch,
+    below and at the split rule's row count: a split group's message ends
+    while the others in its warp go on."""
+    lmax = 700
+    for rows in (29, _split_edge(gpu)):
+        lens = torch.tensor([(7 * r) % (lmax + 1) if r % 3 else (r // 3 % 6) * 136 + r % 5 - 2
+                             for r in range(rows)], dtype=torch.int32).clamp(0, lmax).to(gpu)
+        x = _u8(121 + rows, rows, lmax).to(gpu)
+        got = keccak.sponge_varlen(x, lens, 136, 0x1F, 64)
+        assert torch.equal(got, keccak.sponge_varlen_plain(x, lens, 136, 0x1F, 64))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [1, 17, 33, 4099])
+def test_mldsa_ntt_kernel_edges(gpu, n):
+    """K7 at one polynomial and at counts that leave a half-warp or a block
+    part empty; inputs of 0 and q - 1; forward then inverse gives the input."""
+    f = torch.randint(0, mldsa.Q, (n, 256), dtype=torch.int32,
+                      generator=torch.Generator().manual_seed(n))
+    f[0, ::2] = mldsa.Q - 1
+    f[-1, 1::2] = 0
+    f = f.to(gpu)
+    fwd = mldsa_cuda.ntt(f)
+    assert torch.equal(fwd, mldsa.ntt_plain(f))
+    assert torch.equal(mldsa_cuda.ntt_inv(f), mldsa.ntt_inv_plain(f))
+    assert torch.equal(mldsa_cuda.ntt_inv(fwd), f)
+    extremes = torch.tensor([[0] * 256, [mldsa.Q - 1] * 256], dtype=torch.int32, device=gpu)
+    assert torch.equal(mldsa_cuda.ntt(extremes), mldsa.ntt_plain(extremes))
+    assert torch.equal(mldsa_cuda.ntt_inv(extremes), mldsa.ntt_inv_plain(extremes))
+    torch.cuda.synchronize()
+
+
 def test_chacha_kernel_matches_plain(gpu):
     states = _u8(121, 5000, 48).view(torch.int32).to(gpu)
     before = chacha_cuda.chacha_blocks.launches
