@@ -29,7 +29,9 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              (a WOTS public key's T_l) too; require bitwise equality, and
              time each kernel with CUDA events, as the host launches it
              (ms) and on the device alone (device_ms: the launch enqueued
-             while the GPU sleeps; K11 beside torch.searchsorted);
+             while the GPU sleeps; K11 beside torch.searchsorted); K3 also
+             at eta 2 over 4096 and 16384 rows (the serve shape, and e1 + e2
+             of one encaps batch in one launch);
 3. kat       tests/vectors/mlkem_768.json through keygen/encaps/decaps,
              tests/vectors/mldsa_65.json through keygen/sign/verify and the
              six tests/vectors/frodo_*.json through keygen/encaps/decaps on
@@ -97,9 +99,9 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              verify batches, one 4096 x 4 KiB seal batch, one
              FrodoKEM-640-SHAKE encaps batch of 1024 keys, one 128f sign
              batch of 1024 and one 128s verify batch of 2048: device time
-             per kernel (K1's and K7's apart), launches, and the device busy
-             share of each window from its trace (after the counts are
-             read).
+             per kernel (K1's, K7's, K2's and K3's apart), launches, and
+             the device busy share of each window from its trace (after
+             the counts are read).
 
 Every kernel wrapper counts its launches.  The counts are set to 0 just
 before each of phases 4-13 and read just after it: every ML-KEM kernel
@@ -149,10 +151,18 @@ INT32_LANES_PER_SM = 64
 #: beside it.
 KECCAK_ROUND_OPS = 20 + 10 + 50 + 48 + 50 + 2
 KECCAK_F_OPS = 24 * KECCAK_ROUND_OPS
-#: one NTT butterfly as written in csrc/mlkem.cuh: mul, %, +, %, -, +, %
+#: one NTT butterfly mod 3329 as K4 writes it in csrc/mlkem.cuh (mul, %,
+#: +, %, -, +, %)
 BUTTERFLY_OPS = 7
 NTT_OPS = 7 * 128 * BUTTERFLY_OPS
 NTT_INV_OPS = NTT_OPS + 2 * 256  # the final scaling by 3303
+#: K3's fused lazy Shoup butterfly mod 3329: the product up to one q
+#: (umulhi, multiply, multiply-add), then a + 2q - t (one 3-input add) and
+#: a + t.  Values stay below 16q < 2^16, so no conditional subtract.
+KEM_LAZY_BUTTERFLY_OPS = 3 + 2
+#: + the final reduction of each coefficient to [0, q) (umulhi,
+#: multiply-add, subtract, unsigned min)
+KEM_LAZY_NTT_OPS = 7 * 128 * KEM_LAZY_BUTTERFLY_OPS + 256 * 4
 #: one NTT butterfly mod 8380417 as the work needs it, Harvey's lazy
 #: butterfly on values in [0, 4q): a Shoup product left in [0, 2q)
 #: (umulhi and two multiply-adds), 2q taken off the other input where it
@@ -540,6 +550,40 @@ def run_cases(torch, cases, library: dict, int_rate: float) -> list:
     return rows
 
 
+def mlkem_sampler_cases(torch, np, rng, keccak, mlkem, mlkem_cuda) -> list:
+    """K2 and K3 at the shapes of the batch-4096 ML-KEM-768 path: K2 over
+    A (9 rows a key), K3 with and without the NTT at eta 2 and 3 over 3 rows
+    a key, and K3 at eta 2 over 4,096 rows (one row a key) and 16,384 (e1
+    and e2 of one encaps batch, one launch).  The untagged names are the
+    ones the kernels line sums."""
+    dev = torch.device("cuda")
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, size=shape, dtype=np.uint8)).to(dev)
+
+    seeds = u8(BATCH * 9, 34)
+    cases = [("mlkem_sample_ntt", f"{SRC}/kem/mlkem_pallas.py:97",
+              lambda: mlkem_cuda.sample_ntt(seeds), lambda: mlkem.sample_ntt_plain(seeds),
+              seeds.numel() + 4 * 256 * seeds.shape[0],
+              sample_ntt_perms(torch, keccak, mlkem.Q, seeds) * KECCAK_F_OPS,
+              f"({BATCH * 9}, 34) -> ({BATCH * 9}, 256)")]
+    shapes = [(eta, fused, BATCH * 3, "") for eta in (2, 3) for fused in (False, True)]
+    shapes += [(2, False, BATCH, f"[{BATCH}]"), (2, False, BATCH * 4, f"[{BATCH * 4}]")]
+    for eta, fused, rows, tag in shapes:
+        prf = u8(rows, 33)
+        name, line, kern, plain = (
+            ("mlkem_prf_cbd_ntt", 315, mlkem_cuda.prf_cbd_ntt, mlkem.prf_cbd_ntt_plain) if fused
+            else ("mlkem_prf_cbd", 159, mlkem_cuda.prf_cbd, mlkem.prf_cbd_plain))
+        perms = 1 if eta == 2 else 2
+        ops = rows * (perms * KECCAK_F_OPS + (KEM_LAZY_NTT_OPS if fused else 0))
+        cases.append((name + (tag if eta == 2 else f"[eta=3]{tag}"),
+                      f"{SRC}/kem/mlkem_pallas.py:{line}",
+                      lambda k=kern, e=eta, x=prf: k(x, e), lambda p=plain, e=eta, x=prf: p(x, e),
+                      prf.numel() + 4 * 256 * rows, ops,
+                      f"eta={eta}: ({rows}, 33) -> ({rows}, 256)"))
+    return cases
+
+
 def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mldsa_cuda,
                   chacha, chacha_cuda, frodo, frodo_cuda, sha2, sha2_ops, int_rate) -> list:
     dev = torch.device("cuda")
@@ -550,25 +594,7 @@ def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mlds
 
     # (name, replaces, kernel, plain, bytes, int32 ops, shape)
     cases = k1_k7_cases(torch, np, rng, keccak, keccak_cuda, mldsa, mldsa_cuda)
-    seeds = u8(BATCH * 9, 34)
-    cases.append(("mlkem_sample_ntt", f"{SRC}/kem/mlkem_pallas.py:97",
-                  lambda: mlkem_cuda.sample_ntt(seeds), lambda: mlkem.sample_ntt_plain(seeds),
-                  seeds.numel() + 4 * 256 * seeds.shape[0],
-                  sample_ntt_perms(torch, keccak, mlkem.Q, seeds) * KECCAK_F_OPS,
-                  f"({BATCH * 9}, 34) -> ({BATCH * 9}, 256)"))
-    prf = u8(BATCH * 3, 33)
-    for eta in (2, 3):
-        perms = 1 if eta == 2 else 2
-        for name, line, fused, kern, plain in (
-                ("mlkem_prf_cbd", 159, False, mlkem_cuda.prf_cbd, mlkem.prf_cbd_plain),
-                ("mlkem_prf_cbd_ntt", 315, True, mlkem_cuda.prf_cbd_ntt,
-                 mlkem.prf_cbd_ntt_plain)):
-            ops = prf.shape[0] * (perms * KECCAK_F_OPS + (NTT_OPS if fused else 0))
-            cases.append((name if eta == 2 else f"{name}[eta=3]",
-                          f"{SRC}/kem/mlkem_pallas.py:{line}",
-                          lambda k=kern, e=eta: k(prf, e), lambda p=plain, e=eta: p(prf, e),
-                          prf.numel() + 4 * 256 * prf.shape[0], ops,
-                          f"eta={eta}: ({BATCH * 3}, 33) -> ({BATCH * 3}, 256)"))
+    cases += mlkem_sampler_cases(torch, np, rng, keccak, mlkem, mlkem_cuda)
     polys = torch.from_numpy(rng.integers(0, 3329, size=(BATCH * 3, 256),
                                           dtype=np.int32)).to(dev)
     for name, kern, plain, ops in (("mlkem_ntt", mlkem_cuda.ntt, mlkem.ntt_plain, NTT_OPS),
@@ -1532,10 +1558,12 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
             "::chacha_kernel(", "::a_times_s_kernel<", "::s_times_a_kernel<", "::cdf_kernel(",
             "::sha256_kernel(", "::sha512_kernel(")
     ours_us = sum(v for k, v in device_us.items() if any(o in k for o in ours))
-    # K1 (both paths, both entries) and K7 (mldsa.cu's ntt_kernel takes the
-    # polynomial count; mlkem.cu's K4 does not)
+    # K1 (both paths, both entries), K7 (mldsa.cu's ntt_kernel takes the
+    # polynomial count; mlkem.cu's K4 does not), K2 and K3 (every instance)
     redesigned = {"k1": lambda k: "::sponge_rows_kernel<" in k or "::sponge_split_kernel<" in k,
-                  "k7": lambda k: "::ntt_kernel<" in k and k.endswith(", long)")}
+                  "k7": lambda k: "::ntt_kernel<" in k and k.endswith(", long)"),
+                  "k2": lambda k: "::sample_ntt_kernel(" in k,
+                  "k3": lambda k: "::prf_cbd_kernel<" in k}
     mine = {name: [k for k in device_us if hit(k)] for name, hit in redesigned.items()}
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:12]
     out = {"batches": reps, "window_ms_per_batch": window_us / reps / 1e3,
@@ -1555,9 +1583,9 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
     print(f"[profile] {label}: kernel time {out['device_ms_per_batch']:.3f} ms per batch, of "
           f"which the port's kernels {out['port_kernels_ms_per_batch']:.3f} ms; "
           f"{len(device_us)} kinds, {out['kernel_launches_per_batch']:.0f} launches")
-    print(f"[profile] {label}: K1 {out['k1_device_ms_per_batch']:.4f} ms in "
-          f"{out['k1_launches_per_batch']:.0f} launches, K7 {out['k7_device_ms_per_batch']:.4f} ms "
-          f"in {out['k7_launches_per_batch']:.0f} launches per batch")
+    print(f"[profile] {label}: " + ", ".join(
+        f"{name.upper()} {out[f'{name}_device_ms_per_batch']:.4f} ms in "
+        f"{out[f'{name}_launches_per_batch']:.0f} launches" for name in redesigned) + " per batch")
     for name, ms in out["top_device_ms_per_batch"]:
         print(f"[profile]   {ms:.4f} ms  {name[:110]}")
     return out

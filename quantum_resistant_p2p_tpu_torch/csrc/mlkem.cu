@@ -5,14 +5,44 @@
 //                       and :cbd_ntt_words (fuse_ntt 1)
 // K4 mlkem_ntt          replaces kem/mlkem_pallas.py:ntt_words
 //
-// K2 and K3 run one sponge per thread (state in registers, keccak.cuh) and
-// build their thread's polynomial in a shared-memory tile column
-// (tile.cuh), copied out to whole coalesced rows.  The TPU kernels needed a 512-wide bitonic network
-// to put SampleNTT's accepted candidates in order; a thread that appends
-// them as it parses gets the same order for free.  What bounds K2 and K3
-// is integer issue (Keccak rounds, and with the fused NTT 896 butterflies
-// per polynomial), not bytes: a seed is 33-34 bytes and a polynomial 1 KB.
-// The 33.8 KB tile per 32-thread block limits an SM to 6 such blocks.
+// K2 and K3: one warp a block, one sponge a thread (state in registers,
+// keccak.cuh), 32 rows a warp.  What bounds them is integer issue: a
+// Keccak-f is 24 rounds of 200 SASS instructions (136 LOP3, 58 SHF, all on
+// the integer pipe), 3-4 of them a K2 row and 1-2 a K3 row, with the NTT
+// fused 896 butterflies a polynomial more, against 33-34 seed bytes in and
+// 1 KB out.  One warp a scheduler already fills the pipe with the rounds
+// (K2 without its parse takes 2.3x as long at 36,864 rows as at 16,896), so
+// what the design controls is the instructions around the rounds:
+//
+// * Seeds in: the warp loads its rows' bytes as consecutive aligned 32-bit
+//   words into shared memory (coalesced, rows at any byte offset), and each
+//   thread assembles its seed's lanes from there (mlkem.cuh: stage_seeds,
+//   absorb_staged).
+// * K2: each thread compacts its own row's block from its state registers
+//   into its column of a 112-slot uint16 ring (append_block: five
+//   instructions a candidate, no branch), then the warp copies the 32 new
+//   runs to the output rows, two rows a step, consecutive lanes to
+//   consecutive addresses (flush_ring), each row's running count held by
+//   its own lane.  Rows that need a 4th block permute under a mask; a row
+//   short of 256 after 448 candidates takes a second pass for the rejected
+//   ones.  A first version staged each block and parsed it with all 32
+//   lanes, ranking candidates by ballots: ~65 warp instructions a row and
+//   block (4 VOTE, 8 POPC, scattered predicated stores), 0.093 ms at 36,864
+//   rows on the H100 against 0.081 for the ring.
+// * K3: after each permutation every thread writes its rate block to the
+//   warp's staging buffer (an odd number of 64-bit lanes a row: no bank
+//   conflicts); positions are fixed, so the 32 lanes take one row at a
+//   time, each decoding 8 coefficients (4 or 6 bytes) and storing them
+//   with two 16-byte stores, a whole row a warp instruction pair.
+// * K3 with the NTT fused: a half-warp a polynomial in K7's layout
+//   (mlkem.cuh: kem_ntt_forward): the decoded coefficients go straight
+//   into registers (lane t coefficient t + 16 j), four layers in registers,
+//   one transpose, three layers, a Shoup reduction, a transpose back, and
+//   coalesced 32-bit stores; lazy Shoup butterflies (no % anywhere).
+//
+// No 32 x 256 shared tile: a warp holds 4.3-7.4 KB (+2.6 KB of transpose
+// buffer when fused), so registers, not shared memory, set how many warps
+// an SM keeps.
 //
 // K4 gives each polynomial to a block of 128 threads: one butterfly per
 // thread per layer, the polynomial in shared memory, a barrier between
@@ -29,35 +59,124 @@
 namespace {
 
 using qrp::kN;
-using qrp::kPolys;
-using qrp::kTileRows;
-using qrp::store_tile;
 
-__global__ void __launch_bounds__(kPolys)
+constexpr int kWarp = 32;
+constexpr unsigned kFull = qrp::kFullMask;
+
+// This block's rows: [row0, row0 + rows) of n.
+__device__ __forceinline__ int warp_rows(int64_t row0, int64_t n) {
+  return n - row0 < kWarp ? (int)(n - row0) : kWarp;
+}
+
+__global__ void __launch_bounds__(kWarp)
     sample_ntt_kernel(const uint8_t* __restrict__ seeds, int32_t* __restrict__ out,
                       int64_t n) {
-  __shared__ int32_t tile[kN * kTileRows];
-  const int64_t row0 = (int64_t)blockIdx.x * kPolys;
-  const int64_t row = row0 + threadIdx.x;
-  if (row < n) qrp::sample_ntt_poly(seeds + row * qrp::kXofSeedLen, tile + threadIdx.x);
-  __syncthreads();
-  store_tile(tile, out, row0, n);
+  // the warp's candidate ring; the seeds are staged in it first
+  __shared__ __align__(16) uint16_t ring[qrp::kRingSlots * qrp::kRingStride];
+  uint32_t* sw = reinterpret_cast<uint32_t*>(ring);
+  const int lane = threadIdx.x;
+  const int64_t row0 = (int64_t)blockIdx.x * kWarp;
+  const int rows = warp_rows(row0, n);
+  const uint8_t* src = seeds + row0 * qrp::kXofSeedLen;
+  const int skew = (int)(reinterpret_cast<uintptr_t>(src) & 3);
+  int32_t* dst = out + row0 * kN;
+  int cnt = lane < rows ? 0 : kN;  // coefficients of this lane's row so far
+  for (int pass = 0; pass < 2; ++pass) {  // 0: accepted candidates, 1: rejected ones
+    if (!__ballot_sync(kFull, cnt < kN)) break;
+    qrp::stage_seeds<qrp::kXofSeedLen>(src, rows, sw, lane);
+    uint64_t s[25];
+    qrp::absorb_staged<qrp::kXofRate, qrp::kXofSeedLen>(s, sw, skew, lane, 0x1F);
+    __syncwarp();
+    for (int blk = 0; blk < qrp::kSqueezeBlocks; ++blk) {
+      const unsigned todo = __ballot_sync(kFull, cnt < kN);
+      if (!todo) break;
+      int k = 0;
+      if (cnt < kN) {
+        if (blk) qrp::keccak_f1600(s);
+        k = pass == 0 ? qrp::append_block<true>(s, ring, lane)
+                      : qrp::append_block<false>(s, ring, lane);
+      }
+      __syncwarp();
+      qrp::flush_ring(ring, todo, k, cnt, lane, dst);
+      cnt += k;
+      __syncwarp();
+    }
+  }
 }
 
 template <int ETA, bool FUSE_NTT>
-__global__ void __launch_bounds__(kPolys)
+__global__ void __launch_bounds__(kWarp)
     prf_cbd_kernel(const uint8_t* __restrict__ seeds, int32_t* __restrict__ out,
                    int64_t n) {
-  __shared__ int32_t tile[kN * kTileRows];
-  const int64_t row0 = (int64_t)blockIdx.x * kPolys;
-  const int64_t row = row0 + threadIdx.x;
-  if (row < n) {
-    int32_t* col = tile + threadIdx.x;
-    qrp::prf_cbd_poly<ETA>(seeds + row * qrp::kPrfSeedLen, col);
-    if (FUSE_NTT) qrp::ntt_column(col);
+  using Stage = qrp::PrfStage<ETA>;
+  __shared__ uint64_t stage[kWarp * Stage::kStride];
+  __shared__ __align__(16) uint32_t ntt_buf[FUSE_NTT ? qrp::kKemNttWarpWords : 4];
+  uint32_t* sw = reinterpret_cast<uint32_t*>(stage);
+  const int lane = threadIdx.x;
+  const int64_t row0 = (int64_t)blockIdx.x * kWarp;
+  const int rows = warp_rows(row0, n);
+  const uint8_t* src = seeds + row0 * qrp::kPrfSeedLen;
+  int32_t* dst = out + row0 * kN;
+  qrp::stage_seeds<qrp::kPrfSeedLen>(src, rows, sw, lane);
+  uint64_t s[25];
+  qrp::absorb_staged<qrp::kPrfRate, qrp::kPrfSeedLen>(
+      s, sw, (int)(reinterpret_cast<uintptr_t>(src) & 3), lane, 0x1F);
+  __syncwarp();
+  // the row's 64 eta bytes: eta 2 the first 128 bytes of the first block;
+  // eta 3 all 136 and the second block's first 56 (chunk 45 spans the two)
+#pragma unroll
+  for (int w = 0; w < (ETA == 2 ? 16 : 17); ++w) stage[lane * Stage::kStride + w] = s[w];
+  if (ETA == 3) {
+    qrp::keccak_f1600(s);
+#pragma unroll
+    for (int w = 0; w < 7; ++w) stage[lane * Stage::kStride + 17 + w] = s[w];
   }
-  __syncthreads();
-  store_tile(tile, out, row0, n);
+  __syncwarp();
+  if (!FUSE_NTT) {
+    // lane l: coefficients 8 l .. 8 l + 7, from bytes 4 l (eta 2) or 6 l (eta 3)
+    for (int r = 0; r < rows; ++r) {
+      const uint32_t* row = sw + r * Stage::kWords;
+      int32_t c[8];
+      if (ETA == 2) {
+        qrp::cbd2_word(row[lane], c);
+      } else {
+        uint32_t c0, c1;
+        qrp::row_six_bytes(row, lane, &c0, &c1);
+        qrp::cbd3_chunk(c0, c);
+        qrp::cbd3_chunk(c1, c + 4);
+      }
+      int4* d = reinterpret_cast<int4*>(dst + r * kN + 8 * lane);
+      d[0] = make_int4(c[0], c[1], c[2], c[3]);
+      d[1] = make_int4(c[4], c[5], c[6], c[7]);
+    }
+  } else {
+    // half-warp h: rows r0 + h, two rows a step
+    const int t = lane & 15, half = lane >> 4;
+    uint32_t* buf = ntt_buf + half * qrp::kKemNttHalfWords;
+    qrp::KemLaneZetas zb;
+    zb.load(t);
+    for (int r0 = 0; r0 < rows; r0 += 2) {
+      const int r = r0 + half;
+      const uint32_t* row = sw + r * Stage::kWords;
+      uint32_t f[qrp::kKemNttRegs];
+      // lane t's coefficient t + 16 j: bits [2 eta (t + 16 j), + 2 eta)
+#pragma unroll
+      for (int j = 0; j < qrp::kKemNttRegs; ++j) {
+        if (ETA == 2) {
+          f[j] = qrp::cbd_lazy<2>((row[2 * j + (t >> 3)] >> (4 * (t & 7))) & 0xFu);
+        } else {
+          const int a = 3 * j + ((6 * t) >> 5);
+          f[j] = qrp::cbd_lazy<3>(__funnelshift_r(row[a], row[a + 1], (6 * t) & 31) & 63u);
+        }
+      }
+      qrp::kem_ntt_forward(f, zb, buf, t);
+      if (r < rows) {
+        int32_t* d = dst + r * kN + t;
+#pragma unroll
+        for (int j = 0; j < qrp::kKemNttRegs; ++j) d[16 * j] = (int32_t)f[j];
+      }
+    }
+  }
 }
 
 constexpr int kNttThreads = 128;
@@ -90,7 +209,7 @@ __global__ void __launch_bounds__(kNttThreads)
   }
 }
 
-unsigned blocks_for(int64_t n) { return (unsigned)((n + kPolys - 1) / kPolys); }
+unsigned blocks_for(int64_t n) { return (unsigned)((n + kWarp - 1) / kWarp); }
 
 }  // namespace
 
@@ -103,10 +222,21 @@ int qrp_mlkem_init(const int32_t* zetas) {
   return (int)cudaMemcpyToSymbol(qrp::c_zetas, zetas, sizeof(int32_t) * 128);
 }
 
+// Load K3's fused-NTT tables (kem/mlkem_cuda.py builds them) into the
+// current device: `uniform` 2 x 16 words (stage A's zetas, then their
+// Shoup companions) into constant memory, `lanes` 2 x 7 x 16 (stage B's,
+// slot by lane) into a device table.  Per device, as qrp_mlkem_init.
+int qrp_mlkem_init_ntt(const uint32_t* uniform, const uint32_t* lanes) {
+  const cudaError_t err =
+      cudaMemcpyToSymbol(qrp::c_kem_ntt_uniform, uniform, sizeof(qrp::c_kem_ntt_uniform));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyToSymbol(qrp::g_kem_ntt_lanes, lanes, sizeof(qrp::g_kem_ntt_lanes));
+}
+
 // seeds: (n, 34) uint8 rows rho || j || i; out: (n, 256) int32.
 int qrp_mlkem_sample_ntt(const void* seeds, void* out, int64_t n, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  sample_ntt_kernel<<<blocks_for(n), kPolys, 0, static_cast<cudaStream_t>(stream)>>>(
+  sample_ntt_kernel<<<blocks_for(n), kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(seeds), static_cast<int32_t*>(out), n);
   return (int)cudaGetLastError();
 }
@@ -119,10 +249,10 @@ int qrp_mlkem_prf_cbd(const void* seeds, void* out, int64_t n, int eta, int fuse
   auto* dst = static_cast<int32_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   const unsigned blocks = blocks_for(n);
-  if (eta == 2 && !fuse_ntt) prf_cbd_kernel<2, false><<<blocks, kPolys, 0, st>>>(src, dst, n);
-  else if (eta == 2) prf_cbd_kernel<2, true><<<blocks, kPolys, 0, st>>>(src, dst, n);
-  else if (eta == 3 && !fuse_ntt) prf_cbd_kernel<3, false><<<blocks, kPolys, 0, st>>>(src, dst, n);
-  else if (eta == 3) prf_cbd_kernel<3, true><<<blocks, kPolys, 0, st>>>(src, dst, n);
+  if (eta == 2 && !fuse_ntt) prf_cbd_kernel<2, false><<<blocks, kWarp, 0, st>>>(src, dst, n);
+  else if (eta == 2) prf_cbd_kernel<2, true><<<blocks, kWarp, 0, st>>>(src, dst, n);
+  else if (eta == 3 && !fuse_ntt) prf_cbd_kernel<3, false><<<blocks, kWarp, 0, st>>>(src, dst, n);
+  else if (eta == 3) prf_cbd_kernel<3, true><<<blocks, kWarp, 0, st>>>(src, dst, n);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

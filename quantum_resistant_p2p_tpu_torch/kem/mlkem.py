@@ -282,8 +282,8 @@ def _kpke_encrypt_pre(p: MLKEMParams, t_hat: torch.Tensor, a_hat: torch.Tensor,
     """K-PKE.Encrypt over pre-decoded key material.  ``t_hat``/``a_hat``
     may be unbatched (one key) and broadcast against a batched (m, r)."""
     k = p.k
-    e1 = _prf_cbd(r, range(k, 2 * k), p.eta2)
-    e2 = _prf_cbd(r, range(2 * k, 2 * k + 1), p.eta2)[..., 0, :]
+    e12 = _prf_cbd(r, range(k, 2 * k + 1), p.eta2)  # e1 and e2 in one launch
+    e1, e2 = e12[..., :k, :], e12[..., k, :]
     y_hat = _prf_cbd_ntt(r, range(k), p.eta1)
     # u = invNTT(A^T o y_hat) + e1: contract over the row index i of A[i, j]
     u = (ntt_inv(multiply_ntts(a_hat, y_hat[..., :, None, :]).sum(dim=-3, dtype=torch.int32)

@@ -17,10 +17,11 @@ Any other tensor raises.
 K7's schedule is built here and loaded into the kernel's tables (see
 ``csrc/mldsa.cuh``): a half-warp transforms one polynomial, 16 coefficients
 a lane.  In stage A lane t's register j holds coefficient t + 16 j, in stage
-B 16 t + j (:func:`ntt_coefficient`); each stage runs four layers, pairing
-registers j and j + h, whose zeta sits at slot :func:`ntt_slot` of the
-stage's table.  ``NTT_ZETA_INDEX`` names the zeta of every (direction,
-stage, slot, lane); the tables hold those zetas and their Shoup companions.
+B 16 t + j (:func:`ntt_coefficient`, from ``utils/ntt_layout.py``, which
+K3's fused NTT shares); each stage runs four layers, pairing registers j
+and j + h, whose zeta sits at slot :func:`ntt_slot` of the stage's table.
+``NTT_ZETA_INDEX`` names the zeta of every (direction, stage, slot, lane);
+the tables hold those zetas and their Shoup companions.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from ..core.keccak import seed_rows
-from ..utils import cuda
+from ..utils import cuda, ntt_layout
 from .params import N, N_INV, Q, ZETAS
 
 _P = ctypes.c_void_p
@@ -45,60 +46,17 @@ _SIGNATURES = {
     "qrp_mldsa_ntt": [_P, _P, ctypes.c_int64, ctypes.c_int, _P],
 }
 #: registers a lane and lanes a polynomial in K7, and zeta slots a stage
-NTT_REGS = NTT_LANES = 16
+NTT_REGS, NTT_LANES = ntt_layout.REGS, ntt_layout.LANES
 NTT_SLOTS = 15
 #: the half-distance h between paired registers, layer by layer, of a
 #: forward stage (an inverse stage runs them in reverse)
 NTT_HALVES = (8, 4, 2, 1)
-
-
-def ntt_coefficient(stage: int, lane: int, reg: int) -> int:
-    """The coefficient that register ``reg`` of ``lane`` holds in stage 0
-    (A: layers of length 128..16) or 1 (B: layers of length 8..1)."""
-    return lane + NTT_LANES * reg if stage == 0 else NTT_REGS * lane + reg
-
-
-def ntt_slot(h: int, reg: int) -> int:
-    """Table slot of the zeta of the pair (reg, reg + h) of layer h."""
-    return 8 // h - 1 + reg // (2 * h)
-
-
-def _zeta_index(inverse: int, stage: int, h: int, lane: int, reg: int) -> int:
-    """ZETAS index of the butterfly on coefficients i and i + len, as
-    ``ntt_plain`` / ``ntt_inv_plain`` number them: group g = i // (2 len),
-    128 / len + g forward, 2 * 128 / len - 1 - g inverse."""
-    length = h * (NTT_LANES if stage == 0 else 1)
-    groups = N // (2 * length)
-    g = ntt_coefficient(stage, lane, reg) // (2 * length)
-    return 2 * groups - 1 - g if inverse else groups + g
-
-
-def _zeta_indices() -> np.ndarray:
-    idx = np.full((2, 2, NTT_SLOTS, NTT_LANES), -1, dtype=np.int64)
-    for inverse in (0, 1):
-        for stage in (0, 1):
-            for h in NTT_HALVES:
-                for lane in range(NTT_LANES):
-                    for reg in range(NTT_REGS):
-                        if reg & h:
-                            continue
-                        at = (inverse, stage, ntt_slot(h, reg), lane)
-                        k = _zeta_index(inverse, stage, h, lane, reg)
-                        if idx[at] not in (-1, k):
-                            raise AssertionError(f"K7 schedule: two zetas at slot {at}")
-                        idx[at] = k
-    if (idx < 0).any():
-        raise AssertionError("K7 schedule: a slot without a zeta")
-    return idx
-
-
+ntt_coefficient = ntt_layout.coefficient
+ntt_slot = ntt_layout.slot
 #: (direction: 0 forward, 1 inverse; stage; slot; lane) -> index into ZETAS
-NTT_ZETA_INDEX = _zeta_indices()
-
-
-def _shoup(w: np.ndarray) -> np.ndarray:
-    """Shoup companions floor(w * 2^32 / q) of the kernel's products."""
-    return ((w.astype(np.uint64) << np.uint64(32)) // np.uint64(Q)).astype(np.uint32)
+NTT_ZETA_INDEX = np.stack([np.stack(ntt_layout.zeta_indices((NTT_HALVES, NTT_HALVES), inverse,
+                                                            "K7"))
+                           for inverse in (False, True)])
 
 
 def _ntt_tables() -> tuple[np.ndarray, np.ndarray]:
@@ -108,15 +66,13 @@ def _ntt_tables() -> tuple[np.ndarray, np.ndarray]:
     ``lanes`` (2, 2, 15, 16) = (direction, zeta or companion, slot, lane)
     of stage B."""
     z = np.asarray(ZETAS, dtype=np.int64)[NTT_ZETA_INDEX]
-    if not (z[:, 0] == z[:, 0, :, :1]).all():
-        raise AssertionError("K7 schedule: stage A's zetas differ across lanes")
     a = np.zeros((2, 16), dtype=np.uint32)
     a[:, :NTT_SLOTS] = z[:, 0, :, 0]
     a[1, 0] = a[1, 0].astype(np.int64) * N_INV % Q
     a[1, 15] = N_INV
-    uniform = np.ascontiguousarray(np.stack([a, _shoup(a)], axis=1))
+    uniform = np.ascontiguousarray(np.stack([a, ntt_layout.shoup(a, Q)], axis=1))
     b = z[:, 1].astype(np.uint32)
-    lanes = np.ascontiguousarray(np.stack([b, _shoup(b)], axis=1))
+    lanes = np.ascontiguousarray(np.stack([b, ntt_layout.shoup(b, Q)], axis=1))
     return uniform, lanes
 
 

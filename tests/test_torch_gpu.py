@@ -74,6 +74,42 @@ def test_mlkem_kernels_match_plain(gpu):
     torch.cuda.synchronize()
 
 
+_MLKEM_SAMPLERS = (
+    ("sample_ntt", 34, lambda s: mlkem_cuda.sample_ntt(s), lambda s: mlkem.sample_ntt_plain(s)),
+    *((f"prf_cbd eta {eta}", 33, lambda s, e=eta: mlkem_cuda.prf_cbd(s, e),
+       lambda s, e=eta: mlkem.prf_cbd_plain(s, e)) for eta in (2, 3)),
+    *((f"prf_cbd_ntt eta {eta}", 33, lambda s, e=eta: mlkem_cuda.prf_cbd_ntt(s, e),
+       lambda s, e=eta: mlkem.prf_cbd_ntt_plain(s, e)) for eta in (2, 3)))
+
+
+@pytest.mark.parametrize("rows", [0, 1, 31, 32, 33, 4095, 12289])
+def test_mlkem_samplers_at_ragged_row_counts(gpu, rows):
+    """K2 and K3 (eta 2 and 3, NTT fused or not) parse a warp's 32 rows
+    together: full warps, a ragged last warp, a lone row, none."""
+    wrappers = (mlkem_cuda.sample_ntt, mlkem_cuda.prf_cbd, mlkem_cuda.prf_cbd_ntt)
+    for name, seed_len, kern, plain in _MLKEM_SAMPLERS:
+        seeds = _u8(rows + seed_len, rows, seed_len).to(gpu)
+        before = [w.launches for w in wrappers]
+        got = kern(seeds)
+        torch.cuda.synchronize()
+        if rows == 0:
+            assert got.shape == (0, 256) and [w.launches for w in wrappers] == before, name
+        else:
+            assert sum(w.launches for w in wrappers) == sum(before) + 1, name
+            assert torch.equal(got, plain(seeds)), name
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_mlkem_samplers_read_unaligned_seed_rows(gpu, offset):
+    """A seed view 1-3 bytes past an aligned address: the staged loads take
+    the aligned words around the rows."""
+    for name, seed_len, kern, plain in _MLKEM_SAMPLERS:
+        buf = _u8(offset, 1000 * seed_len + 4).to(gpu)
+        seeds = buf[offset:offset + 999 * seed_len].view(999, seed_len)
+        assert seeds.data_ptr() % 4 == offset % 4
+        assert torch.equal(kern(seeds), plain(seeds.clone())), name
+
+
 @pytest.mark.parametrize("name", ["ML-KEM-512", "ML-KEM-768", "ML-KEM-1024"])
 def test_gpu_path_matches_cpu_path(gpu, name):
     p = mlkem.PARAMS[name]
