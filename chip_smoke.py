@@ -31,7 +31,9 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              (ms) and on the device alone (device_ms: the launch enqueued
              while the GPU sleeps; K11 beside torch.searchsorted); K3 also
              at eta 2 over 4096 and 16384 rows (the serve shape, and e1 + e2
-             of one encaps batch in one launch);
+             of one encaps batch in one launch), K4's inverse also at 4096
+             polynomials (the flagship's v) and K5 also at 122880 rows
+             (ExpandA of 4096 ML-DSA-65 keys);
 3. kat       tests/vectors/mlkem_768.json through keygen/encaps/decaps,
              tests/vectors/mldsa_65.json through keygen/sign/verify and the
              six tests/vectors/frodo_*.json through keygen/encaps/decaps on
@@ -99,7 +101,8 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              verify batches, one 4096 x 4 KiB seal batch, one
              FrodoKEM-640-SHAKE encaps batch of 1024 keys, one 128f sign
              batch of 1024 and one 128s verify batch of 2048: device time
-             per kernel (K1's, K7's, K2's and K3's apart), launches, and
+             per kernel (K1's, K7's, K2's, K3's, K4's and K5's apart),
+             launches, and
              the device busy share of each window from its trace (after
              the counts are read).
 
@@ -151,18 +154,18 @@ INT32_LANES_PER_SM = 64
 #: beside it.
 KECCAK_ROUND_OPS = 20 + 10 + 50 + 48 + 50 + 2
 KECCAK_F_OPS = 24 * KECCAK_ROUND_OPS
-#: one NTT butterfly mod 3329 as K4 writes it in csrc/mlkem.cuh (mul, %,
-#: +, %, -, +, %)
-BUTTERFLY_OPS = 7
-NTT_OPS = 7 * 128 * BUTTERFLY_OPS
-NTT_INV_OPS = NTT_OPS + 2 * 256  # the final scaling by 3303
-#: K3's fused lazy Shoup butterfly mod 3329: the product up to one q
-#: (umulhi, multiply, multiply-add), then a + 2q - t (one 3-input add) and
-#: a + t.  Values stay below 16q < 2^16, so no conditional subtract.
+#: the lazy Shoup butterfly mod 3329 of K3's fused NTT and K4: the product
+#: up to one q (umulhi, multiply, multiply-add), then a + 2q - t (one
+#: 3-input add) and a + t forward, or b + M - a and a + b inverse.  Values
+#: stay below 2^16 forward and 2^19 inverse, so no conditional subtract.
 KEM_LAZY_BUTTERFLY_OPS = 3 + 2
-#: + the final reduction of each coefficient to [0, q) (umulhi,
+#: forward: + the final reduction of each coefficient to [0, q) (umulhi,
 #: multiply-add, subtract, unsigned min)
 KEM_LAZY_NTT_OPS = 7 * 128 * KEM_LAZY_BUTTERFLY_OPS + 256 * 4
+#: inverse: + the scaling by 128^-1 folded into the last layer, where each
+#: butterfly takes a second Shoup product and both outputs a subtract and
+#: an unsigned min
+KEM_LAZY_NTT_INV_OPS = 7 * 128 * KEM_LAZY_BUTTERFLY_OPS + 128 * (3 + 2 * 2)
 #: one NTT butterfly mod 8380417 as the work needs it, Harvey's lazy
 #: butterfly on values in [0, 4q): a Shoup product left in [0, 2q)
 #: (umulhi and two multiply-adds), 2q taken off the other input where it
@@ -584,6 +587,39 @@ def mlkem_sampler_cases(torch, np, rng, keccak, mlkem, mlkem_cuda) -> list:
     return cases
 
 
+def k4_k5_cases(torch, np, rng, keccak, mlkem, mlkem_cuda, mldsa, mldsa_cuda) -> list:
+    """K4 at u's 12,288 polynomials of the batch-4096 ML-KEM-768 path (3 a
+    key), rows of 0 and of q - 1 among them, and the inverse at v's 4,096;
+    K5 at ExpandA of the ML-DSA-65 keygen batch (30 rows a key) and of four
+    times as many keys.  The untagged names are the ones the kernels line
+    sums."""
+    dev = torch.device("cuda")
+    polys = torch.from_numpy(rng.integers(0, 3329, size=(BATCH * 3, 256), dtype=np.int32))
+    polys[0], polys[1] = 0, 3328
+    polys = polys.to(dev)
+    cases = []
+    for name, kern, plain, ops, f in (
+            ("mlkem_ntt", mlkem_cuda.ntt, mlkem.ntt_plain, KEM_LAZY_NTT_OPS, polys),
+            ("mlkem_ntt_inv", mlkem_cuda.ntt_inv, mlkem.ntt_inv_plain, KEM_LAZY_NTT_INV_OPS,
+             polys),
+            (f"mlkem_ntt_inv[{BATCH}]", mlkem_cuda.ntt_inv, mlkem.ntt_inv_plain,
+             KEM_LAZY_NTT_INV_OPS, polys[BATCH:2 * BATCH].clone())):
+        cases.append((name, f"{SRC}/kem/mlkem_pallas.py:253",
+                      lambda k=kern, f=f: k(f), lambda p=plain, f=f: p(f),
+                      2 * f.numel() * 4, f.shape[0] * ops, f"({f.shape[0]}, 256) int32"))
+    p = mldsa.MLDSA65
+    n_a = KEYGEN_KEYS * p.k * p.l
+    for tag, rows in (("", n_a), (f"[{4 * n_a}]", 4 * n_a)):
+        seeds = torch.from_numpy(rng.integers(0, 256, size=(rows, 34), dtype=np.uint8)).to(dev)
+        cases.append((f"mldsa_rej_ntt{tag}", f"{SRC}/sig/mldsa_pallas.py:259",
+                      lambda x=seeds: mldsa_cuda.rej_ntt(x),
+                      lambda x=seeds: mldsa.rej_ntt_poly_plain(x),
+                      seeds.numel() + 4 * 256 * rows,
+                      rej_ntt_perms(torch, keccak, mldsa.Q, seeds) * KECCAK_F_OPS,
+                      f"({rows}, 34) -> ({rows}, 256)"))
+    return cases
+
+
 def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mldsa_cuda,
                   chacha, chacha_cuda, frodo, frodo_cuda, sha2, sha2_ops, int_rate) -> list:
     dev = torch.device("cuda")
@@ -595,24 +631,11 @@ def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mlds
     # (name, replaces, kernel, plain, bytes, int32 ops, shape)
     cases = k1_k7_cases(torch, np, rng, keccak, keccak_cuda, mldsa, mldsa_cuda)
     cases += mlkem_sampler_cases(torch, np, rng, keccak, mlkem, mlkem_cuda)
-    polys = torch.from_numpy(rng.integers(0, 3329, size=(BATCH * 3, 256),
-                                          dtype=np.int32)).to(dev)
-    for name, kern, plain, ops in (("mlkem_ntt", mlkem_cuda.ntt, mlkem.ntt_plain, NTT_OPS),
-                                   ("mlkem_ntt_inv", mlkem_cuda.ntt_inv, mlkem.ntt_inv_plain,
-                                    NTT_INV_OPS)):
-        cases.append((name, f"{SRC}/kem/mlkem_pallas.py:253",
-                      lambda k=kern: k(polys), lambda p=plain: p(polys),
-                      2 * polys.numel() * 4, polys.shape[0] * ops,
-                      f"({BATCH * 3}, 256) int32"))
-    # distinct names: the lambdas above read seeds, prf and polys when called
+    cases += k4_k5_cases(torch, np, rng, keccak, mlkem, mlkem_cuda, mldsa, mldsa_cuda)
+    # K6 at ExpandS of the keygen batch (11 rows a key), both etas
     p = mldsa.MLDSA65
-    n_a, n_s = KEYGEN_KEYS * p.k * p.l, KEYGEN_KEYS * (p.k + p.l)
-    a_seeds, s_seeds = u8(n_a, 34), u8(n_s, 66)
-    cases.append(("mldsa_rej_ntt", f"{SRC}/sig/mldsa_pallas.py:259",
-                  lambda: mldsa_cuda.rej_ntt(a_seeds), lambda: mldsa.rej_ntt_poly_plain(a_seeds),
-                  a_seeds.numel() + 4 * 256 * n_a,
-                  rej_ntt_perms(torch, keccak, mldsa.Q, a_seeds) * KECCAK_F_OPS,
-                  f"({n_a}, 34) -> ({n_a}, 256)"))
+    n_s = KEYGEN_KEYS * (p.k + p.l)
+    s_seeds = u8(n_s, 66)
     for eta in (4, 2):
         cases.append(("mldsa_rej_bounded" if eta == p.eta else f"mldsa_rej_bounded[eta={eta}]",
                       f"{SRC}/sig/mldsa_pallas.py:130",
@@ -1554,16 +1577,19 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
     total_us = sum(device_us.values())
     calls = {ev.key: ev.count for ev in prof.key_averages() if ev.key in device_us}
     ours = ("::sponge_rows_kernel<", "::sponge_split_kernel<", "::sample_ntt_kernel(",
-            "::prf_cbd_kernel<", "::ntt_kernel<", "::rej_ntt_kernel(", "::rej_bounded_kernel<",
-            "::chacha_kernel(", "::a_times_s_kernel<", "::s_times_a_kernel<", "::cdf_kernel(",
-            "::sha256_kernel(", "::sha512_kernel(")
+            "::prf_cbd_kernel<", "::kem_ntt_kernel<", "::ntt_kernel<", "::rej_ntt_kernel(",
+            "::rej_bounded_kernel<", "::chacha_kernel(", "::a_times_s_kernel<",
+            "::s_times_a_kernel<", "::cdf_kernel(", "::sha256_kernel(", "::sha512_kernel(")
     ours_us = sum(v for k, v in device_us.items() if any(o in k for o in ours))
-    # K1 (both paths, both entries), K7 (mldsa.cu's ntt_kernel takes the
-    # polynomial count; mlkem.cu's K4 does not), K2 and K3 (every instance)
+    # K1 (both paths, both entries), K7 (mldsa.cu's ntt_kernel; mlkem.cu's
+    # K4 is kem_ntt_kernel, which "::ntt_kernel<" does not match), K2, K3
+    # and K4 (every instance), K5
     redesigned = {"k1": lambda k: "::sponge_rows_kernel<" in k or "::sponge_split_kernel<" in k,
                   "k7": lambda k: "::ntt_kernel<" in k and k.endswith(", long)"),
                   "k2": lambda k: "::sample_ntt_kernel(" in k,
-                  "k3": lambda k: "::prf_cbd_kernel<" in k}
+                  "k3": lambda k: "::prf_cbd_kernel<" in k,
+                  "k4": lambda k: "::kem_ntt_kernel<" in k,
+                  "k5": lambda k: "::rej_ntt_kernel(" in k}
     mine = {name: [k for k in device_us if hit(k)] for name, hit in redesigned.items()}
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:12]
     out = {"batches": reps, "window_ms_per_batch": window_us / reps / 1e3,

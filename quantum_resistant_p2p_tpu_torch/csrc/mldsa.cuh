@@ -2,10 +2,11 @@
 //
 // q = 8380417 < 2^23, so a coefficient fits 32 bits but a product of two
 // does not.  The TPU kernels split one factor into 8-bit limbs (Horner) to
-// stay inside int32.  Here every zeta product is Shoup's modular product:
-// each zeta w comes with w' = floor(w * 2^32 / q), and a * w mod q costs
-// one high multiply and two low multiplies, all in 32 bits, with a result
-// in [0, 2q) for any 32-bit a.  A polynomial being built by one sampler
+// stay inside int32.  Here every zeta product is Shoup's modular product
+// (ntt_halfwarp.cuh): each zeta w comes with w' = floor(w * 2^32 / q), and
+// a * w mod q costs one high multiply and two low multiplies, all in 32
+// bits, with a result in [0, 2q) for any 32-bit a.  K5 runs on the warp
+// sampler that K2 shares (warp_sampler.cuh); a polynomial built by one K6
 // thread lives in a shared-memory tile column: coefficient i at
 // col[i * kTileRows] (see tile.cuh).
 #pragma once
@@ -13,7 +14,9 @@
 #include <stdint.h>
 
 #include "keccak.cuh"
+#include "ntt_halfwarp.cuh"
 #include "tile.cuh"
+#include "warp_sampler.cuh"
 
 namespace qrp {
 
@@ -29,53 +32,36 @@ constexpr uint32_t kDsaQ = 8380417;
 __constant__ uint32_t c_dsa_ntt_uniform[2][2][16];
 __device__ uint32_t g_dsa_ntt_lanes[2][2][15][16];
 
-// a * w mod q up to one q: a * w - hi * q lies in [0, 2q) for any 32-bit a,
-// w in [0, q) and w_shoup as above (hi is floor(a*w/q) or one less), and is
-// exact modulo 2^32.
-__device__ __forceinline__ uint32_t mulmod_shoup_lazy(uint32_t a, uint32_t w,
-                                                      uint32_t w_shoup) {
-  return a * w - __umulhi(a, w_shoup) * kDsaQ;
-}
-
-// The same, canonical in [0, q): min(r, r - q) (unsigned) subtracts q
-// once where r >= q.
-__device__ __forceinline__ uint32_t mulmod_shoup(uint32_t a, uint32_t w, uint32_t w_shoup) {
-  const uint32_t r = mulmod_shoup_lazy(a, w, w_shoup);
-  return min(r, r - kDsaQ);
-}
-
 // ---------------------------------------------------------------------------
 // RejNTTPoly (K5).  SHAKE-128(rho || s || r) squeezed for at most 7 blocks
 // (1176 bytes, 392 candidates b0 | b1 << 8 | (b2 & 0x7F) << 16, 56 per
-// block).  Candidates < q are appended in order and the thread stops at
-// 256.  When fewer than 256 of the 392 pass, a second pass over the same
-// 392 appends the rejected candidates in order: the reference sorts on
-// key = reject << 10 | index and keeps the candidate values, so its tail
-// holds exactly those, with values >= q.
+// block: candidate c is bits [24 c, 24 c + 23) of the block).  Candidates
+// < q are appended in order up to 256.  When fewer than 256 of the 392
+// pass, a second pass over the same 392 appends the rejected candidates in
+// order: the reference sorts on key = reject << 10 | index and keeps the
+// candidate values, so its tail holds exactly those, with values >= q
+// (warp_sampler.cuh: sample_rows).  Four blocks hold 224 candidates, so
+// every row squeezes at least five; 280 give 256 accepted but where more
+// than 24 of them are rejected (probability 1.4e-40).
 // ---------------------------------------------------------------------------
 
-constexpr int kRejNttRate = 168;
-constexpr int kRejNttSeedLen = 34;
-constexpr int kRejNttBlocks = 7;
-
-__device__ __forceinline__ void rej_ntt_poly(const uint8_t* __restrict__ seed,
-                                             int32_t* col) {
-  int cnt = 0;
-  for (int pass = 0; pass < 2 && cnt < kN; ++pass) {
-    const bool want_accepted = pass == 0;
-    uint64_t s[25];
-    absorb_short<kRejNttRate, kRejNttSeedLen>(s, seed, 0x1F);
-    for (int blk = 0; blk < kRejNttBlocks && cnt < kN; ++blk) {
-      if (blk) keccak_f1600(s);
-#pragma unroll
-      for (int tr = 0; tr < kRejNttRate / 3; ++tr) {
-        const uint32_t c = state_byte(s, 3 * tr) | (state_byte(s, 3 * tr + 1) << 8) |
-                           ((state_byte(s, 3 * tr + 2) & 0x7F) << 16);
-        if ((c < kDsaQ) == want_accepted && cnt < kN) col[kTileRows * cnt++] = (int32_t)c;
-      }
-    }
+struct RejNttCands {
+  using Value = uint32_t;
+  static constexpr int kSlots = 168 / 3;  // 56 candidates a block
+  static constexpr int kBlocks = 7;
+  static constexpr int kRate = 168;
+  static constexpr int kSeedLen = 34;
+  static constexpr uint32_t kBound = kDsaQ;
+  // Candidate c of the squeezed block in s.  c is a compile-time constant,
+  // so the lane index and shift fold away, and the candidates at bit 48
+  // and 56 of a lane, which straddle two lanes, are the compile-time cases
+  // of the funnel.
+  static __device__ __forceinline__ uint32_t at(const uint64_t s[25], int c) {
+    const int w = (24 * c) >> 6, sh = (24 * c) & 63;
+    const uint64_t v = sh <= 40 ? s[w] >> sh : (s[w] >> sh) | (s[w + 1] << (64 - sh));
+    return (uint32_t)v & 0x7FFFFFu;
   }
-}
+};
 
 // ---------------------------------------------------------------------------
 // RejBoundedPoly (K6).  SHAKE-256(rho' || n) and its first 512 squeezed
@@ -118,44 +104,17 @@ __device__ __forceinline__ void rej_bounded_poly(const uint8_t* __restrict__ see
 }
 
 // ---------------------------------------------------------------------------
-// NTT mod q (K7), the layer order of sig/mldsa.py:ntt / ntt_inv.  A
-// half-warp holds one polynomial, 16 coefficients a lane in registers f[j]:
-// in stage A lane t holds coefficient t + 16 j, in stage B 16 t + j.  A
-// stage runs four layers; in each, registers j and j + h are a butterfly
-// pair (h = 8, 4, 2, 1 for layer length 16 h in stage A and h in stage B),
-// and the pair's zeta sits at slot 8 / h - 1 + j / (2 h) of the stage's
-// table.  The forward runs A then B, the inverse B then A.
+// NTT mod q (K7), the layer order of sig/mldsa.py:ntt / ntt_inv, on
+// ntt_halfwarp.cuh: stage A runs the layers of length 128..16, stage B
+// those of length 8..1 (h = 8, 4, 2, 1 in each); the forward runs A then
+// B, the inverse B then A.
 //
-// Butterflies are lazy.  Forward (Cooley-Tukey): t = w * b up to one q,
-// a' = a + t, b' = a + 2q - t; starting in [0, q), values stay below
-// (1 + 2k) q < 2^28 after layer k, and one reduction at the end makes them
-// canonical.  Inverse (Gentleman-Sande): a' = a + b, b' = w (b - a + M)
-// up to one q, where M = 2^(k-1) q bounds the inputs of layer k; sums stay
-// below 2^k q <= 256 q < 2^31, and the last layer multiplies both outputs
-// by 256^-1 (folded into its zeta) and reduces them.
+// Forward: starting in [0, q), values stay below (1 + 2k) q < 2^28 after
+// layer k, and one reduction at the end makes them canonical.  Inverse:
+// layer k's inputs are below M = 2^(k-1) q, sums stay below 2^k q <= 256 q
+// < 2^31, and the last layer multiplies both outputs by 256^-1 (folded
+// into its zeta) and reduces them.
 // ---------------------------------------------------------------------------
-
-constexpr int kNttRegs = 16;
-
-template <int H, bool INVERSE, class Zeta>
-__device__ __forceinline__ void ntt_layer(uint32_t f[kNttRegs], const Zeta& zeta,
-                                          uint32_t bias) {
-#pragma unroll
-  for (int j = 0; j < kNttRegs; ++j) {
-    if (j & H) continue;
-    const int slot = 8 / H - 1 + j / (2 * H);
-    const uint32_t w = zeta.w(slot), w_shoup = zeta.w_shoup(slot);
-    if (!INVERSE) {
-      const uint32_t t = mulmod_shoup_lazy(f[j + H], w, w_shoup);
-      f[j + H] = f[j] + 2 * kDsaQ - t;
-      f[j] += t;
-    } else {
-      const uint32_t a = f[j], b = f[j + H];
-      f[j] = a + b;
-      f[j + H] = mulmod_shoup_lazy(b + bias - a, w, w_shoup);
-    }
-  }
-}
 
 // Stage A's zetas: constant memory at compile-time slots.
 template <bool INVERSE>
@@ -168,87 +127,18 @@ struct UniformZetas {
   }
 };
 
-// Stage B's zetas: this lane's, in registers.
-struct LaneZetas {
-  uint32_t z[15], z_shoup[15];
-  template <bool INVERSE>
-  __device__ __forceinline__ void load(int lane) {
-#pragma unroll
-    for (int s = 0; s < 15; ++s) {
-      z[s] = __ldg(&g_dsa_ntt_lanes[INVERSE][0][s][lane]);
-      z_shoup[s] = __ldg(&g_dsa_ntt_lanes[INVERSE][1][s][lane]);
-    }
-  }
-  __device__ __forceinline__ uint32_t w(int slot) const { return z[slot]; }
-  __device__ __forceinline__ uint32_t w_shoup(int slot) const { return z_shoup[slot]; }
-};
-
-// Forward stage (A or B): layers h = 8, 4, 2, 1.
-template <class Zeta>
-__device__ __forceinline__ void ntt_stage_fwd(uint32_t f[kNttRegs], const Zeta& zeta) {
-  ntt_layer<8, false>(f, zeta, 0);
-  ntt_layer<4, false>(f, zeta, 0);
-  ntt_layer<2, false>(f, zeta, 0);
-  ntt_layer<1, false>(f, zeta, 0);
-}
-
-// Inverse stage: layers h = 1, 2, 4, 8, whose inputs are bounded by
-// `bound` = 2^(k-1) q at the stage's first layer k.
-template <class Zeta>
-__device__ __forceinline__ void ntt_stage_inv(uint32_t f[kNttRegs], const Zeta& zeta,
-                                              uint32_t bound) {
-  ntt_layer<1, true>(f, zeta, bound);
-  ntt_layer<2, true>(f, zeta, 2 * bound);
-  ntt_layer<4, true>(f, zeta, 4 * bound);
-  ntt_layer<8, true>(f, zeta, 8 * bound);
-}
-
-// The inverse's stage A: its first three layers, then the last (length
-// 128) with 256^-1 folded in, whose outputs are canonical.
-__device__ __forceinline__ void ntt_stage_a_inv_scaled(uint32_t f[kNttRegs]) {
-  const UniformZetas<true> zeta;
-  ntt_layer<1, true>(f, zeta, 16 * kDsaQ);
-  ntt_layer<2, true>(f, zeta, 32 * kDsaQ);
-  ntt_layer<4, true>(f, zeta, 64 * kDsaQ);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const uint32_t a = f[j], b = f[j + 8];
-    f[j] = mulmod_shoup(a + b, zeta.w(15), zeta.w_shoup(15));
-    f[j + 8] = mulmod_shoup(b + 128 * kDsaQ - a, zeta.w(0), zeta.w_shoup(0));
-  }
+// Stage B's zetas of direction INVERSE for lane t of a half-warp.
+template <bool INVERSE>
+__device__ __forceinline__ LaneZetas<15> dsa_lane_zetas(int t) {
+  LaneZetas<15> zb;
+  zb.load(&g_dsa_ntt_lanes[INVERSE][0][0][0], t);
+  return zb;
 }
 
 // [0, 17q) -> [0, q): x >> 23 is floor(x / q) or one less below 2^28.
 __device__ __forceinline__ uint32_t reduce_dsa(uint32_t x) {
   const uint32_t r = x - (x >> 23) * kDsaQ;
   return min(r, r - kDsaQ);
-}
-
-// A half-warp's transposes through its shared buffer.  Coefficient i sits
-// at word i + 4 (i / 16): lane t's stage-A words t + 20 j are 16
-// consecutive banks for each j (the other half-warp's buffer starts 16
-// banks on), and its stage-B words 20 t + 4 m are four 16-byte vectors
-// that eight lanes read or write on disjoint banks.
-__device__ __forceinline__ void ntt_a_to_b(uint32_t f[kNttRegs], uint32_t* buf, int t) {
-#pragma unroll
-  for (int j = 0; j < kNttRegs; ++j) buf[t + 20 * j] = f[j];
-  __syncwarp();
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const uint4 v = *reinterpret_cast<const uint4*>(buf + 20 * t + 4 * m);
-    f[4 * m] = v.x, f[4 * m + 1] = v.y, f[4 * m + 2] = v.z, f[4 * m + 3] = v.w;
-  }
-}
-
-__device__ __forceinline__ void ntt_b_to_a(uint32_t f[kNttRegs], uint32_t* buf, int t) {
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    *reinterpret_cast<uint4*>(buf + 20 * t + 4 * m) =
-        make_uint4(f[4 * m], f[4 * m + 1], f[4 * m + 2], f[4 * m + 3]);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < kNttRegs; ++j) f[j] = buf[t + 20 * j];
 }
 
 }  // namespace qrp

@@ -16,16 +16,16 @@
 //
 // * Seeds in: the warp loads its rows' bytes as consecutive aligned 32-bit
 //   words into shared memory (coalesced, rows at any byte offset), and each
-//   thread assembles its seed's lanes from there (mlkem.cuh: stage_seeds,
-//   absorb_staged).
+//   thread assembles its seed's lanes from there (warp_sampler.cuh:
+//   stage_seeds, absorb_staged).
 // * K2: each thread compacts its own row's block from its state registers
-//   into its column of a 112-slot uint16 ring (append_block: five
-//   instructions a candidate, no branch), then the warp copies the 32 new
-//   runs to the output rows, two rows a step, consecutive lanes to
-//   consecutive addresses (flush_ring), each row's running count held by
-//   its own lane.  Rows that need a 4th block permute under a mask; a row
-//   short of 256 after 448 candidates takes a second pass for the rejected
-//   ones.  A first version staged each block and parsed it with all 32
+//   into its column of a 112-slot uint16 ring (warp_sampler.cuh:
+//   append_block, five instructions a candidate, no branch), then the warp
+//   copies the 32 new runs to the output rows, two rows a step, consecutive
+//   lanes to consecutive addresses (flush_ring), each row's running count
+//   held by its own lane.  Rows that need a 4th block permute under a
+//   mask; a row short of 256 after 448 candidates takes a second pass for
+//   the rejected ones.  A first version staged each block and parsed it with all 32
 //   lanes, ranking candidates by ballots: ~65 warp instructions a row and
 //   block (4 VOTE, 8 POPC, scattered predicated stores), 0.093 ms at 36,864
 //   rows on the H100 against 0.081 for the ring.
@@ -35,22 +35,27 @@
 //   time, each decoding 8 coefficients (4 or 6 bytes) and storing them
 //   with two 16-byte stores, a whole row a warp instruction pair.
 // * K3 with the NTT fused: a half-warp a polynomial in K7's layout
-//   (mlkem.cuh: kem_ntt_forward): the decoded coefficients go straight
-//   into registers (lane t coefficient t + 16 j), four layers in registers,
-//   one transpose, three layers, a Shoup reduction, a transpose back, and
-//   coalesced 32-bit stores; lazy Shoup butterflies (no % anywhere).
+//   (mlkem.cuh: kem_ntt_forward, on ntt_halfwarp.cuh): the decoded
+//   coefficients go straight into registers (lane t coefficient t + 16 j),
+//   four layers in registers, one transpose, three layers, a Shoup
+//   reduction, a transpose back, and coalesced 32-bit stores; lazy Shoup
+//   butterflies (no % anywhere).
 //
 // No 32 x 256 shared tile: a warp holds 4.3-7.4 KB (+2.6 KB of transpose
 // buffer when fused), so registers, not shared memory, set how many warps
 // an SM keeps.
 //
-// K4 gives each polynomial to a block of 128 threads: one butterfly per
-// thread per layer, the polynomial in shared memory, a barrier between
-// layers.  It reads and writes 1 KB per polynomial against ~6k integer
-// operations, so device-memory bytes bound it.  zeta comes from constant
-// memory; in the layers whose butterfly groups are shorter than a warp the
-// threads of a warp read different zetas and the constant cache
-// serialises them.
+// K4 takes K7's design (mldsa.cu) on the same half-warp NTT as K3's fused
+// one (ntt_halfwarp.cuh): a half-warp a polynomial, 16 coefficients a lane
+// in registers, coalesced 32-bit loads and stores, lazy Shoup butterflies
+// (no %), one transpose each way under __syncwarp() (no block barrier),
+// stage B's zetas in registers; the inverse's scaling by 128^-1 is folded
+// into its last layer.  It reads and writes 1 KB per polynomial against
+// ~5,500 integer operations, so device-memory bytes bound it.  The grid is
+// at most one wave of resident blocks; each warp loops over polynomial
+// pairs.  The first design (a block of 128 threads a polynomial in shared
+// memory, a barrier between layers, % after every product, zetas from
+// constant memory at lane-dependent indices) ran at ~3x the bound.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,48 +65,14 @@ namespace {
 
 using qrp::kN;
 
-constexpr int kWarp = 32;
-constexpr unsigned kFull = qrp::kFullMask;
-
-// This block's rows: [row0, row0 + rows) of n.
-__device__ __forceinline__ int warp_rows(int64_t row0, int64_t n) {
-  return n - row0 < kWarp ? (int)(n - row0) : kWarp;
-}
+constexpr int kWarp = qrp::kWarpRows;
 
 __global__ void __launch_bounds__(kWarp)
     sample_ntt_kernel(const uint8_t* __restrict__ seeds, int32_t* __restrict__ out,
                       int64_t n) {
-  // the warp's candidate ring; the seeds are staged in it first
-  __shared__ __align__(16) uint16_t ring[qrp::kRingSlots * qrp::kRingStride];
-  uint32_t* sw = reinterpret_cast<uint32_t*>(ring);
-  const int lane = threadIdx.x;
-  const int64_t row0 = (int64_t)blockIdx.x * kWarp;
-  const int rows = warp_rows(row0, n);
-  const uint8_t* src = seeds + row0 * qrp::kXofSeedLen;
-  const int skew = (int)(reinterpret_cast<uintptr_t>(src) & 3);
-  int32_t* dst = out + row0 * kN;
-  int cnt = lane < rows ? 0 : kN;  // coefficients of this lane's row so far
-  for (int pass = 0; pass < 2; ++pass) {  // 0: accepted candidates, 1: rejected ones
-    if (!__ballot_sync(kFull, cnt < kN)) break;
-    qrp::stage_seeds<qrp::kXofSeedLen>(src, rows, sw, lane);
-    uint64_t s[25];
-    qrp::absorb_staged<qrp::kXofRate, qrp::kXofSeedLen>(s, sw, skew, lane, 0x1F);
-    __syncwarp();
-    for (int blk = 0; blk < qrp::kSqueezeBlocks; ++blk) {
-      const unsigned todo = __ballot_sync(kFull, cnt < kN);
-      if (!todo) break;
-      int k = 0;
-      if (cnt < kN) {
-        if (blk) qrp::keccak_f1600(s);
-        k = pass == 0 ? qrp::append_block<true>(s, ring, lane)
-                      : qrp::append_block<false>(s, ring, lane);
-      }
-      __syncwarp();
-      qrp::flush_ring(ring, todo, k, cnt, lane, dst);
-      cnt += k;
-      __syncwarp();
-    }
-  }
+  __shared__ __align__(16)
+      qrp::SampleNttCands::Value ring[qrp::SampleNttCands::kSlots * qrp::kRingStride];
+  qrp::sample_rows<qrp::SampleNttCands>(seeds, out, n, ring);
 }
 
 template <int ETA, bool FUSE_NTT>
@@ -110,11 +81,11 @@ __global__ void __launch_bounds__(kWarp)
                    int64_t n) {
   using Stage = qrp::PrfStage<ETA>;
   __shared__ uint64_t stage[kWarp * Stage::kStride];
-  __shared__ __align__(16) uint32_t ntt_buf[FUSE_NTT ? qrp::kKemNttWarpWords : 4];
+  __shared__ __align__(16) uint32_t ntt_buf[FUSE_NTT ? qrp::kNttWarpWords : 4];
   uint32_t* sw = reinterpret_cast<uint32_t*>(stage);
   const int lane = threadIdx.x;
   const int64_t row0 = (int64_t)blockIdx.x * kWarp;
-  const int rows = warp_rows(row0, n);
+  const int rows = qrp::warp_rows(row0, n);
   const uint8_t* src = seeds + row0 * qrp::kPrfSeedLen;
   int32_t* dst = out + row0 * kN;
   qrp::stage_seeds<qrp::kPrfSeedLen>(src, rows, sw, lane);
@@ -152,16 +123,15 @@ __global__ void __launch_bounds__(kWarp)
   } else {
     // half-warp h: rows r0 + h, two rows a step
     const int t = lane & 15, half = lane >> 4;
-    uint32_t* buf = ntt_buf + half * qrp::kKemNttHalfWords;
-    qrp::KemLaneZetas zb;
-    zb.load(t);
+    uint32_t* buf = ntt_buf + half * qrp::kNttHalfWords;
+    const auto zb = qrp::kem_lane_zetas<false>(t);
     for (int r0 = 0; r0 < rows; r0 += 2) {
       const int r = r0 + half;
       const uint32_t* row = sw + r * Stage::kWords;
-      uint32_t f[qrp::kKemNttRegs];
+      uint32_t f[qrp::kNttRegs];
       // lane t's coefficient t + 16 j: bits [2 eta (t + 16 j), + 2 eta)
 #pragma unroll
-      for (int j = 0; j < qrp::kKemNttRegs; ++j) {
+      for (int j = 0; j < qrp::kNttRegs; ++j) {
         if (ETA == 2) {
           f[j] = qrp::cbd_lazy<2>((row[2 * j + (t >> 3)] >> (4 * (t & 7))) & 0xFu);
         } else {
@@ -173,41 +143,25 @@ __global__ void __launch_bounds__(kWarp)
       if (r < rows) {
         int32_t* d = dst + r * kN + t;
 #pragma unroll
-        for (int j = 0; j < qrp::kKemNttRegs; ++j) d[16 * j] = (int32_t)f[j];
+        for (int j = 0; j < qrp::kNttRegs; ++j) d[16 * j] = (int32_t)f[j];
       }
     }
   }
 }
 
-constexpr int kNttThreads = 128;
-
 template <bool INVERSE>
-__global__ void __launch_bounds__(kNttThreads)
-    ntt_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out) {
-  __shared__ int32_t f[kN];
-  const int t = threadIdx.x;
-  const int64_t base = (int64_t)blockIdx.x * kN;
-  f[t] = in[base + t];
-  f[t + kNttThreads] = in[base + t + kNttThreads];
-  __syncthreads();
-  if (!INVERSE) {
-#pragma unroll
-    for (int len = 128; len >= 2; len >>= 1) {
-      qrp::ntt_butterfly<false>(f, t, len);
-      __syncthreads();
-    }
-    out[base + t] = f[t];
-    out[base + t + kNttThreads] = f[t + kNttThreads];
-  } else {
-#pragma unroll
-    for (int len = 2; len <= 128; len <<= 1) {
-      qrp::ntt_butterfly<true>(f, t, len);
-      __syncthreads();
-    }
-    out[base + t] = (f[t] * qrp::kNInv) % qrp::kQ;
-    out[base + t + kNttThreads] = (f[t + kNttThreads] * qrp::kNInv) % qrp::kQ;
-  }
+__global__ void __launch_bounds__(qrp::kNttThreads, 2)
+    kem_ntt_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, int64_t n) {
+  __shared__ __align__(16) uint32_t bufs[qrp::kNttWarps * qrp::kNttWarpWords];
+  const auto zb = qrp::kem_lane_zetas<INVERSE>(threadIdx.x & 15);
+  qrp::ntt_pairs(in, out, n, bufs, [&](uint32_t f[qrp::kNttRegs], uint32_t* buf, int t) {
+    if (!INVERSE) qrp::kem_ntt_forward(f, zb, buf, t);
+    else qrp::kem_ntt_inverse(f, zb, buf, t);
+  });
 }
+
+// One wave of K4 blocks on each device, set by qrp_mlkem_init_ntt.
+qrp::NttWaves g_ntt_wave;
 
 unsigned blocks_for(int64_t n) { return (unsigned)((n + kWarp - 1) / kWarp); }
 
@@ -215,20 +169,17 @@ unsigned blocks_for(int64_t n) { return (unsigned)((n + kWarp - 1) / kWarp); }
 
 extern "C" {
 
-// Load the 128 zetas (17^bitrev7(i) mod q) into the constant memory of the
-// current device.  __constant__ memory is per device: the wrapper calls this
-// once for each device, before the first kernel that runs there.
-int qrp_mlkem_init(const int32_t* zetas) {
-  return (int)cudaMemcpyToSymbol(qrp::c_zetas, zetas, sizeof(int32_t) * 128);
-}
-
-// Load K3's fused-NTT tables (kem/mlkem_cuda.py builds them) into the
-// current device: `uniform` 2 x 16 words (stage A's zetas, then their
-// Shoup companions) into constant memory, `lanes` 2 x 7 x 16 (stage B's,
-// slot by lane) into a device table.  Per device, as qrp_mlkem_init.
+// Load the NTT tables of K3's fused NTT and K4 (kem/mlkem_cuda.py builds
+// them) into the current device: `uniform` 2 x 2 x 16 words (direction,
+// stage A's zetas then their Shoup companions, slot) into constant memory,
+// `lanes` 2 x 2 x 7 x 16 (direction, zeta or companion, stage B's slot,
+// lane) into a device table; and size K4's grid for the device.  All are
+// per device: the wrapper calls this once for each device, before the
+// first kernel that runs there.
 int qrp_mlkem_init_ntt(const uint32_t* uniform, const uint32_t* lanes) {
-  const cudaError_t err =
-      cudaMemcpyToSymbol(qrp::c_kem_ntt_uniform, uniform, sizeof(qrp::c_kem_ntt_uniform));
+  cudaError_t err = qrp::size_ntt_waves(g_ntt_wave, kem_ntt_kernel<false>, kem_ntt_kernel<true>);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemcpyToSymbol(qrp::c_kem_ntt_uniform, uniform, sizeof(qrp::c_kem_ntt_uniform));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaMemcpyToSymbol(qrp::g_kem_ntt_lanes, lanes, sizeof(qrp::g_kem_ntt_lanes));
 }
@@ -263,8 +214,11 @@ int qrp_mlkem_ntt(const void* in, void* out, int64_t n, int inverse, void* strea
   const auto* src = static_cast<const int32_t*>(in);
   auto* dst = static_cast<int32_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  if (inverse) ntt_kernel<true><<<(unsigned)n, kNttThreads, 0, st>>>(src, dst);
-  else ntt_kernel<false><<<(unsigned)n, kNttThreads, 0, st>>>(src, dst);
+  unsigned grid = 0;
+  const int err = qrp::ntt_grid(g_ntt_wave, n, inverse ? 1 : 0, &grid);
+  if (err) return err;
+  if (inverse) kem_ntt_kernel<true><<<grid, qrp::kNttThreads, 0, st>>>(src, dst, n);
+  else kem_ntt_kernel<false><<<grid, qrp::kNttThreads, 0, st>>>(src, dst, n);
   return (int)cudaGetLastError();
 }
 

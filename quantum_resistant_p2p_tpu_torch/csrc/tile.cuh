@@ -1,4 +1,4 @@
-// The shared-memory polynomial tile of the sampler kernels (K2, K3, K5, K6).
+// The shared-memory polynomial tile of K6 (mldsa.cu).
 //
 // A sampler thread builds one whole polynomial while it parses its sponge's
 // output.  The block's 32 polynomials live in one shared tile laid out
@@ -11,9 +11,10 @@
 
 #include <stdint.h>
 
+#include "warp_sampler.cuh"  // kN
+
 namespace qrp {
 
-constexpr int kN = 256;
 // Polynomials (threads) per sampler block, and the padded tile row.
 constexpr int kPolys = 32;
 constexpr int kTileRows = kPolys + 1;

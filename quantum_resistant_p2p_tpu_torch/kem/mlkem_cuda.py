@@ -15,14 +15,18 @@ Each wrapper takes what its plain version in ``kem/mlkem.py`` takes
 launches its kernel and counts the launch in its ``launches`` attribute.
 Any other tensor raises.
 
-K3's fused NTT takes K7's layout (``utils/ntt_layout.py``; ``csrc/mlkem.cuh``
-holds the kernel side): a half-warp transforms one polynomial, 16
-coefficients a lane.  In stage A lane t's register j holds coefficient
-t + 16 j, in stage B 16 t + j (:func:`ntt_coefficient`); stage A runs the
-layers of length 128..16, stage B those of length 8..2, pairing registers
-j and j + h, whose zeta sits at slot :func:`ntt_slot` of the stage's table.
-``NTT_ZETA_INDEX_A`` / ``NTT_ZETA_INDEX_B`` name the zeta of every slot
-(and lane); the tables hold those zetas and their Shoup companions.
+K3's fused NTT and K4 take K7's layout (``utils/ntt_layout.py``;
+``csrc/ntt_halfwarp.cuh`` and ``csrc/mlkem.cuh`` hold the kernel side): a
+half-warp transforms one polynomial, 16 coefficients a lane.  In stage A
+lane t's register j holds coefficient t + 16 j, in stage B 16 t + j
+(:func:`ntt_coefficient`); stage A runs the layers of length 128..16,
+stage B those of length 8..2, pairing registers j and j + h, whose zeta
+sits at slot :func:`ntt_slot` of the stage's table.  The forward runs A
+then B, the inverse B then A.  ``NTT_ZETA_INDEX_A`` / ``NTT_ZETA_INDEX_B``
+name the zeta of every slot (and lane) of the forward, ``NTT_INV_ZETA_INDEX_A``
+/ ``NTT_INV_ZETA_INDEX_B`` of the inverse; the tables hold those zetas and
+their Shoup companions, the inverse's with 128^-1 = 3303 folded into its
+last layer.
 """
 
 from __future__ import annotations
@@ -34,11 +38,10 @@ import torch
 
 from ..core.keccak import seed_rows
 from ..utils import cuda, ntt_layout
-from .params import N, Q, ZETAS
+from .params import N, N_INV, Q, ZETAS
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    "qrp_mlkem_init": [_P],
     "qrp_mlkem_init_ntt": [_P, _P],
     # seeds, out, n, stream
     "qrp_mlkem_sample_ntt": [_P, _P, ctypes.c_int64, _P],
@@ -47,43 +50,55 @@ _SIGNATURES = {
     # in, out, n, inverse, stream
     "qrp_mlkem_ntt": [_P, _P, ctypes.c_int64, ctypes.c_int, _P],
 }
-_ZETAS = np.asarray(ZETAS, dtype=np.int32)
-#: registers a lane and lanes a polynomial in K3's fused NTT
+#: registers a lane and lanes a polynomial in the half-warp NTT
 NTT_REGS, NTT_LANES = ntt_layout.REGS, ntt_layout.LANES
 #: the half-distance h between paired registers, layer by layer, of stage
-#: A (layers of length 128..16) and stage B (8..2); and each stage's slots
+#: A (layers of length 128..16) and stage B (8..2) in forward order (the
+#: inverse runs each stage's in reverse); and each stage's slots
 NTT_HALVES = ((8, 4, 2, 1), (8, 4, 2))
 NTT_SLOTS = (15, 7)
 ntt_coefficient = ntt_layout.coefficient
 ntt_slot = ntt_layout.slot
 #: ZETAS index of stage A's slots (15,), the same for every lane, and of
-#: stage B's (slot, lane) (7, 16)
-_INDEX_A, NTT_ZETA_INDEX_B = ntt_layout.zeta_indices(NTT_HALVES, what="K3 NTT")
+#: stage B's (slot, lane) (7, 16); forward, then inverse
+_INDEX_A, NTT_ZETA_INDEX_B = ntt_layout.zeta_indices(NTT_HALVES, what="K3/K4 NTT")
 NTT_ZETA_INDEX_A = _INDEX_A[:, 0]
+_INV_INDEX_A, NTT_INV_ZETA_INDEX_B = ntt_layout.zeta_indices(NTT_HALVES, True, "K4 inverse NTT")
+NTT_INV_ZETA_INDEX_A = _INV_INDEX_A[:, 0]
 
 
-def _ntt_tables() -> tuple[np.ndarray, np.ndarray]:
-    """The tables ``qrp_mlkem_init_ntt`` loads: ``uniform`` (2, 16) = (zeta
-    or companion, slot) of stage A (slot 15 unused), ``lanes`` (2, 7, 16) =
-    (zeta or companion, slot, lane) of stage B."""
+def _ntt_tables(index_a: np.ndarray, index_b: np.ndarray,
+                inverse: bool) -> tuple[np.ndarray, np.ndarray]:
+    """One direction's tables: ``uniform`` (2, 16) = (zeta or companion,
+    slot) of stage A, ``lanes`` (2, 7, 16) = (zeta or companion, slot,
+    lane) of stage B.  The forward leaves slot 15 of stage A unused; the
+    inverse holds zeta * 128^-1 at slot 0 (the last layer's) and 128^-1 at
+    slot 15."""
     z = np.asarray(ZETAS, dtype=np.int64)
     a = np.zeros(16, dtype=np.uint32)
-    a[:NTT_SLOTS[0]] = z[NTT_ZETA_INDEX_A]
-    b = z[NTT_ZETA_INDEX_B].astype(np.uint32)
+    a[:NTT_SLOTS[0]] = z[index_a]
+    if inverse:
+        a[0] = int(a[0]) * N_INV % Q
+        a[15] = N_INV
+    b = z[index_b].astype(np.uint32)
     return (np.ascontiguousarray(np.stack([a, ntt_layout.shoup(a, Q)])),
             np.ascontiguousarray(np.stack([b, ntt_layout.shoup(b, Q)])))
 
 
-NTT_UNIFORM, NTT_LANE_TABLE = _ntt_tables()
+NTT_UNIFORM, NTT_LANE_TABLE = _ntt_tables(NTT_ZETA_INDEX_A, NTT_ZETA_INDEX_B, False)
+NTT_INV_UNIFORM, NTT_INV_LANE_TABLE = _ntt_tables(NTT_INV_ZETA_INDEX_A, NTT_INV_ZETA_INDEX_B,
+                                                  True)
+#: what qrp_mlkem_init_ntt loads: (direction, ...) of both directions
+_INIT_UNIFORM = np.ascontiguousarray(np.stack([NTT_UNIFORM, NTT_INV_UNIFORM]))
+_INIT_LANES = np.ascontiguousarray(np.stack([NTT_LANE_TABLE, NTT_INV_LANE_TABLE]))
 
 
 def _init(lib: ctypes.CDLL) -> int:
-    return (lib.qrp_mlkem_init(_ZETAS.ctypes.data)
-            or lib.qrp_mlkem_init_ntt(NTT_UNIFORM.ctypes.data, NTT_LANE_TABLE.ctypes.data))
+    return lib.qrp_mlkem_init_ntt(_INIT_UNIFORM.ctypes.data, _INIT_LANES.ctypes.data)
 
 
 def _lib(device: torch.device) -> ctypes.CDLL:
-    """The library, with the zetas and K3's NTT tables on ``device``."""
+    """The library, with the NTT tables of K3 and K4 on ``device``."""
     return cuda.device_library("mlkem", _SIGNATURES, device, _init)
 
 

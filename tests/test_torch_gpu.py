@@ -273,6 +273,56 @@ def test_mldsa_ntt_kernel_edges(gpu, n):
     torch.cuda.synchronize()
 
 
+def _stripes(q: int) -> torch.Tensor:
+    """Rows of q - 1 and 0 in runs of 2, 4, .., 128 coefficients, both
+    phases: each puts one NTT layer's lazy values at their worst."""
+    i = torch.arange(256)
+    return torch.stack([torch.where((i // run) % 2 == side, q - 1, 0)
+                        for run in (2, 4, 8, 16, 32, 64, 128) for side in (0, 1)]).to(torch.int32)
+
+
+@pytest.mark.parametrize("n", [1, 17, 33, 4099])
+def test_mlkem_ntt_kernel_edges(gpu, n):
+    """K4 at one polynomial and at counts that leave a half-warp or a block
+    part empty; inputs of 0 and q - 1, whole rows of each and striped;
+    forward then inverse gives the input."""
+    f = torch.randint(0, mlkem.Q, (n, 256), dtype=torch.int32,
+                      generator=torch.Generator().manual_seed(n))
+    f[0, ::2] = mlkem.Q - 1
+    f[-1, 1::2] = 0
+    f = f.to(gpu)
+    before = (mlkem_cuda.ntt.launches, mlkem_cuda.ntt_inv.launches)
+    fwd = mlkem_cuda.ntt(f)
+    assert torch.equal(fwd, mlkem.ntt_plain(f))
+    assert torch.equal(mlkem_cuda.ntt_inv(f), mlkem.ntt_inv_plain(f))
+    assert torch.equal(mlkem_cuda.ntt_inv(fwd), f)
+    assert (mlkem_cuda.ntt.launches, mlkem_cuda.ntt_inv.launches) == (before[0] + 1,
+                                                                       before[1] + 2)
+    extremes = torch.cat([torch.tensor([[0] * 256, [mlkem.Q - 1] * 256], dtype=torch.int32),
+                          _stripes(mlkem.Q)]).to(gpu)
+    assert torch.equal(mlkem_cuda.ntt(extremes), mlkem.ntt_plain(extremes))
+    assert torch.equal(mlkem_cuda.ntt_inv(extremes), mlkem.ntt_inv_plain(extremes))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("rows,offset", [(1, 1), (45, 3), (4099, 1)])
+def test_mldsa_rej_ntt_at_ragged_rows_from_unaligned_seeds(gpu, rows, offset):
+    """K5 over a seed view that starts an odd number of bytes past an
+    aligned address, at row counts that leave the last warp ragged; no
+    rows, no launch."""
+    buf = _u8(rows + offset, rows * 34 + 4).to(gpu)
+    seeds = buf[offset:offset + rows * 34].view(rows, 34)
+    assert seeds.data_ptr() % 4 == offset % 4
+    before = mldsa_cuda.rej_ntt.launches
+    got = mldsa_cuda.rej_ntt(seeds)
+    torch.cuda.synchronize()
+    assert mldsa_cuda.rej_ntt.launches == before + 1
+    assert torch.equal(got, mldsa.rej_ntt_poly_plain(seeds.clone()))
+    empty = torch.empty((0, 34), dtype=torch.uint8, device=gpu)
+    assert mldsa_cuda.rej_ntt(empty).shape == (0, 256)
+    assert mldsa_cuda.rej_ntt.launches == before + 1
+
+
 def test_chacha_kernel_matches_plain(gpu):
     states = _u8(121, 5000, 48).view(torch.int32).to(gpu)
     before = chacha_cuda.chacha_blocks.launches

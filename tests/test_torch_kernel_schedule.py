@@ -6,8 +6,8 @@ The CUDA kernels cannot run here, but the tables they load
 (``sig/mldsa_cuda.py``: ``NTT_ZETA_INDEX``, ``NTT_UNIFORM``,
 ``NTT_LANE_TABLE``; ``core/keccak_cuda.py``: ``split_table``) and the
 layouts they assume can.  Each test walks the kernel's steps in numpy, lane
-by lane and register by register as ``csrc/mldsa.cuh`` and
-``csrc/sponge.cu`` do (lazy butterflies with their 32-bit wraps, the
+by lane and register by register as ``csrc/ntt_halfwarp.cuh``,
+``csrc/mldsa.cuh`` and ``csrc/sponge.cu`` do (lazy butterflies with their 32-bit wraps, the
 shared-memory transposes, the shuffles of the split permutation), on seeded
 inputs, and compares with ``ntt_plain`` / ``ntt_inv_plain`` /
 ``keccak_f1600``.  It imports no jax.
@@ -31,7 +31,7 @@ M32 = (1 << 32) - 1
 
 
 def _lazy_mul(a, w, w_shoup):
-    """mulmod_shoup_lazy: a * w - umulhi(a, w') * q mod 2^32, in [0, 2q)."""
+    """mulmod_lazy<q>: a * w - umulhi(a, w') * q mod 2^32, in [0, 2q)."""
     r = (a * w - ((a * w_shoup) >> 32) * Q) & M32
     assert (r < 2 * Q).all()
     return r
@@ -191,7 +191,7 @@ def _banks_distinct(words, group):
 
 
 def test_k7_transposes_are_bank_conflict_free():
-    """csrc/mldsa.cuh: coefficient i at word i + 4 (i // 16); the second
+    """csrc/ntt_halfwarp.cuh: coefficient i at word i + 4 (i // 16); the second
     half-warp's buffer starts 336 words on."""
     def word(half, i):
         return 336 * half + i + 4 * (i // 16)

@@ -1,14 +1,17 @@
-"""The schedules of kernels K2 (SampleNTT) and K3 (PRF + CBD, with and
-without the fused NTT mod 3329), held to the plain versions on the CPU.
+"""The schedules of kernels K2 (SampleNTT), K3 (PRF + CBD, with and
+without the fused NTT mod 3329), K4 (the NTT mod 3329, forward and
+inverse) and K5 (ML-DSA's RejNTTPoly, on K2's ring), held to the plain
+versions on the CPU.
 
 The CUDA kernels cannot run here, but what they compute can be walked in
-numpy step by step as ``csrc/mlkem.cuh`` and ``csrc/mlkem.cu`` do it: the
-warp's staged rows read as 32-bit words, K2's per-thread compaction into
-its ring and the warp's flush of the rings to the output rows (a lowered
-acceptance bound forces rows to a 4th block and to the short fill), K3's
-lane-to-coefficient maps, and the fused NTT in K7's layout
-from the tables ``kem/mlkem_cuda.py`` uploads, with its lazy Shoup products
-and their bounds.  It imports no jax.
+numpy step by step as ``csrc/warp_sampler.cuh``, ``csrc/ntt_halfwarp.cuh``,
+``csrc/mlkem.cuh`` and ``csrc/mlkem.cu`` do it: the warp's staged rows read
+as 32-bit words, the per-thread compaction into a ring and the warp's
+flush of the rings to the output rows (a lowered acceptance bound forces
+rows to the later blocks and to the short fill), K3's lane-to-coefficient
+maps, and the NTT in K7's layout from the tables ``kem/mlkem_cuda.py``
+uploads, with its lazy Shoup products and each layer's bound.  It imports
+no jax.
 """
 
 import re
@@ -19,7 +22,8 @@ import torch
 
 from quantum_resistant_p2p_tpu_torch.core import keccak
 from quantum_resistant_p2p_tpu_torch.kem import mlkem, mlkem_cuda as mc
-from quantum_resistant_p2p_tpu_torch.kem.params import ZETAS
+from quantum_resistant_p2p_tpu_torch.kem.params import N_INV, ZETAS
+from quantum_resistant_p2p_tpu_torch.sig import mldsa
 from quantum_resistant_p2p_tpu_torch.utils.cuda import CSRC
 
 Q = mlkem.Q
@@ -95,7 +99,7 @@ RING_SLOTS, RING_STRIDE = 112, 33
 
 
 def _block_candidates(block: np.ndarray) -> np.ndarray:
-    """block_candidate: (rows, 168) squeezed bytes -> (rows, 112), candidate
+    """SampleNttCands::at: (rows, 168) squeezed bytes -> (rows, 112), candidate
     c from bits [12 c, 12 c + 12) of the 64-bit lanes."""
     lanes = np.ascontiguousarray(block).view("<u8")
     out = np.empty((block.shape[0], RING_SLOTS), dtype=np.int64)
@@ -108,25 +112,26 @@ def _block_candidates(block: np.ndarray) -> np.ndarray:
     return out
 
 
-def _sample_ntt_walk(seeds: torch.Tensor, bound: int):
-    """sample_ntt_kernel over rows of 34-byte seeds, a warp at a time, with
-    candidates < ``bound`` accepted: append_block into each lane's ring
-    column, then flush_ring's clamped two-row copies.  Returns the output
-    rows and the blocks each row permuted for in the first pass."""
-    n = seeds.shape[0]
-    stream = keccak.sponge_plain(seeds, 168, 0x1F, 672).numpy()
-    cands = [_block_candidates(stream[:, 168 * b:168 * (b + 1)]) for b in range(4)]
+def _ring_walk(cands: list, bound: int):
+    """warp_sampler.cuh's sample_rows over rows whose squeezed blocks hold
+    ``cands[b]`` (rows, slots), a warp at a time, with candidates below
+    ``bound`` accepted: append_block into each lane's ring column, then
+    flush_ring's clamped two-row copies, 16 lanes a row and ceil(slots /
+    16) slots a lane.  Returns the output rows and the blocks each row
+    permuted for in the first pass."""
+    n, slots = cands[0].shape
+    steps = -(-slots // 16)
     out = np.full((n, 256), -1, dtype=np.int64)
     used = np.zeros(n, dtype=np.int64)
     for row0 in range(0, n, WARP):
         rows = min(WARP, n - row0)
         cnt = [0 if lane < rows else 256 for lane in range(WARP)]
         for want_accepted in (True, False):
-            for b in range(4):
+            for b in range(len(cands)):
                 todo = [r for r in range(WARP) if cnt[r] < 256]
                 if not todo:
                     break
-                ring = np.full(RING_SLOTS * RING_STRIDE, -1, dtype=np.int64)
+                ring = np.full(slots * RING_STRIDE, -1, dtype=np.int64)
                 k = [0] * WARP
                 for lane in todo:
                     used[row0 + lane] += want_accepted
@@ -136,13 +141,13 @@ def _sample_ntt_walk(seeds: torch.Tensor, bound: int):
                         if (d < bound) == want_accepted:
                             off += RING_STRIDE
                     k[lane] = (off - lane) // RING_STRIDE
-                    assert off < lane + RING_SLOTS * RING_STRIDE + RING_STRIDE
+                    assert off < lane + slots * RING_STRIDE + RING_STRIDE
                 for step in range(0, len(todo), 2):
                     written = {}
                     for r in todo[step:step + 2]:
                         at, m = cnt[r], min(k[r], 256 - cnt[r])
                         for t in range(16):
-                            for j in range(7):
+                            for j in range(steps):
                                 if m > 0:
                                     i = min(t + 16 * j, m - 1)
                                     val = ring[i * RING_STRIDE + r]
@@ -156,6 +161,13 @@ def _sample_ntt_walk(seeds: torch.Tensor, bound: int):
                     cnt[lane] += k[lane]
     assert (out >= 0).all(), "a slot never written"
     return out, used
+
+
+def _sample_ntt_walk(seeds: torch.Tensor, bound: int):
+    """K2: sample_rows over SampleNttCands (4 blocks of 112 candidates)."""
+    stream = keccak.sponge_plain(seeds, 168, 0x1F, 672).numpy()
+    return _ring_walk([_block_candidates(stream[:, 168 * b:168 * (b + 1)]) for b in range(4)],
+                      bound)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -198,7 +210,7 @@ def test_k2_fourth_block_and_short_fill_keep_the_reference_order(bound):
 
 
 def test_k2_block_candidates_are_the_blocks_candidates_in_order():
-    """block_candidate c is the block's c-th 12-bit candidate: the two
+    """SampleNttCands::at(s, c) is the block's c-th 12-bit candidate: the two
     halves of each 3-byte triple, in order."""
     block = _seeds(5, 64, 168).numpy()
     t = block.astype(np.int64).reshape(64, 56, 3)
@@ -323,7 +335,7 @@ def test_k3_fused_decode_reads_each_coefficients_bits(eta):
 
 
 def _lazy_mul(a, w, w_shoup):
-    """kem_mulmod_lazy: a * w - umulhi(a, w') * q mod 2^32, in [0, 2q)."""
+    """mulmod_lazy<q>: a * w - umulhi(a, w') * q mod 2^32, in [0, 2q)."""
     r = (a * w - ((a * w_shoup) >> 32) * Q) & M32
     assert (r < 2 * Q).all()
     return r
@@ -443,7 +455,7 @@ def test_fused_ntt_tables_hold_the_zetas_and_their_shoup_companions():
 
 
 def test_shoup_product_and_reduction_exhaustive_over_their_ranges():
-    """kem_mulmod_lazy for every a below the NTT's bound 16q and every zeta,
+    """mulmod_lazy<q> for every a below the NTT's bound 16q and every zeta,
     and kem_reduce for every value below 16q and for 2^20 spread over all
     32-bit values, against %."""
     a = np.arange(16 * Q, dtype=np.int64)
@@ -455,6 +467,227 @@ def test_shoup_product_and_reduction_exhaustive_over_their_ranges():
     x = np.unique(np.concatenate([np.arange(0, 1 << 32, 4099, dtype=np.int64)[:1 << 20],
                                   np.arange(M32 - 4096, M32 + 1, dtype=np.int64)]))
     assert np.array_equal(_reduce(x), x % Q)
+
+
+# --------------------------------------------------------------------------
+# K4
+# --------------------------------------------------------------------------
+
+
+def _layout(f: np.ndarray) -> np.ndarray:
+    """(rows, 256) coefficients -> stage-A registers (rows, 16 lanes, 16)."""
+    regs = np.empty((f.shape[0], 16, 16), dtype=np.int64)
+    for t in range(16):
+        for j in range(16):
+            regs[:, t, j] = f[:, mc.ntt_coefficient(0, t, j)]
+    return regs
+
+
+def _inv_layer(regs, h, w, w_shoup, bias):
+    """ntt_layer<h, true>: a' = a + b, b' = w (b + M - a) up to one q, on
+    inputs below the bias M."""
+    assert (regs >= 0).all() and (regs < bias).all()
+    for j in range(16):
+        if j & h:
+            continue
+        s = mc.ntt_slot(h, j)
+        a, b = regs[:, :, j].copy(), regs[:, :, j + h].copy()
+        regs[:, :, j] = a + b
+        regs[:, :, j + h] = _lazy_mul(b + bias - a, w[:, s], w_shoup[:, s])
+
+
+def _k4_inverse(f: np.ndarray) -> np.ndarray:
+    """kem_ntt_inverse on (rows, 256) canonical coefficients, from the
+    inverse tables: stage B's layers h = 2, 4, 8 (biases q, 2q, 4q), the
+    transpose, stage A's h = 1, 2, 4 (8q, 16q, 32q), then the last layer
+    (64q) with 128^-1 folded in.  Layer k's inputs are asserted below
+    2^(k-1) q, its outputs below 2^k q, and the last's canonical."""
+    uni = mc.NTT_INV_UNIFORM.astype(np.int64)
+    lanes = mc.NTT_INV_LANE_TABLE.astype(np.int64)
+    regs = _relayout(_layout(f), 0, 1)
+    bound = Q
+    for h in (2, 4, 8):
+        _inv_layer(regs, h, lanes[0].T, lanes[1].T, bound)
+        bound *= 2
+        assert (regs < bound).all()
+    regs = _relayout(regs, 1, 0)
+    aw = (np.broadcast_to(uni[0, :15], (16, 15)), np.broadcast_to(uni[1, :15], (16, 15)))
+    for h in (1, 2, 4):
+        _inv_layer(regs, h, aw[0], aw[1], bound)
+        bound *= 2
+        assert (regs < bound).all()
+    assert bound == 64 * Q and 2 * bound < 1 << 19
+    for j in range(8):
+        a, b = regs[:, :, j].copy(), regs[:, :, j + 8].copy()
+        assert (a < bound).all() and (b < bound).all()
+        for dst, x, slot in ((j, a + b, 15), (j + 8, b + bound - a, 0)):
+            r = _lazy_mul(x, uni[0, slot], uni[1, slot])
+            regs[:, :, dst] = np.minimum(r, (r - Q) & M32)
+    assert (regs < Q).all()
+    return _unlayout(regs)
+
+
+def _k4_inputs(seed: int) -> np.ndarray:
+    """Random canonical rows, rows of 0 and of q - 1, and rows of q - 1
+    and 0 in runs of 2..128 coefficients, which put one layer's lazy values
+    at their worst each (the runs of 128: the last layer's a - b at -64q +
+    64, which a bias of 32q would wrap)."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(256)
+    stripes = [np.where((i // run) % 2 == side, Q - 1, 0)
+               for run in (2, 4, 8, 16, 32, 64, 128) for side in (0, 1)]
+    return np.concatenate([rng.integers(0, Q, size=(6, 256)), np.zeros((1, 256), np.int64),
+                           np.full((1, 256), Q - 1), np.stack(stripes)])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k4_schedule_matches_ntt_plain_and_ntt_inv_plain_within_its_bounds(seed):
+    """K4 = kem_ntt_forward / kem_ntt_inverse on coefficients loaded from
+    memory, with the tables the wrapper uploads, both directions."""
+    f = _k4_inputs(seed)
+    t = torch.from_numpy(f.astype(np.int32))
+    assert np.array_equal(_unlayout(_fused_ntt(_layout(f))), mlkem.ntt_plain(t).numpy())
+    assert np.array_equal(_k4_inverse(f), mlkem.ntt_inv_plain(t).numpy())
+
+
+def test_k4_inverse_needs_the_last_layers_full_bias():
+    """The striped rows of runs of 128 drive b - a to -(64q - 64) at the
+    last layer: its bias 64q keeps b + M - a positive, half of it would
+    not."""
+    f = _k4_inputs(0)[-2:]  # runs of 128, both phases
+    regs = _relayout(_layout(f), 0, 1)
+    uni, lanes = mc.NTT_INV_UNIFORM.astype(np.int64), mc.NTT_INV_LANE_TABLE.astype(np.int64)
+    bound = Q
+    for h in (2, 4, 8):
+        _inv_layer(regs, h, lanes[0].T, lanes[1].T, bound)
+        bound *= 2
+    regs = _relayout(regs, 1, 0)
+    for h in (1, 2, 4):
+        _inv_layer(regs, h, np.broadcast_to(uni[0, :15], (16, 15)),
+                   np.broadcast_to(uni[1, :15], (16, 15)), bound)
+        bound *= 2
+    gap = (regs[:, :, :8] - regs[:, :, 8:]).max()
+    assert gap == 64 * (Q - 1) and 32 * Q < gap < bound
+
+
+def test_k4_inverse_tables_hold_the_zetas_with_128_inverse_folded_in():
+    """Stage A's slot 0 (the length-128 layer) holds zeta 128^-1, slot 15
+    128^-1 = 3303, slots 1-14 the plain zetas; stage B's every (slot, lane)
+    its plain zeta; each beside its Shoup companion; the forward tables as
+    K3 uploads them."""
+    z = np.asarray(ZETAS, dtype=np.int64)
+    uni, lanes = mc.NTT_INV_UNIFORM.astype(np.int64), mc.NTT_INV_LANE_TABLE.astype(np.int64)
+    idx_a = mc.NTT_INV_ZETA_INDEX_A
+    assert N_INV == 3303 and 128 * N_INV % Q == 1
+    assert uni[0, 0] == z[idx_a[0]] * N_INV % Q and idx_a[0] == 1
+    assert np.array_equal(uni[0, 1:15], z[idx_a[1:]]) and uni[0, 15] == N_INV
+    assert np.array_equal(lanes[0], z[mc.NTT_INV_ZETA_INDEX_B])
+    for table in (uni, lanes):
+        assert np.array_equal(table[1], (table[0] << 32) // Q)
+    init_uni, init_lanes = mc._INIT_UNIFORM, mc._INIT_LANES
+    assert init_uni.shape == (2, 2, 16) and init_lanes.shape == (2, 2, 7, 16)
+    assert np.array_equal(init_uni[0], mc.NTT_UNIFORM) and np.array_equal(init_uni[1],
+                                                                          mc.NTT_INV_UNIFORM)
+    assert np.array_equal(init_lanes[0], mc.NTT_LANE_TABLE)
+    assert np.array_equal(init_lanes[1], mc.NTT_INV_LANE_TABLE)
+
+
+@pytest.mark.parametrize("stage", [0, 1], ids=["A", "B"])
+def test_k4_inverse_layers_take_the_plain_inverse_zetas(stage):
+    """Every butterfly of an inverse layer pairs the plain layer's two
+    coefficients inside one lane, and its slot names the zeta the plain
+    inverse takes for its group: 2 * groups - 1 - g."""
+    for h in mc.NTT_HALVES[stage]:
+        length = h * (16 if stage == 0 else 1)
+        groups = 256 // (2 * length)
+        pairs = set()
+        for t in range(16):
+            for j in range(16):
+                if j & h:
+                    continue
+                i0 = mc.ntt_coefficient(stage, t, j)
+                pairs.add((i0, mc.ntt_coefficient(stage, t, j + h)))
+                s = mc.ntt_slot(h, j)
+                k = mc.NTT_INV_ZETA_INDEX_A[s] if stage == 0 else mc.NTT_INV_ZETA_INDEX_B[s, t]
+                assert k == 2 * groups - 1 - i0 // (2 * length)
+        assert pairs == {(g * 2 * length + i, g * 2 * length + i + length)
+                         for g in range(groups) for i in range(length)}
+
+
+# --------------------------------------------------------------------------
+# K5 (ML-DSA RejNTTPoly on K2's ring)
+# --------------------------------------------------------------------------
+
+
+K5_SLOTS = 56
+
+
+def _k5_candidates(block: np.ndarray) -> np.ndarray:
+    """RejNttCands::at: (rows, 168) squeezed bytes -> (rows, 56), candidate
+    c from bits [24 c, 24 c + 23) of the 64-bit lanes (the ones at bit 48
+    and 56 of a lane from two lanes)."""
+    lanes = np.ascontiguousarray(block).view("<u8")
+    out = np.empty((block.shape[0], K5_SLOTS), dtype=np.int64)
+    for c in range(K5_SLOTS):
+        w, sh = (24 * c) >> 6, (24 * c) & 63
+        v = lanes[:, w] >> np.uint64(sh)
+        if sh > 40:
+            v = v | (lanes[:, w + 1] << np.uint64(64 - sh))
+        out[:, c] = (v & np.uint64(0x7FFFFF)).astype(np.int64)
+    return out
+
+
+def _k5_walk(seeds: torch.Tensor, bound: int):
+    """K5: sample_rows over RejNttCands (7 blocks of 56 candidates)."""
+    stream = keccak.sponge_plain(seeds, 168, 0x1F, 1176).numpy()
+    return _ring_walk([_k5_candidates(stream[:, 168 * b:168 * (b + 1)]) for b in range(7)],
+                      bound)
+
+
+def test_k5_block_candidates_are_the_blocks_triples_in_order():
+    block = _seeds(6, 64, 168).numpy()
+    t = block.astype(np.int64).reshape(64, 56, 3)
+    want = t[..., 0] | (t[..., 1] << 8) | ((t[..., 2] & 0x7F) << 16)
+    assert np.array_equal(_k5_candidates(block), want)
+    assert {(24 * c) & 63 for c in range(K5_SLOTS) if (24 * c) & 63 > 40} == {48, 56}
+
+
+def test_k5_compaction_matches_rej_ntt_poly_plain():
+    """A ragged last warp; every row squeezes 5 blocks (224 candidates in
+    4), and at q / 2^23 none needs a 6th."""
+    seeds = _seeds(40, 3 * WARP + 9, 34)
+    got, used = _k5_walk(seeds, mldsa.Q)
+    assert np.array_equal(got, mldsa.rej_ntt_poly_plain(seeds).numpy())
+    assert (used == 5).all()
+
+
+@pytest.mark.parametrize("bound", [7_600_000, 6_000_000, 5_000_000, 2_000_000])
+def test_k5_later_blocks_and_short_fill_keep_the_reference_order(bound):
+    """A lowered acceptance bound sends rows to the 6th block (7,600,000:
+    most rows), to the 7th (6,000,000: most rows) and to the short fill of
+    rejected candidates (5,000,000: most rows; 2,000,000: all), against the
+    plain in-order compaction at that bound."""
+    seeds = _seeds(bound % 1009, 2 * WARP + 11, 34)
+    got, used = _k5_walk(seeds, bound)
+    buf = keccak.sponge_plain(seeds, 168, 0x1F, 1176).to(torch.int64).reshape(len(seeds), -1, 3)
+    cand = buf[..., 0] | (buf[..., 1] << 8) | ((buf[..., 2] & 0x7F) << 16)
+    assert np.array_equal(got, keccak.compact_accepted(cand, cand < bound).numpy())
+    short = ((cand < bound).sum(-1) < 256).numpy()
+    assert (used >= 5).all() and (used[short] == 7).all()
+    most = {7_600_000: (used == 6) & ~short, 6_000_000: (used == 7) & ~short,
+            5_000_000: short, 2_000_000: short}[bound]
+    assert most.sum() > len(seeds) // 2 and (bound > 2_000_000 or short.all())
+
+
+def test_k5_ring_reads_hit_16_banks_a_half_warp():
+    """flush_ring over uint32 slots: a half-warp reads slot t + 16 j of row
+    r at word 33 (t + 16 j) + r, 16 consecutive banks; four steps cover the
+    56 slots."""
+    for r in range(WARP):
+        for j in range(-(-K5_SLOTS // 16)):
+            banks = [(RING_STRIDE * (t + 16 * j) + r) % 32 for t in range(16)]
+            assert len(set(banks)) == 16 and banks == [(banks[0] + t) % 32 for t in range(16)]
+    assert -(-K5_SLOTS // 16) == 4 and 16 * 4 >= K5_SLOTS
 
 
 # --------------------------------------------------------------------------
