@@ -32,8 +32,10 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              while the GPU sleeps; K11 beside torch.searchsorted); K3 also
              at eta 2 over 4096 and 16384 rows (the serve shape, and e1 + e2
              of one encaps batch in one launch), K4's inverse also at 4096
-             polynomials (the flagship's v) and K5 also at 122880 rows
-             (ExpandA of 4096 ML-DSA-65 keys);
+             polynomials (the flagship's v), K5 also at 122880 rows
+             (ExpandA of 4096 ML-DSA-65 keys), and K6 at eta 4 and 2 over
+             11264 rows (ExpandS of 1024 keys) and at eta 4 over 90112
+             (ExpandS of 8192 keys, BASELINE.json config 4's batch);
 3. kat       tests/vectors/mlkem_768.json through keygen/encaps/decaps,
              tests/vectors/mldsa_65.json through keygen/sign/verify and the
              six tests/vectors/frodo_*.json through keygen/encaps/decaps on
@@ -101,8 +103,8 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              verify batches, one 4096 x 4 KiB seal batch, one
              FrodoKEM-640-SHAKE encaps batch of 1024 keys, one 128f sign
              batch of 1024 and one 128s verify batch of 2048: device time
-             per kernel (K1's, K7's, K2's, K3's, K4's and K5's apart),
-             launches, and
+             per kernel (K1's, K7's, K2's, K3's, K4's, K5's and K6's
+             apart), launches, and
              the device busy share of each window from its trace (after
              the counts are read).
 
@@ -620,6 +622,28 @@ def k4_k5_cases(torch, np, rng, keccak, mlkem, mlkem_cuda, mldsa, mldsa_cuda) ->
     return cases
 
 
+def k6_cases(torch, np, rng, keccak, mldsa, mldsa_cuda) -> list:
+    """K6 at ExpandS of the ML-DSA-65 keygen batch (11 rows a key) at both
+    etas, and at eta 4 over ExpandS of 8,192 keys (BASELINE.json config
+    4's batch: 90,112 rows, more warps than the card keeps resident).  The
+    untagged name is the one the kernels line sums."""
+    dev = torch.device("cuda")
+    p = mldsa.MLDSA65
+    cases = []
+    for eta, keys in ((4, KEYGEN_KEYS), (2, KEYGEN_KEYS), (4, 8 * KEYGEN_KEYS)):
+        rows = keys * (p.k + p.l)
+        seeds = torch.from_numpy(rng.integers(0, 256, size=(rows, 66), dtype=np.uint8)).to(dev)
+        tag = "" if eta == p.eta else f"[eta={eta}]"
+        tag += "" if keys == KEYGEN_KEYS else f"[{rows}]"
+        cases.append((f"mldsa_rej_bounded{tag}", f"{SRC}/sig/mldsa_pallas.py:130",
+                      lambda e=eta, x=seeds: mldsa_cuda.rej_bounded(x, e),
+                      lambda e=eta, x=seeds: mldsa.rej_bounded_poly_plain(x, e),
+                      seeds.numel() + 4 * 256 * rows,
+                      rej_bounded_perms(torch, keccak, seeds, eta) * KECCAK_F_OPS,
+                      f"eta={eta}: ({rows}, 66) -> ({rows}, 256)"))
+    return cases
+
+
 def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mldsa_cuda,
                   chacha, chacha_cuda, frodo, frodo_cuda, sha2, sha2_ops, int_rate) -> list:
     dev = torch.device("cuda")
@@ -632,18 +656,7 @@ def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mlds
     cases = k1_k7_cases(torch, np, rng, keccak, keccak_cuda, mldsa, mldsa_cuda)
     cases += mlkem_sampler_cases(torch, np, rng, keccak, mlkem, mlkem_cuda)
     cases += k4_k5_cases(torch, np, rng, keccak, mlkem, mlkem_cuda, mldsa, mldsa_cuda)
-    # K6 at ExpandS of the keygen batch (11 rows a key), both etas
-    p = mldsa.MLDSA65
-    n_s = KEYGEN_KEYS * (p.k + p.l)
-    s_seeds = u8(n_s, 66)
-    for eta in (4, 2):
-        cases.append(("mldsa_rej_bounded" if eta == p.eta else f"mldsa_rej_bounded[eta={eta}]",
-                      f"{SRC}/sig/mldsa_pallas.py:130",
-                      lambda e=eta: mldsa_cuda.rej_bounded(s_seeds, e),
-                      lambda e=eta: mldsa.rej_bounded_poly_plain(s_seeds, e),
-                      s_seeds.numel() + 4 * 256 * n_s,
-                      rej_bounded_perms(torch, keccak, s_seeds, eta) * KECCAK_F_OPS,
-                      f"eta={eta}: ({n_s}, 66) -> ({n_s}, 256)"))
+    cases += k6_cases(torch, np, rng, keccak, mldsa, mldsa_cuda)
     # K8 at the 4 KiB seal batch of phase 9 and at the 64 KiB max_len
     for tag, blocks in (("", 65), ("[64KiB]", 1025)):
         states = torch.from_numpy(rng.integers(-2**31, 2**31, size=(BATCH * blocks, 12),
@@ -1583,13 +1596,14 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
     ours_us = sum(v for k, v in device_us.items() if any(o in k for o in ours))
     # K1 (both paths, both entries), K7 (mldsa.cu's ntt_kernel; mlkem.cu's
     # K4 is kem_ntt_kernel, which "::ntt_kernel<" does not match), K2, K3
-    # and K4 (every instance), K5
+    # and K4 (every instance), K5, K6 (both etas)
     redesigned = {"k1": lambda k: "::sponge_rows_kernel<" in k or "::sponge_split_kernel<" in k,
                   "k7": lambda k: "::ntt_kernel<" in k and k.endswith(", long)"),
                   "k2": lambda k: "::sample_ntt_kernel(" in k,
                   "k3": lambda k: "::prf_cbd_kernel<" in k,
                   "k4": lambda k: "::kem_ntt_kernel<" in k,
-                  "k5": lambda k: "::rej_ntt_kernel(" in k}
+                  "k5": lambda k: "::rej_ntt_kernel(" in k,
+                  "k6": lambda k: "::rej_bounded_kernel<" in k}
     mine = {name: [k for k in device_us if hit(k)] for name, hit in redesigned.items()}
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:12]
     out = {"batches": reps, "window_ms_per_batch": window_us / reps / 1e3,

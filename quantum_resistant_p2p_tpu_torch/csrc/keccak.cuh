@@ -92,78 +92,4 @@ __device__ __forceinline__ void keccak_f1600(uint64_t s[25]) {
   }
 }
 
-// Lane `base / 8` of the padded message: bytes of `msg` below `len`, the
-// domain byte at `len`, 0x80 in the last byte of the last block.
-__device__ __forceinline__ uint64_t padded_lane(const uint8_t* __restrict__ msg,
-                                                int len, int base, uint8_t ds,
-                                                int padded_len) {
-  uint64_t lane = 0;
-  if (base + 8 <= len) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) lane |= (uint64_t)__ldg(msg + base + j) << (8 * j);
-    return lane;
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int idx = base + j;
-    uint64_t byte = idx < len ? (uint64_t)__ldg(msg + idx) : 0;
-    if (idx == len) byte ^= ds;
-    if (idx == padded_len - 1) byte ^= 0x80;
-    lane |= byte << (8 * j);
-  }
-  return lane;
-}
-
-// Zero the state, absorb a message of LEN < RATE bytes (one padded block)
-// and permute: the seed absorb of every XOF/PRF call in ML-KEM.
-template <int RATE, int LEN>
-__device__ __forceinline__ void absorb_short(uint64_t s[25],
-                                             const uint8_t* __restrict__ msg,
-                                             uint8_t ds) {
-  static_assert(LEN < RATE, "one-block absorb only");
-#pragma unroll
-  for (int i = 0; i < 25; ++i) s[i] = 0;
-#pragma unroll
-  for (int w = 0; w < RATE / 8; ++w) s[w] = padded_lane(msg, LEN, 8 * w, ds, RATE);
-  keccak_f1600(s);
-}
-
-// One whole sponge: absorb in_len bytes of msg at RATE bytes per block
-// (domain byte ds, pad10*1), squeeze out_len bytes into dst.  No limit on
-// either length.
-template <int RATE>
-__device__ __forceinline__ void sponge(const uint8_t* __restrict__ msg, int in_len,
-                                       uint8_t ds, uint8_t* __restrict__ dst,
-                                       int out_len) {
-  uint64_t s[25];
-#pragma unroll
-  for (int i = 0; i < 25; ++i) s[i] = 0;
-  const int n_abs = in_len / RATE + 1;
-  const int padded_len = n_abs * RATE;
-  for (int blk = 0; blk < n_abs; ++blk) {
-#pragma unroll
-    for (int w = 0; w < RATE / 8; ++w) {
-      s[w] ^= padded_lane(msg, in_len, blk * RATE + 8 * w, ds, padded_len);
-    }
-    keccak_f1600(s);
-  }
-  for (int off = 0; off < out_len; off += RATE) {
-    if (off) keccak_f1600(s);
-#pragma unroll
-    for (int w = 0; w < RATE / 8; ++w) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int idx = off + 8 * w + j;
-        if (idx < out_len) dst[idx] = (uint8_t)(s[w] >> (8 * j));
-      }
-    }
-  }
-}
-
-// Byte p of the rate part of the state (little-endian lanes).  Callers pass
-// p from fully unrolled loops, so the lane index folds to a register.
-__device__ __forceinline__ uint32_t state_byte(const uint64_t s[25], int p) {
-  return (uint32_t)(s[p >> 3] >> (8 * (p & 7))) & 0xFFu;
-}
-
 }  // namespace qrp

@@ -9,20 +9,23 @@
 // 1024-wide bitonic networks; a thread that appends them as it parses gets
 // that order for free, and stops squeezing once it has 256.  What bounds
 // K5 and K6 is integer throughput: ExpandA needs 5 Keccak-f per polynomial
-// and ExpandS 2-3 (4,800 SASS instructions each on the integer pipe),
+// and ExpandS 1-3 (4,800 SASS instructions each on the integer pipe),
 // against 34 or 66 seed bytes in and 1 KB out.
 //
-// K5 runs on K2's design (warp_sampler.cuh, mlkem.cu): one warp a block,
-// one sponge a thread with its state in registers (keccak.cuh), 32 rows a
-// warp, the seeds staged coalesced through shared memory; after each
-// permutation each thread appends its block's 56 candidates to its column
-// of a 56-slot uint32 ring (7,392 B a warp) and the warp copies the 32 new
-// runs out, two rows a step, with unconditional stores; a row permutes a
-// block only while it lacks coefficients.  With no tile, registers set how
-// many warps an SM keeps.  The first design built each polynomial in a
-// 33.8 KB shared tile column (tile.cuh), reading each candidate byte by
-// byte, which held an SM to 6 one-warp blocks: 1.5 warps a scheduler
-// cannot hide a Keccak-f chain's latency.  K6 still does so.
+// K5 and K6 run on K2's design (warp_sampler.cuh, mlkem.cu): one warp a
+// block, one sponge a thread with its state in registers (keccak.cuh), 32
+// rows a warp, the seeds staged coalesced through shared memory; after
+// each permutation each thread appends its block's candidates to its
+// column of the warp's ring, and the warp copies the runs out, two rows a
+// step, with unconditional stores; a row permutes a block only while it
+// lacks coefficients.  K5 appends 56 23-bit candidates to a 56-slot
+// uint32 ring (7,392 B a warp) and copies each block's runs out after it.
+// K6 appends 272 nibbles to a 272-slot uint8 ring (8,976 B), which holds a
+// row's whole run, so the warp copies each row out once a pass, a full row
+// in 16-byte stores.  With no tile, registers set how many warps an SM
+// keeps.  The first design built each polynomial in a 33.8 KB shared tile
+// column, reading each candidate byte by byte, which held an SM to 6
+// one-warp blocks.
 //
 // K7 gives each polynomial to a half-warp, 16 coefficients a lane in
 // registers, 16 polynomials a block of 256 threads (ntt_halfwarp.cuh holds
@@ -50,11 +53,6 @@
 
 namespace {
 
-using qrp::kN;
-using qrp::kPolys;
-using qrp::kTileRows;
-using qrp::store_tile;
-
 __global__ void __launch_bounds__(qrp::kWarpRows)
     rej_ntt_kernel(const uint8_t* __restrict__ seeds, int32_t* __restrict__ out,
                    int64_t n) {
@@ -64,17 +62,13 @@ __global__ void __launch_bounds__(qrp::kWarpRows)
 }
 
 template <int ETA>
-__global__ void __launch_bounds__(kPolys)
+__global__ void __launch_bounds__(qrp::kWarpRows)
     rej_bounded_kernel(const uint8_t* __restrict__ seeds, int32_t* __restrict__ out,
                        int64_t n) {
-  __shared__ int32_t tile[kN * kTileRows];
-  const int64_t row0 = (int64_t)blockIdx.x * kPolys;
-  const int64_t row = row0 + threadIdx.x;
-  if (row < n) {
-    qrp::rej_bounded_poly<ETA>(seeds + row * qrp::kRejBoundedSeedLen, tile + threadIdx.x);
-  }
-  __syncthreads();
-  store_tile(tile, out, row0, n);
+  using Cands = qrp::RejBoundedCands<ETA>;
+  using Slot = typename Cands::Value;
+  __shared__ __align__(16) Slot ring[Cands::kSlots * qrp::kRingStride];
+  qrp::sample_rows<Cands>(seeds, out, n, ring);
 }
 
 template <bool INVERSE>
@@ -102,7 +96,7 @@ __global__ void __launch_bounds__(qrp::kNttThreads, 2)
 // One wave of K7 blocks on each device, set by qrp_mldsa_init.
 qrp::NttWaves g_ntt_wave;
 
-unsigned blocks_for(int64_t n) { return (unsigned)((n + kPolys - 1) / kPolys); }
+unsigned blocks_for(int64_t n) { return (unsigned)((n + qrp::kWarpRows - 1) / qrp::kWarpRows); }
 
 }  // namespace
 
@@ -135,8 +129,8 @@ int qrp_mldsa_rej_bounded(const void* seeds, void* out, int64_t n, int eta, void
   const auto* src = static_cast<const uint8_t*>(seeds);
   auto* dst = static_cast<int32_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  if (eta == 2) rej_bounded_kernel<2><<<blocks_for(n), kPolys, 0, st>>>(src, dst, n);
-  else if (eta == 4) rej_bounded_kernel<4><<<blocks_for(n), kPolys, 0, st>>>(src, dst, n);
+  if (eta == 2) rej_bounded_kernel<2><<<blocks_for(n), qrp::kWarpRows, 0, st>>>(src, dst, n);
+  else if (eta == 4) rej_bounded_kernel<4><<<blocks_for(n), qrp::kWarpRows, 0, st>>>(src, dst, n);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -5,17 +5,15 @@
 // stay inside int32.  Here every zeta product is Shoup's modular product
 // (ntt_halfwarp.cuh): each zeta w comes with w' = floor(w * 2^32 / q), and
 // a * w mod q costs one high multiply and two low multiplies, all in 32
-// bits, with a result in [0, 2q) for any 32-bit a.  K5 runs on the warp
-// sampler that K2 shares (warp_sampler.cuh); a polynomial built by one K6
-// thread lives in a shared-memory tile column: coefficient i at
-// col[i * kTileRows] (see tile.cuh).
+// bits, with a result in [0, 2q) for any 32-bit a.  K5 and K6 run on the
+// warp sampler that K2 shares (warp_sampler.cuh), each through a traits
+// class of its candidates.
 #pragma once
 
 #include <stdint.h>
 
 #include "keccak.cuh"
 #include "ntt_halfwarp.cuh"
-#include "tile.cuh"
 #include "warp_sampler.cuh"
 
 namespace qrp {
@@ -66,42 +64,38 @@ struct RejNttCands {
 // ---------------------------------------------------------------------------
 // RejBoundedPoly (K6).  SHAKE-256(rho' || n) and its first 512 squeezed
 // bytes (3 whole blocks and 104 bytes of a fourth): 1024 nibbles, low
-// nibble of each byte first.  Nibbles below the bound (15 for eta = 2, 9
-// for eta = 4) are appended raw, in order, up to 256; the eta map stays
-// with the caller.  When fewer than 256 of the 1024 pass, a second pass
-// appends the rejected nibbles in order, which is what the reference's
-// key reject << 16 | index << 4 | nibble puts in the tail.
+// nibble of each byte first, 272 a block (nibble c is bits [4 c, 4 c + 4)
+// of the block) and 208 of the fourth.  Nibbles below the bound (15 for
+// eta = 2, 9 for eta = 4) are appended raw, in order, up to 256; the eta
+// map stays with the caller.  When fewer than 256 of the 1024 pass, a
+// second pass appends the rejected nibbles in order, which is what the
+// reference's key reject << 16 | index << 4 | nibble puts in the tail
+// (warp_sampler.cuh: sample_rows; neither pass reads past nibble 1023).
+// Every row squeezes at least one block and two hold 544 nibbles; eta 4
+// accepts 9 of 16, so most rows take two, and eta 2 15 of 16, so about
+// half take one.  A slot is one byte: the ring is 8,976 B a warp (16-bit
+// slots would take 17,952 B and hold an SM to 12 warps).  272 slots hold
+// a row's whole run (256, and 16 past it for the clamp of append_block),
+// so a pass appends its blocks to one run a row and the warp copies the
+// rows out once, a full row in 16-byte stores (warp_sampler.cuh).
 // ---------------------------------------------------------------------------
 
-constexpr int kRejBoundedRate = 136;
-constexpr int kRejBoundedSeedLen = 66;
-constexpr int kRejBoundedBytes = 512;
-
 template <int ETA>
-__device__ __forceinline__ void rej_bounded_poly(const uint8_t* __restrict__ seed,
-                                                 int32_t* col) {
+struct RejBoundedCands {
   static_assert(ETA == 2 || ETA == 4, "ML-DSA uses eta 2 and 4");
-  constexpr uint32_t kBound = ETA == 2 ? 15 : 9;
-  int cnt = 0;
-  for (int pass = 0; pass < 2 && cnt < kN; ++pass) {
-    const bool want_accepted = pass == 0;
-    uint64_t s[25];
-    absorb_short<kRejBoundedRate, kRejBoundedSeedLen>(s, seed, 0x1F);
-    for (int blk = 0; blk * kRejBoundedRate < kRejBoundedBytes && cnt < kN; ++blk) {
-      if (blk) keccak_f1600(s);
-      const int n_bytes = min(kRejBoundedRate, kRejBoundedBytes - blk * kRejBoundedRate);
-#pragma unroll
-      for (int p = 0; p < kRejBoundedRate; ++p) {
-        if (p < n_bytes) {
-          const uint32_t b = state_byte(s, p);
-          const uint32_t z0 = b & 0xF, z1 = b >> 4;
-          if ((z0 < kBound) == want_accepted && cnt < kN) col[kTileRows * cnt++] = (int32_t)z0;
-          if ((z1 < kBound) == want_accepted && cnt < kN) col[kTileRows * cnt++] = (int32_t)z1;
-        }
-      }
-    }
+  using Value = uint8_t;
+  static constexpr int kSlots = 2 * 136;  // 272 nibbles a block
+  static constexpr int kLastSlots = 2 * (512 - 3 * 136);  // 208 of the fourth
+  static constexpr int kBlocks = 4;
+  static constexpr int kRate = 136;
+  static constexpr int kSeedLen = 66;
+  static constexpr uint32_t kBound = ETA == 2 ? 15 : 9;
+  // Nibble c of the squeezed block in s: c is a compile-time constant, so
+  // the lane index and shift fold away.
+  static __device__ __forceinline__ uint32_t at(const uint64_t s[25], int c) {
+    return (uint32_t)(s[c >> 4] >> (4 * (c & 15))) & 0xFu;
   }
-}
+};
 
 // ---------------------------------------------------------------------------
 // NTT mod q (K7), the layer order of sig/mldsa.py:ntt / ntt_inv, on

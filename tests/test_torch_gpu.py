@@ -323,6 +323,26 @@ def test_mldsa_rej_ntt_at_ragged_rows_from_unaligned_seeds(gpu, rows, offset):
     assert mldsa_cuda.rej_ntt.launches == before + 1
 
 
+@pytest.mark.parametrize("eta", [2, 4])
+@pytest.mark.parametrize("rows,offset", [(1, 1), (45, 3), (4099, 2), (90_113, 1)])
+def test_mldsa_rej_bounded_at_ragged_rows_from_unaligned_seeds(gpu, eta, rows, offset):
+    """K6 over a seed view that starts an odd number of bytes past an
+    aligned address, at row counts that leave the last warp ragged, up to
+    more warps than an H100 keeps resident at once (8,192 ML-DSA-65 keys'
+    ExpandS is 90,112 rows); no rows, no launch."""
+    buf = _u8(rows + offset + eta, rows * 66 + 4).to(gpu)
+    seeds = buf[offset:offset + rows * 66].view(rows, 66)
+    assert seeds.data_ptr() % 4 == offset % 4
+    before = mldsa_cuda.rej_bounded.launches
+    got = mldsa_cuda.rej_bounded(seeds, eta)
+    torch.cuda.synchronize()
+    assert mldsa_cuda.rej_bounded.launches == before + 1
+    assert torch.equal(got, mldsa.rej_bounded_poly_plain(seeds.clone(), eta))
+    empty = torch.empty((0, 66), dtype=torch.uint8, device=gpu)
+    assert mldsa_cuda.rej_bounded(empty, eta).shape == (0, 256)
+    assert mldsa_cuda.rej_bounded.launches == before + 1
+
+
 def test_chacha_kernel_matches_plain(gpu):
     states = _u8(121, 5000, 48).view(torch.int32).to(gpu)
     before = chacha_cuda.chacha_blocks.launches

@@ -1,7 +1,7 @@
 """The schedules of kernels K2 (SampleNTT), K3 (PRF + CBD, with and
 without the fused NTT mod 3329), K4 (the NTT mod 3329, forward and
-inverse) and K5 (ML-DSA's RejNTTPoly, on K2's ring), held to the plain
-versions on the CPU.
+inverse), K5 (ML-DSA's RejNTTPoly, on K2's ring) and K6 (ML-DSA's
+RejBoundedPoly, on K2's ring), held to the plain versions on the CPU.
 
 The CUDA kernels cannot run here, but what they compute can be walked in
 numpy step by step as ``csrc/warp_sampler.cuh``, ``csrc/ntt_halfwarp.cuh``,
@@ -63,29 +63,43 @@ def _row_six_bytes(words: np.ndarray, lane: int):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("length", [33, 34])
+def _absorb_staged_lanes(sw: np.ndarray, skew: int, lane: int, length: int) -> np.ndarray:
+    """absorb_staged's seed lanes: staged_seed_words(length) words from word
+    (skew + lane * length) / 4 on, seed word j the funnel of words j and
+    j + 1, whole 64-bit lanes from pairs of them, then the lane of the last
+    bytes masked with the domain byte 0x1F after them.  Returns the lanes
+    up to that one as bytes."""
+    n_words = (length + 3) // 4 + 1
+    full, tail = length // 8, length % 8
+    o = skew + lane * length
+    w = sw[(o >> 2):(o >> 2) + n_words]
+    sh = 8 * (o & 3)
+    x = [_funnel_r(w[k], w[k + 1], sh) for k in range(n_words - 1)] + [0, 0]
+    lanes = [x[2 * k] | (x[2 * k + 1] << 32) for k in range(full + 1)]
+    lanes[full] = (lanes[full] & ((1 << (8 * tail)) - 1)) | (0x1F << (8 * tail))
+    return np.array(lanes, dtype=np.uint64).view(np.uint8)
+
+
+@pytest.mark.parametrize("length", [33, 34, 35, 36, 37, 38, 39, 66])
 @pytest.mark.parametrize("skew", [0, 1, 2, 3])
 def test_staged_seed_lanes_are_the_padded_block(length, skew):
     """stage_seeds + absorb_staged: a warp's rows start `skew` bytes into the
-    first aligned word; lane r's first five 64-bit lanes, assembled from 10
-    staged words by funnel shifts, are its seed, the domain byte and zeros,
-    and the staged words hold every byte of the rows and no word beyond."""
+    first aligned word; lane r's seed lanes, assembled from the staged words
+    by funnel shifts, are its seed, the domain byte and zeros, and the
+    staged words hold every byte of the rows and no word beyond.  33 and 34
+    are K3's and K2/K5's seeds, 66 K6's (8 whole lanes and 2 bytes); the
+    words lane 31 reads stay inside sample_rows' bound on the ring."""
     rows = _seeds(skew, WARP, length).numpy()
     words = -(-(skew + WARP * length) // 4)
     buf = np.zeros(4 * (words + 16), dtype=np.uint8)  # + the words lane 31 reads past the rows
     buf[skew:skew + rows.size] = rows.reshape(-1)
     sw = _words(buf[None])[0]
     assert 4 * words - (skew + rows.size) < 4 and skew < 4
+    last_read = (skew + (WARP - 1) * length) // 4 + (length + 3) // 4 + 1
+    assert last_read <= (3 + WARP * length + 3) // 4 + 1  # sample_rows' static_assert
     for lane in range(WARP):
-        o = skew + lane * length
-        w = sw[(o >> 2):(o >> 2) + 10]
-        sh = 8 * (o & 3)
-        lanes = [_funnel_r(w[2 * k], w[2 * k + 1], sh) | (_funnel_r(w[2 * k + 1], w[2 * k + 2], sh)
-                                                          << 32) for k in range(4)]
-        tail = _funnel_r(w[8], w[9], sh) & ((1 << (8 * (length - 32))) - 1)
-        lanes.append(tail | (0x1F << (8 * (length - 32))))
-        got = np.array(lanes, dtype=np.uint64).view(np.uint8)
-        want = np.zeros(40, dtype=np.uint8)
+        got = _absorb_staged_lanes(sw, skew, lane, length)
+        want = np.zeros(8 * (length // 8 + 1), dtype=np.uint8)
         want[:length], want[length] = rows[lane], 0x1F
         assert np.array_equal(got, want)
 
@@ -112,14 +126,68 @@ def _block_candidates(block: np.ndarray) -> np.ndarray:
     return out
 
 
-def _ring_walk(cands: list, bound: int):
+def _append_block(ring: np.ndarray, lane: int, cands_row, bound: int, want_accepted: bool,
+                  last: bool, last_slots: int, first: int = 0, clamp: int | None = None) -> int:
+    """append_block: store each candidate at ring column `lane`'s next slot,
+    from slot `first` on, and move on only past a wanted one; in the `last`
+    block no candidate from last_slots on is wanted; with a `clamp` (a row
+    ring) the next slot is clamped to it every 16 candidates.  Returns the
+    slot after the last wanted candidate."""
+    nxt = first
+    for c, d in enumerate(cands_row):
+        if clamp is not None and c % 16 == 0:
+            nxt = min(nxt, clamp)
+        ring[lane + RING_STRIDE * nxt] = d
+        if (d < bound) == want_accepted and (c < last_slots or not last):
+            nxt += 1
+    assert lane + RING_STRIDE * nxt < len(ring) + RING_STRIDE
+    return nxt
+
+
+def _flush_slots(t: int, m: int, steps: int, whole_rows: bool = False) -> list:
+    """The ring slots lane t of a half-warp copies for a run of m: slot
+    t + 16 j for each of the ring's steps, clamped to m - 1; a ring that
+    holds whole rows copies a full one (m = 256) as slots 64 j + 4 t ..
+    64 j + 4 t + 3, one 16-byte store a step."""
+    if whole_rows and m == 256:
+        return [64 * j + 4 * t + i for j in range(4) for i in range(4)]
+    return [min(t + 16 * j, m - 1) for j in range(steps)] if m > 0 else []
+
+
+def _flush(ring: np.ndarray, out: np.ndarray, row0: int, rows: list, run: list, at: list,
+           steps: int, whole_rows: bool = False) -> None:
+    """flush_ring: rows two at a time, a half-warp each, m = min(run, 256 -
+    at) slots of a row copied to positions at.. (_flush_slots); every slot
+    written once, with one value."""
+    for step in range(0, len(rows), 2):
+        written = {}
+        for r in rows[step:step + 2]:
+            m = min(run[r], 256 - at[r])
+            for t in range(16):
+                for i in _flush_slots(t, m, steps, whole_rows):
+                    val = ring[i * RING_STRIDE + r]
+                    assert written.setdefault((r, at[r] + i), val) == val
+            got = sorted(i for (rr, i) in written if rr == r)
+            assert got == list(range(at[r], at[r] + max(m, 0)))
+        for (r, pos), val in written.items():
+            assert out[row0 + r, pos] == -1 and val >= 0
+            out[row0 + r, pos] = val
+
+
+def _ring_walk(cands: list, bound: int, last_slots: int | None = None, row_ring: bool = False):
     """warp_sampler.cuh's sample_rows over rows whose squeezed blocks hold
     ``cands[b]`` (rows, slots), a warp at a time, with candidates below
-    ``bound`` accepted: append_block into each lane's ring column, then
-    flush_ring's clamped two-row copies, 16 lanes a row and ceil(slots /
-    16) slots a lane.  Returns the output rows and the blocks each row
-    permuted for in the first pass."""
+    ``bound`` accepted and only the first ``last_slots`` of the last block
+    read (all of them by default): append_block into each lane's ring
+    column, then flush_ring's two-row copies, 16 lanes a row, after each
+    block, or with ``row_ring`` (a ring of 256 + 16 slots or more) blocks
+    appended to one run a row, clamped every 16 candidates to slot slots -
+    16, and copied once at the end of the pass.  Returns the output rows and
+    the blocks each row permuted for in the first pass."""
     n, slots = cands[0].shape
+    last_slots = slots if last_slots is None else last_slots
+    assert row_ring == (slots >= 256 + 16)  # RowRing<C>
+    clamp = slots - 16 if row_ring else None
     steps = -(-slots // 16)
     out = np.full((n, 256), -1, dtype=np.int64)
     used = np.zeros(n, dtype=np.int64)
@@ -127,38 +195,30 @@ def _ring_walk(cands: list, bound: int):
         rows = min(WARP, n - row0)
         cnt = [0 if lane < rows else 256 for lane in range(WARP)]
         for want_accepted in (True, False):
+            in_pass = [r for r in range(WARP) if cnt[r] < 256]
+            if not in_pass:
+                break
+            at = list(cnt)
+            nxt = [0] * WARP
+            ring = np.full(slots * RING_STRIDE, -1, dtype=np.int64)
             for b in range(len(cands)):
                 todo = [r for r in range(WARP) if cnt[r] < 256]
                 if not todo:
                     break
-                ring = np.full(slots * RING_STRIDE, -1, dtype=np.int64)
-                k = [0] * WARP
                 for lane in todo:
                     used[row0 + lane] += want_accepted
-                    off = lane
-                    for d in cands[b][row0 + lane]:
-                        ring[off] = d
-                        if (d < bound) == want_accepted:
-                            off += RING_STRIDE
-                    k[lane] = (off - lane) // RING_STRIDE
-                    assert off < lane + slots * RING_STRIDE + RING_STRIDE
-                for step in range(0, len(todo), 2):
-                    written = {}
-                    for r in todo[step:step + 2]:
-                        at, m = cnt[r], min(k[r], 256 - cnt[r])
-                        for t in range(16):
-                            for j in range(steps):
-                                if m > 0:
-                                    i = min(t + 16 * j, m - 1)
-                                    val = ring[i * RING_STRIDE + r]
-                                    assert written.setdefault((r, at + i), val) == val
-                        got = sorted(i for (rr, i) in written if rr == r)
-                        assert got == list(range(at, at + max(m, 0)))
-                    for (r, pos), val in written.items():
-                        assert out[row0 + r, pos] == -1 and val >= 0
-                        out[row0 + r, pos] = val
-                for lane in todo:
-                    cnt[lane] += k[lane]
+                    nxt[lane] = _append_block(ring, lane, cands[b][row0 + lane], bound,
+                                              want_accepted, b == len(cands) - 1, last_slots,
+                                              nxt[lane], clamp)
+                if row_ring:
+                    cnt = [at[r] + nxt[r] for r in range(WARP)]
+                else:
+                    _flush(ring, out, row0, todo, nxt, cnt, steps)
+                    cnt = [cnt[r] + nxt[r] for r in range(WARP)]
+                    nxt = [0] * WARP
+                    ring[:] = -1
+            if row_ring:
+                _flush(ring, out, row0, in_pass, nxt, at, steps, whole_rows=True)
     assert (out >= 0).all(), "a slot never written"
     return out, used
 
@@ -217,6 +277,23 @@ def test_k2_block_candidates_are_the_blocks_candidates_in_order():
     want = np.stack([t[..., 0] | ((t[..., 1] & 0xF) << 8), (t[..., 1] >> 4) | (t[..., 2] << 4)],
                     axis=-1).reshape(64, 112)
     assert np.array_equal(_block_candidates(block), want)
+
+
+@pytest.mark.parametrize("slots", [112, 56, 272])
+def test_flush_copies_every_run_length_slot_by_slot(slots):
+    """flush_ring for K2's, K5's and K6's rings, every run length m from 1
+    to the ring: the 16 lanes copy exactly slots 0..m-1, lane t slot
+    t + 16 j wherever that lies inside the run; K6's whole rows (m = 256)
+    in 4 slots a lane a step, each slot once."""
+    steps = -(-slots // 16)
+    for m in range(1, slots + 1):
+        copied = [_flush_slots(t, m, steps) for t in range(16)]
+        assert set().union(*map(set, copied)) == set(range(m))
+        assert all(lane[j] == t + 16 * j for t, lane in enumerate(copied)
+                   for j in range(steps) if t + 16 * j < m)
+    if slots >= 256 + 16:
+        whole = [_flush_slots(t, 256, steps, whole_rows=True) for t in range(16)]
+        assert sorted(sum(whole, [])) == list(range(256))
 
 
 def test_k2_ring_reads_hit_16_banks_a_half_warp():
@@ -688,6 +765,155 @@ def test_k5_ring_reads_hit_16_banks_a_half_warp():
             banks = [(RING_STRIDE * (t + 16 * j) + r) % 32 for t in range(16)]
             assert len(set(banks)) == 16 and banks == [(banks[0] + t) % 32 for t in range(16)]
     assert -(-K5_SLOTS // 16) == 4 and 16 * 4 >= K5_SLOTS
+
+
+# --------------------------------------------------------------------------
+# K6 (ML-DSA RejBoundedPoly on K2's ring)
+# --------------------------------------------------------------------------
+
+
+K6_SLOTS, K6_LAST_SLOTS = 272, 208  # nibbles of a 136-byte block, of the 4th's first 104 bytes
+
+
+def _k6_candidates(block: np.ndarray) -> np.ndarray:
+    """RejBoundedCands::at: (rows, 136) squeezed bytes -> (rows, 272), nibble
+    c from bits [4 c, 4 c + 4) of the 64-bit lanes."""
+    lanes = np.ascontiguousarray(block).view("<u8")
+    out = np.empty((block.shape[0], K6_SLOTS), dtype=np.int64)
+    for c in range(K6_SLOTS):
+        out[:, c] = ((lanes[:, c >> 4] >> np.uint64(4 * (c & 15))) & np.uint64(0xF)).astype(np.int64)
+    return out
+
+
+def _k6_walk(seeds: torch.Tensor, bound: int, last_slots: int = K6_LAST_SLOTS):
+    """K6: sample_rows over RejBoundedCands (4 blocks of 272 nibbles, the
+    4th read to nibble 1023 of the row)."""
+    stream = keccak.sponge_plain(seeds, 136, 0x1F, 4 * 136).numpy()
+    return _ring_walk([_k6_candidates(stream[:, 136 * b:136 * (b + 1)]) for b in range(4)],
+                      bound, last_slots, row_ring=True)
+
+
+def _k6_reference(seeds: torch.Tensor, bound: int) -> np.ndarray:
+    """The reference's order stated directly: the 1024 nibbles of the first
+    512 squeezed bytes (low nibble first), those below `bound` before the
+    rest, index order within each, the first 256."""
+    b = keccak.sponge_plain(seeds, 136, 0x1F, 512).numpy().astype(np.int64)
+    z = np.stack([b & 0xF, b >> 4], axis=-1).reshape(len(seeds), 1024)
+    order = np.argsort(z >= bound, axis=-1, kind="stable")
+    return np.take_along_axis(z, order, axis=-1)[:, :256]
+
+
+def test_k6_block_candidates_are_the_blocks_nibbles_in_order():
+    block = _seeds(7, 64, 136).numpy()
+    b = block.astype(np.int64)
+    want = np.stack([b & 0xF, b >> 4], axis=-1).reshape(64, K6_SLOTS)
+    assert np.array_equal(_k6_candidates(block), want)
+    assert 3 * K6_SLOTS + K6_LAST_SLOTS == 1024
+
+
+@pytest.mark.parametrize("eta", [2, 4])
+def test_k6_compaction_matches_rej_bounded_poly_plain(eta):
+    """A ragged last warp at eta's own bound (15 or 9): every row squeezes
+    one or two blocks (eta 4 accepts 9 of 16 nibbles, so most rows take
+    two; eta 2 accepts 15 of 16, so many take one)."""
+    seeds = _seeds(60 + eta, 3 * WARP + 9, 66)
+    bound = 15 if eta == 2 else 9
+    got, used = _k6_walk(seeds, bound)
+    assert np.array_equal(got, mldsa.rej_bounded_poly_plain(seeds, eta).numpy())
+    assert np.array_equal(got, _k6_reference(seeds, bound))
+    assert set(used) <= {1, 2} and (used == 2).any()
+    assert (used == 1).any() or eta == 4
+
+
+@pytest.mark.parametrize("bound", [6, 5, 4, 2])
+def test_k6_later_blocks_and_short_fill_keep_the_reference_order(bound):
+    """A lowered acceptance bound sends rows to the 3rd block (6: most
+    rows), to the 4th (5: most rows) and to the short fill of rejected
+    nibbles (4: about half the rows; 2: all), against the reference's order
+    stated directly and the plain in-order compaction at that bound."""
+    seeds = _seeds(bound + 100, 2 * WARP + 11, 66)
+    got, used = _k6_walk(seeds, bound)
+    want = _k6_reference(seeds, bound)
+    assert np.array_equal(got, want)
+    b = keccak.sponge_plain(seeds, 136, 0x1F, 512).to(torch.int64)
+    z = torch.stack([b & 0xF, b >> 4], dim=-1).reshape(len(seeds), -1)
+    assert np.array_equal(want, keccak.compact_accepted(z, z < bound).numpy())
+    short = ((z < bound).sum(-1) < 256).numpy()
+    assert (used[short] == 4).all()
+    most = {6: (used == 3) & ~short, 5: (used == 4) & ~short, 4: short, 2: short}[bound]
+    assert most.sum() > len(seeds) // 3 and (bound > 2 or short.all())
+
+
+@pytest.mark.parametrize("bound", [4, 2])
+def test_k6_fourth_block_stops_at_nibble_1023(bound):
+    """Short rows read the whole 4th block in the first pass: the walk that
+    stops at its nibble 208 (the row's 1023rd) gives the reference on every
+    row, one that reads on to 272 appends nibbles from past the 512 bytes
+    and differs from it on exactly the short rows."""
+    seeds = _seeds(bound + 200, 2 * WARP, 66)
+    got, used = _k6_walk(seeds, bound)
+    past, _ = _k6_walk(seeds, bound, last_slots=K6_SLOTS)
+    want = _k6_reference(seeds, bound)
+    short = (used == 4) & (want >= bound).any(-1)
+    assert np.array_equal(got, want) and short.any()
+    differs = (past != want).any(-1)
+    assert np.array_equal(differs, short)
+
+
+@pytest.mark.parametrize("want_accepted", [True, False])
+def test_k6_last_block_append_wants_nothing_past_nibble_1023(want_accepted):
+    """append_block in either pass, on a 4th block whose every nibble is
+    wanted: only the first 208 count, and the ring column holds them in
+    order; a block before the last counts all 272."""
+    value = 0 if want_accepted else 15
+    cands = np.full(K6_SLOTS, value, dtype=np.int64)
+    for last, count in ((True, K6_LAST_SLOTS), (False, K6_SLOTS)):
+        ring = np.full(K6_SLOTS * RING_STRIDE, -1, dtype=np.int64)
+        k = _append_block(ring, 5, cands, 9, want_accepted, last, K6_LAST_SLOTS)
+        assert k == count
+        assert (ring[5 + RING_STRIDE * np.arange(count)] == value).all()
+
+
+@pytest.mark.parametrize("first", [0, 100, 250, 255])
+def test_k6_row_ring_clamp_keeps_the_first_256_slots(first):
+    """K6's ring holds a row's whole run (256 + 16 slots): appending a block
+    whose every nibble is wanted from slot `first` on fills slots first..255
+    with its nibbles in order, never stores past slot 271, and ends past
+    slot 255, so the row counts as full."""
+    cands = np.arange(K6_SLOTS, dtype=np.int64) % 9  # all accepted at bound 9
+    ring = np.full(K6_SLOTS * RING_STRIDE, -1, dtype=np.int64)
+    nxt = _append_block(ring, 3, cands, 9, True, False, K6_LAST_SLOTS, first, K6_SLOTS - 16)
+    assert 256 <= nxt <= K6_SLOTS
+    assert np.array_equal(ring[3 + RING_STRIDE * np.arange(first, 256)], cands[:256 - first])
+    assert (ring.reshape(K6_SLOTS, RING_STRIDE)[:, 3] >= 0).sum() == K6_SLOTS - first
+
+
+def test_k6_ring_reads_hit_16_banks_a_half_warp():
+    """flush_ring over uint8 slots: a half-warp reads slot t + 16 j of row r
+    at byte 33 (t + 16 j) + r, i.e. word (33 (t + 16 j) + r) // 4: t and
+    t + 4 are 33 words apart, so 16 distinct banks; 17 steps cover the 272
+    slots.  A whole row's copy reads slot 64 j + 4 t + i, again 16 banks a
+    half-warp.  The ring is 8,976 bytes a warp (17,952 with uint16 slots)."""
+    for r in range(WARP):
+        for j in range(-(-K6_SLOTS // 16)):
+            banks = {((RING_STRIDE * (t + 16 * j) + r) // 4) % 32 for t in range(16)}
+            assert len(banks) == 16
+        for j, i in ((j, i) for j in range(4) for i in range(4)):  # a whole row, 4 slots a lane
+            banks = {((RING_STRIDE * (64 * j + 4 * t + i) + r) // 4) % 32 for t in range(16)}
+            assert len(banks) == 16
+    assert -(-K6_SLOTS // 16) == 17 and K6_SLOTS * RING_STRIDE == 8976
+
+
+def test_k6_traits_in_the_source_match_the_walk():
+    """RejBoundedCands in csrc/mldsa.cuh: uint8 slots, 272 a block, 208 in
+    the 4th of 4, rate 136, 66-byte seeds, bounds 15 and 9."""
+    src = (CSRC / "mldsa.cuh").read_text()
+    body = src[src.index("struct RejBoundedCands"):]
+    body = body[:body.index("};")]
+    for pattern in (r"using Value = uint8_t;", r"kSlots = 2 \* 136;",
+                    r"kLastSlots = 2 \* \(512 - 3 \* 136\);", r"kBlocks = 4;",
+                    r"kRate = 136;", r"kSeedLen = 66;", r"kBound = ETA == 2 \? 15 : 9;"):
+        assert re.search(pattern, body), pattern
 
 
 # --------------------------------------------------------------------------
