@@ -10,8 +10,8 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              csrc/chacha.cu, csrc/frodo.cu and csrc/sha2.cu with nvcc
              (sm_90a), all at once, and print the ptxas register/spill
              summary, the SASS of K1's round loops (the rows path's and the
-             split path's), K8's opcodes and those of K12's and K13's block
-             loops (their bound counts them);
+             split path's), K8's opcodes and those of K12's and K13's loops
+             (both paths; their bound counts a fixed work a block instead);
 2. kernels   run every kernel and its plain PyTorch version on the GPU at
              the shapes of the batch-4096 ML-KEM-768 and ML-DSA-65 paths:
              K1 at H, G and J, at one ML-DSA-65 sign attempt's ExpandMask,
@@ -26,7 +26,10 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              K12 at a 128f chain step (1024 x 8 x 35 rows) and at the 128f
              FORS leaves (1024 x 33 x 64) of B = 1024, K13 at 192f's first
              FORS level of B = 256 (256 x 33 x 128), both over 10-block rows
-             (a WOTS public key's T_l) too; require bitwise equality, and
+             (a WOTS public key's T_l: 128f and 192f sign, and K12 at a
+             128s verify flush of 2048) too and at 10-block rows just below
+             and at the path rule's edge, each by the rule's path and by
+             the other path forced; require bitwise equality, and
              time each kernel with CUDA events, as the host launches it
              (ms) and on the device alone (device_ms: the launch enqueued
              while the GPU sleeps; K11 beside torch.searchsorted); K3 also
@@ -103,8 +106,9 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              verify batches, one 4096 x 4 KiB seal batch, one
              FrodoKEM-640-SHAKE encaps batch of 1024 keys, one 128f sign
              batch of 1024 and one 128s verify batch of 2048: device time
-             per kernel (K1's, K7's, K2's, K3's, K4's, K5's and K6's
-             apart), launches, and
+             per kernel (K1's, K7's, K2's, K3's, K4's, K5's, K6's, K12's
+             and K13's apart, K12's and K13's few-row path also alone),
+             launches, and
              the device busy share of each window from its trace (after
              the counts are read).
 
@@ -115,7 +119,8 @@ ML-DSA kernel and K1 in phase 6, K1 and K7 in phase 7, every kernel but
 K8 (K1 with per-row lengths included) in phase 8, K8 in phase 9, K1 and
 K9-K11 in phase 10, K1, K10 and K11 in phase 11, K12 in phase 12 and in
 each set of phase 13, and K13 in phase 13's 192f run and in its memory
-check.  The last three lines of output are the card's name and power
+check; K12's few-row path in phase 12 and 13's 128f run, K13's in 13's
+192f run.  The last three lines of output are the card's name and power
 limit (nvidia-smi), one JSON object with key "kernels", and the result
 line {"ok": true, "device": {...}}.  Without a GPU, or without the package
 beside this file, the script prints no result and exits non-zero.
@@ -236,10 +241,46 @@ SLH_HEALTH = ("SPHINCS+-SHA2-128s-simple", "SPHINCS+-SHA2-128f-simple")
 #: one sign_batch of the widest set (360,448 FORS rows a signature, n = 32,
 #: SHA-512 H and T_l) over a batch that needs SLH_CHUNKS chunks
 SLH_ROW_BATCH, SLH_WIDEST, SLH_CHUNKS = 16, "SPHINCS+-SHA2-256s-simple", 3
-#: SASS opcodes of K12/K13's block loop that do not issue on the 64-lane
-#: integer pipe: IMAD goes to the FMA pipe beside it (K8's finding), U*
-#: run once a warp on the uniform datapath, memory and branches elsewhere
-NON_INT_PIPE = ("IMAD", "LDG", "STG", "BRA", "NOP", "EXIT")
+#: the work of one compression, whatever path runs it, counted from the
+#: algorithm and split by pipe.  Only the 64-lane integer pipe runs
+#: rotations (SHF), logic (LOP3, three inputs) and byte swaps (PRMT); adds
+#: (IADD3, three inputs) and plain shifts run there or on the FMA pipe
+#: beside it, as IMAD / IMAD.HI, 64 lanes an SM more.  SHA-256, a block:
+#: 16 byte swaps; 48 schedule words of 4 rotations and 2 XORs (sigma0,
+#: sigma1), 2 shifts and 2 adds; 64 rounds of 6 rotations and 4 LOP3
+#: (Sigma0, Sigma1, Ch, Maj) and 4 adds; 8 feedforward adds.  SHA-512 in
+#: 32-bit halves (a 64-bit rotation or XOR is two, a 64-bit shift one
+#: funnel shift and one plain shift, a 64-bit add two with the carry): 32
+#: byte swaps; 64 schedule words of 14 integer-pipe and 6 other operations;
+#: 80 rounds of 20 and 8; 16 feedforward adds.
+SHA256_INT_PIPE_OPS = 16 + 48 * 6 + 64 * 10              # 944
+SHA256_ALL_OPS = SHA256_INT_PIPE_OPS + 48 * 4 + 64 * 4 + 8  # 1,400
+SHA512_INT_PIPE_OPS = 32 + 64 * 14 + 80 * 20             # 2,528
+SHA512_ALL_OPS = SHA512_INT_PIPE_OPS + 64 * 6 + 80 * 8 + 16  # 3,568
+#: K12's and K13's bound charges a block the larger of its integer-pipe
+#: operations and half of all its operations (two pipes), in integer-pipe
+#: slots: 944 and 2,528, the integer pipe's share either way.  The rows
+#: path's SASS has 1,286 / 3,421 integer-pipe instructions a block: its adds
+#: issue as IADD3 there, work the FMA pipe could take, so its count is not
+#: the work's.  The build phase prints each path's loops beside it.
+SHA256_BLOCK_OPS = max(SHA256_INT_PIPE_OPS, -(-SHA256_ALL_OPS // 2))
+SHA512_BLOCK_OPS = max(SHA512_INT_PIPE_OPS, -(-SHA512_ALL_OPS // 2))
+#: SASS opcodes that do not issue on the 64-lane integer pipe: IMAD goes to
+#: the FMA pipe beside it (K8's finding), U* run once a warp on the uniform
+#: datapath, memory, barriers and branches elsewhere
+NON_INT_PIPE = ("IMAD", "LDG", "STG", "LDS", "STS", "BAR", "BRA", "NOP", "EXIT")
+#: K12's and K13's SPHINCS+ shapes: (name, states, rows a state, blocks a
+#: row, what)
+SHA2_SHAPES = (("sha256_compress", 1024, 8 * 35, 1, "128f chain step, B = 1024"),
+               ("sha256_compress", 1024, 33 * 64, 1, "128f FORS leaves, B = 1024"),
+               ("sha256_compress[T_l]", 1024, 8, 10, "128f WOTS pk T_l, B = 1024"),
+               ("sha256_compress[T_l verify]", 2048, 1, 10,
+                "128s WOTS pk T_l of a verify flush of 2,048"),
+               ("sha512_compress", 256, 33 * 128, 1, "192f FORS level 1, B = 256"),
+               ("sha512_compress[T_l]", 256, 8, 10, "192f WOTS pk T_l, B = 256"))
+#: K12/K13's kernels (csrc/sha2.cu): the rows path and the few-row path
+SHA2_KERNELS = {"sha256_compress": ("sha256_kernel", "sha256_split_kernel"),
+                "sha512_compress": ("sha512_kernel", "sha512_split_kernel")}
 
 
 class PhaseFailed(RuntimeError):
@@ -388,22 +429,29 @@ def kernel_sass_opcodes(cuda, lib: str, kernel: str) -> dict:
 
 
 def sha2_block_sass(cuda) -> dict:
-    """K12 and K13: the opcodes of the loop over a row's message blocks (one
-    fully unrolled compression) and the integer-pipe instructions it issues,
-    which set the kernels' bound by operations."""
+    """K12 and K13, as information: the opcodes of each kernel's innermost
+    loops of 100 instructions or more (the rows path's block loop; the
+    few-row path's schedule and round loops), integer-pipe and IMAD counts
+    apart.  The bound does not read them (SHA256_BLOCK_OPS,
+    SHA512_BLOCK_OPS); every kernel must have its loops."""
     out = {}
     for fn, loops in sass_loops(cuda, "sha2").items():
-        kernel = next((k for k in ("sha256_kernel", "sha512_kernel") if k in fn), None)
-        if kernel is not None:
-            body = max(loops, key=lambda lp: lp["instructions"])
-            ops = sum(c for op, c in body["opcodes"].items()
-                      if not (op.startswith("U") or op in NON_INT_PIPE))
-            out[kernel] = dict(body, int_pipe_ops=ops)
-            print(f"[build] SASS {kernel}: block loop {body['instructions']} instructions, "
-                  f"{ops} on the integer pipe; opcodes "
-                  f"{dict(sorted(body['opcodes'].items(), key=lambda kv: -kv[1]))}")
-    if set(out) != {"sha256_kernel", "sha512_kernel"}:
-        raise PhaseFailed(f"SASS: no block loop found in K12/K13 (found {sorted(out)})")
+        kernel = next((k for ks in SHA2_KERNELS.values() for k in ks if k in fn), None)
+        if kernel is None:
+            continue
+        out[kernel] = []
+        for lp in sorted(loops, key=lambda lp: -lp["instructions"]):
+            if lp["instructions"] < 100:
+                continue
+            ops = lp["opcodes"]
+            alu = sum(c for op, c in ops.items() if not (op.startswith("U") or op in NON_INT_PIPE))
+            out[kernel].append(dict(lp, int_pipe=alu, imad=ops.get("IMAD", 0)))
+            print(f"[build] SASS {kernel}: loop of {lp['instructions']} instructions, {alu} on "
+                  f"the integer pipe, {ops.get('IMAD', 0)} IMAD; opcodes "
+                  f"{dict(sorted(ops.items(), key=lambda kv: -kv[1]))}")
+    want = {k for ks in SHA2_KERNELS.values() for k in ks}
+    if {k for k, loops in out.items() if loops} != want:
+        raise PhaseFailed(f"SASS: K12/K13 loops found in {sorted(out)}, want {sorted(want)}")
     return out
 
 
@@ -644,8 +692,55 @@ def k6_cases(torch, np, rng, keccak, mldsa, mldsa_cuda) -> list:
     return cases
 
 
+def sha2_cases(torch, np, rng, sha2) -> list:
+    """K12 and K13 (``sha2``: the modules sha256, sha256_cuda, sha512,
+    sha512_cuda) as the SPHINCS+ phases launch them: one pk_seed midstate a
+    signature serves its rows, and a WOTS public key's T_l is one launch
+    over all its blocks (128f / 192f sign: 8 rows a signature; a 128s
+    verify flush: one); then at 10 blocks a row just below and at the path
+    rule's edge.  Each shape runs the rule's path, then the other path
+    forced through ``sha256_cuda.launch`` (tagged).  Bytes: the states,
+    the blocks, the words out; operations: the fixed work of a block
+    (SHA256_BLOCK_OPS, SHA512_BLOCK_OPS)."""
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, size=shape, dtype=np.uint8)).to(dev)
+
+    cases = []
+    sha256, sha256_cuda, sha512, sha512_cuda = sha2
+    shapes = list(SHA2_SHAPES)
+    edge = sha256_cuda.SPLIT_ROWS_PER_SM * sms
+    for name in ("sha256_compress", "sha512_compress"):
+        shapes += [(f"{name}[edge - 32]", edge - 32, 1, 10, "10-block rows, below the rule's edge"),
+                   (f"{name}[edge]", edge, 1, 10, "10-block rows, at the rule's edge")]
+    for name, lanes, per, nblocks, what in shapes:
+        mod, kmod, width = ((sha256, sha256_cuda, 64) if name.startswith("sha256")
+                            else (sha512, sha512_cuda, 128))
+        lo, hi = (0, 2**32) if width == 64 else (-2**63, 2**63)
+        states = torch.from_numpy(rng.integers(lo, hi, size=(lanes, 8), dtype=np.int64)).to(dev)
+        blocks = u8(lanes * per, nblocks * width)
+        rows = lanes * per
+        ops = rows * nblocks * (SHA256_BLOCK_OPS if width == 64 else SHA512_BLOCK_OPS)
+        rule = "split" if sha256_cuda.split_rule(rows, nblocks, sms) else "rows"
+        for path in (rule, "rows" if rule == "split" else "split"):
+            tag = "" if path == rule else f"[{path} path forced]"
+            kern = (kmod.compress if path == rule else
+                    lambda s, b, r, w=width, p=path: sha256_cuda.launch(w, s, b, r, p)[0])
+            cases.append((name + tag, f"{SRC}/core/sha{256 if width == 64 else 512}_pallas.py:"
+                                      f"{74 if width == 64 else 102}",
+                          lambda k=kern, s=states, b=blocks, r=per: k(s, b, r),
+                          lambda m=mod, s=states, b=blocks, r=per, w=width: plain_absorb(m, s, b,
+                                                                                      r, w),
+                          states.numel() * 8 + blocks.numel() + rows * 64, ops,
+                          f"{what}: ({lanes}, 8) states x {per} rows, {nblocks} block(s) -> "
+                          f"({rows}, 8), {path} path{'' if tag else ' (the rule)'}"))
+    return cases
+
+
 def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mldsa_cuda,
-                  chacha, chacha_cuda, frodo, frodo_cuda, sha2, sha2_ops, int_rate) -> list:
+                  chacha, chacha_cuda, frodo, frodo_cuda, sha2, int_rate) -> list:
     dev = torch.device("cuda")
     rng = np.random.default_rng(2024)
 
@@ -693,34 +788,7 @@ def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mlds
     cases.append(("frodo_cdf_sample", f"{SRC}/kem/frodo_pallas.py:291",
                   lambda: frodo_cuda.cdf_sample(fp, r16), lambda: frodo.cdf_sample_plain(fp, r16),
                   8 * m, m * frodo_sample_ops(fp), f"({m},) int32"))
-    # K12 and K13 as the SPHINCS+ batch phases launch them: one pk_seed
-    # midstate a signature serves its rows; a WOTS public key's T_l is one
-    # launch over all its blocks.  Bytes: the states, the blocks, the words
-    # out; operations: the integer-pipe instructions of one block's SASS.
-    sha256, sha256_cuda, sha512, sha512_cuda = sha2
-    for name, mod, kern, width, lanes, per, nblocks, what in (
-            ("sha256_compress", sha256, sha256_cuda.compress, 64, 1024, 8 * 35, 1,
-             "128f chain step, B = 1024"),
-            ("sha256_compress", sha256, sha256_cuda.compress, 64, 1024, 33 * 64, 1,
-             "128f FORS leaves, B = 1024"),
-            ("sha256_compress[T_l]", sha256, sha256_cuda.compress, 64, 1024, 8, 10,
-             "128f WOTS pk T_l, B = 1024"),
-            ("sha512_compress", sha512, sha512_cuda.compress, 128, 256, 33 * 128, 1,
-             "192f FORS level 1, B = 256"),
-            ("sha512_compress[T_l]", sha512, sha512_cuda.compress, 128, 256, 8, 10,
-             "192f WOTS pk T_l, B = 256")):
-        lo, hi = (0, 2**32) if width == 64 else (-2**63, 2**63)
-        states = torch.from_numpy(rng.integers(lo, hi, size=(lanes, 8), dtype=np.int64)).to(dev)
-        blocks = u8(lanes * per, nblocks * width)
-        rows = lanes * per
-        ops = rows * nblocks * sha2_ops["sha256_kernel" if width == 64 else "sha512_kernel"]
-        cases.append((name, f"{SRC}/core/sha{256 if width == 64 else 512}_pallas.py:"
-                            f"{74 if width == 64 else 102}",
-                      lambda k=kern, s=states, b=blocks, r=per: k(s, b, r),
-                      lambda m=mod, s=states, b=blocks, r=per, w=width: plain_absorb(m, s, b, r, w),
-                      states.numel() * 8 + blocks.numel() + rows * 64, ops,
-                      f"{what}: ({lanes}, 8) states x {per} rows, {nblocks} block(s) -> "
-                      f"({rows}, 8)"))
+    cases += sha2_cases(torch, np, rng, sha2)
     # the one PyTorch call for a kernel's function, timed as a yardstick:
     # searchsorted gives K11's magnitude (not constant-time; never used)
     table, half = torch.tensor(fp.cdf[:-1], dtype=torch.int32, device=dev), r16 >> 1
@@ -1592,18 +1660,24 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
     ours = ("::sponge_rows_kernel<", "::sponge_split_kernel<", "::sample_ntt_kernel(",
             "::prf_cbd_kernel<", "::kem_ntt_kernel<", "::ntt_kernel<", "::rej_ntt_kernel(",
             "::rej_bounded_kernel<", "::chacha_kernel(", "::a_times_s_kernel<",
-            "::s_times_a_kernel<", "::cdf_kernel(", "::sha256_kernel(", "::sha512_kernel(")
+            "::s_times_a_kernel<", "::cdf_kernel(", "::sha256_kernel(", "::sha512_kernel(",
+            "::sha256_split_kernel(", "::sha512_split_kernel(")
     ours_us = sum(v for k, v in device_us.items() if any(o in k for o in ours))
     # K1 (both paths, both entries), K7 (mldsa.cu's ntt_kernel; mlkem.cu's
     # K4 is kem_ntt_kernel, which "::ntt_kernel<" does not match), K2, K3
-    # and K4 (every instance), K5, K6 (both etas)
+    # and K4 (every instance), K5, K6 (both etas), K12 and K13 (both paths,
+    # and the few-row path alone)
     redesigned = {"k1": lambda k: "::sponge_rows_kernel<" in k or "::sponge_split_kernel<" in k,
                   "k7": lambda k: "::ntt_kernel<" in k and k.endswith(", long)"),
                   "k2": lambda k: "::sample_ntt_kernel(" in k,
                   "k3": lambda k: "::prf_cbd_kernel<" in k,
                   "k4": lambda k: "::kem_ntt_kernel<" in k,
                   "k5": lambda k: "::rej_ntt_kernel(" in k,
-                  "k6": lambda k: "::rej_bounded_kernel<" in k}
+                  "k6": lambda k: "::rej_bounded_kernel<" in k,
+                  "k12": lambda k: "::sha256_kernel(" in k or "::sha256_split_kernel(" in k,
+                  "k12_few_row": lambda k: "::sha256_split_kernel(" in k,
+                  "k13": lambda k: "::sha512_kernel(" in k or "::sha512_split_kernel(" in k,
+                  "k13_few_row": lambda k: "::sha512_split_kernel(" in k}
     mine = {name: [k for k in device_us if hit(k)] for name, hit in redesigned.items()}
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:12]
     out = {"batches": reps, "window_ms_per_batch": window_us / reps / 1e3,
@@ -1689,10 +1763,9 @@ def main() -> int:
         sass = keccak_round_sass(cuda)
         sass["chacha_kernel"] = kernel_sass_opcodes(cuda, "chacha", "chacha_kernel")
         sass.update(sha2_block_sass(cuda))
-        sha2_ops = {k: sass[k]["int_pipe_ops"] for k in ("sha256_kernel", "sha512_kernel")}
         rows = phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mldsa_cuda,
                              chacha, chacha_cuda, frodo, frodo_cuda,
-                             (sha256, sha256_cuda, sha512, sha512_cuda), sha2_ops, int_rate)
+                             (sha256, sha256_cuda, sha512, sha512_cuda), int_rate)
         phase_kat(torch, mlkem)
         phase_kat_mldsa(torch, mldsa)
         phase_kat_frodo(torch, frodo)
@@ -1710,11 +1783,19 @@ def main() -> int:
         def reset():
             for w in wrappers.values():
                 w.launches = 0
+            for name in SHA2_KERNELS:
+                wrappers[name].split_launches = 0
 
-        def read(phase, expected):
+        def read(phase, expected, few_row=()):
+            """The launch counts since reset(), K12's and K13's few-row path
+            apart ("<name>[few-row]"); each of ``expected`` must have run,
+            and each of ``few_row`` through its few-row path."""
             counts = {name: w.launches for name, w in wrappers.items()}
+            counts.update({f"{name}[few-row]": wrappers[name].split_launches
+                           for name in SHA2_KERNELS})
             print(f"[launches] {phase}: {counts}")
             idle = [name for name in expected if counts[name] == 0]
+            idle += [f"{name}[few-row]" for name in few_row if counts[f"{name}[few-row]"] == 0]
             if idle:
                 raise PhaseFailed(f"{phase}: kernels not launched on the main path: {idle}")
             return counts
@@ -1779,16 +1860,19 @@ def main() -> int:
         reset()
         slh_served, slh_signed = asyncio.run(sphincs_serve(torch, provider, sphincs,
                                                            slhdsa_params))
-        launches["sphincs_serve"] = read("sphincs serve", ("sha256_compress",))
+        launches["sphincs_serve"] = read("sphincs serve", ("sha256_compress",),
+                                         ("sha256_compress",))
         slh_inputs = {name: sphincs_batch_inputs(torch, np, slhdsa_params, name, batch)
                       for name, batch in SLH_BATCHES}
         slh_batch, slh_outputs = {}, {}
         for name, inputs in slh_inputs.items():
             reset()
             slh_batch[name], slh_outputs[name] = phase_sphincs_batch(torch, sphincs, inputs)
+            big = inputs[0].big_hash  # H and T_l on SHA-512
             launches[f"sphincs_batch_{name}"] = read(
                 f"sphincs batch {name}",
-                ("sha256_compress",) + (("sha512_compress",) if inputs[0].big_hash else ()))
+                ("sha256_compress",) + (("sha512_compress",) if big else ()),
+                ("sha512_compress",) if big else ("sha256_compress",))
         reset()
         slh_memory = phase_sphincs_memory(torch, np, provider, sphincs, slhdsa_params)
         launches["sphincs_memory"] = read("sphincs memory", ("sha256_compress",
@@ -1856,11 +1940,13 @@ def main() -> int:
         return 1
 
     # one entry per kernel wrapper at its main-path shapes; the sponge's
-    # three calls (H, G, J) are summed, eta = 3 and K8's 64 KiB shape stay
-    # in the detail line
+    # three calls (H, G, J) are summed, and K12's and K13's shapes with
+    # their T_l (the rows path and the few-row path, each by the rule);
+    # eta = 3, K8's 64 KiB shape, the forced paths and the edges stay in
+    # the detail line
     kernels = []
     for name in wrappers:
-        mine = [r for r in rows if r["name"] == name]
+        mine = [r for r in rows if r["name"] in (name, f"{name}[T_l]")]
         nbytes, ops = sum(r["bytes"] for r in mine), sum(r["int32_ops"] for r in mine)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / int_rate
         kernels.append({
@@ -1876,6 +1962,11 @@ def main() -> int:
             "library_ms": (None if any(r["library_ms"] is None for r in mine)
                            else sum(r["library_ms"] for r in mine)),
             "shapes": [r["shape"] for r in mine]})
+        if name in SHA2_KERNELS:  # the __global__ kernels these shapes ran
+            kernels[-1]["paths"] = sorted({SHA2_KERNELS[name][", split path" in r["shape"]]
+                                           for r in mine})
+            kernels[-1]["few_row_launches"] = sum(counts[f"{name}[few-row]"]
+                                                  for counts in launches.values())
     print(json.dumps({"detail": {"ptxas": ptxas, "keccak_round_sass": sass,
                                  "kernel_rows": rows, "serve": served, "flagship": flagship,
                                  "sig_serve": sig_served, "sig_flagship": sig_flagship,

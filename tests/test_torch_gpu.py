@@ -532,6 +532,67 @@ def test_sha2_multiblock_and_shared_state_match_plain(gpu, blocks):
         assert bytes(digest[0].cpu().numpy()) == hasher(tail).digest()
 
 
+def _sha2_plain_absorb(mod, states, blocks, per, width):
+    st = states[:, None, :]
+    rows = blocks.reshape(states.shape[0], per, blocks.shape[-1])
+    for i in range(blocks.shape[-1] // width):
+        st = mod.compress_plain(st, rows[..., i * width:(i + 1) * width])
+    return st.reshape(-1, 8)
+
+
+@pytest.mark.parametrize("path", [None, "rows", "split"])
+@pytest.mark.parametrize("blocks", [1, 10, 17])
+def test_sha2_paths_match_plain(gpu, path, blocks):
+    """K12 and K13 through the rule's path and through each path forced,
+    against the plain block-by-block absorb: rows on both sides of the
+    crossover, rows not a multiple of 32, and 8 or 7 rows a state (groups
+    of 32 rows that straddle states).  The wrapper's launches take the
+    few-row path exactly where split_rule says, and count; a forced path,
+    through ``sha256_cuda.launch``, does not."""
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    edge = sha256_cuda.SPLIT_ROWS_PER_SM * sms
+    for mod, cuda_mod, width, words in (
+            (sha256, sha256_cuda, 64, (0, 2**32)),
+            (sha512, sha512_cuda, 128, (-2**63, 2**63))):
+        for rows, per in ((1000, 8), (2047, 1), (994, 7), (edge - 32, 8), (edge, 1),
+                          (edge + 40, 8)):
+            rng = np.random.default_rng(rows * 100 + blocks)
+            states = torch.tensor(rng.integers(*words, (rows // per, 8), dtype=np.int64),
+                                  device=gpu)
+            data = torch.tensor(rng.integers(0, 256, (rows, blocks * width), dtype=np.uint8),
+                                device=gpu)
+            before = cuda_mod.compress.launches, cuda_mod.compress.split_launches
+            if path is None:  # the wrapper, by the rule, counted
+                got = cuda_mod.compress(states, data, per)
+                split = sha256_cuda.split_rule(rows, blocks, sms)
+                assert (cuda_mod.compress.launches, cuda_mod.compress.split_launches) == (
+                    before[0] + 1, before[1] + split), (width, rows, per)
+            else:  # the path forced, as timing forces it: not counted
+                got, taken = sha256_cuda.launch(width, states, data, per, path)
+                assert taken == path
+                assert (cuda_mod.compress.launches,
+                        cuda_mod.compress.split_launches) == before, (width, rows, per)
+            torch.cuda.synchronize()
+            want = _sha2_plain_absorb(mod, states, data, per, width)
+            assert torch.equal(got, want), (width, rows, per, path)
+
+
+def test_sha2_paths_take_zero_rows_and_refuse_unknown_paths(gpu):
+    for cuda_mod, width in ((sha256_cuda, 64), (sha512_cuda, 128)):
+        before = cuda_mod.compress.launches
+        out = cuda_mod.compress(torch.zeros((0, 8), dtype=torch.int64, device=gpu),
+                                torch.zeros((0, 3 * width), dtype=torch.uint8, device=gpu))
+        assert out.shape == (0, 8) and cuda_mod.compress.launches == before
+        for path in ("rows", "split"):
+            out, _ = sha256_cuda.launch(width, torch.zeros((0, 8), dtype=torch.int64, device=gpu),
+                                        torch.zeros((0, 3 * width), dtype=torch.uint8,
+                                                    device=gpu), 1, path)
+            assert out.shape == (0, 8)
+        with pytest.raises(ValueError, match="path"):
+            sha256_cuda.launch(width, torch.zeros((1, 8), dtype=torch.int64, device=gpu),
+                               torch.zeros((1, width), dtype=torch.uint8, device=gpu), 1, "warp")
+
+
 def _slhdsa_on_gpu(gpu, data):
     """keygen -> pk, deterministic sign -> sig_sha256, verify, on the GPU."""
     p = slhdsa_params.PARAMS[data["algorithm"]]
@@ -568,6 +629,21 @@ def test_slhdsa_gpu_path_matches_vectors(gpu, size):
     assert ok.tolist() == [True] * len(recs) + [False] * len(recs)
     assert sha256_cuda.compress.launches > before[0]
     assert (sha512_cuda.compress.launches > before[1]) == (size[:3] != "128")
+
+
+@pytest.mark.parametrize("size,hasher", [("128f", sha256_cuda), ("192f", sha512_cuda)])
+def test_slhdsa_sign_verify_through_the_few_row_path(gpu, size, hasher):
+    """A 128f and a 192f keygen, sign and verify of the vector files: their
+    T_l launches (few rows of 10 blocks, SHA-256 for 128f and SHA-512 for
+    192f) take the few-row path, and the bytes stay the vectors'."""
+    data = json.loads((VECTOR_DIR / f"slhdsa_{size}.json").read_text())
+    before = hasher.compress.split_launches
+    recs, pk, sig, ok = _slhdsa_on_gpu(gpu, data)
+    for i, rec in enumerate(recs):
+        assert bytes(pk[i].cpu().numpy()).hex() == rec["pk"]
+        assert hashlib.sha256(bytes(sig[i].cpu().numpy())).hexdigest() == rec["sig_sha256"]
+    assert ok.tolist() == [True] * len(recs) + [False] * len(recs)
+    assert hasher.compress.split_launches > before
 
 
 def test_batched_sphincs_on_the_default_backend(gpu, monkeypatch):

@@ -211,3 +211,47 @@ def test_kernel_wrappers_raise_on_cpu_tensors(wrapper, width):
     with pytest.raises(ValueError, match="CUDA tensor"):
         wrapper(torch.zeros((2, 8), dtype=torch.int64), torch.zeros((2, width), dtype=torch.uint8))
     assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("split_rule,rows,blocks,want", [
+    # K12 on a 132-SM card: the SPHINCS+ shapes
+    (sha256_cuda.split_rule, 1024 * 8, 10, True),        # 128f T_l, sign at B = 1024
+    (sha256_cuda.split_rule, 2048, 10, True),            # 128s T_l of a verify flush
+    (sha256_cuda.split_rule, 1024 * 8 * 35, 1, False),   # 128f chain step
+    (sha256_cuda.split_rule, 1024 * 33 * 64, 1, False),  # 128f FORS leaves
+    # K13 (the same rule): 192f T_l at B = 256, FORS level 1
+    (sha256_cuda.split_rule, 256 * 8, 10, True),
+    (sha256_cuda.split_rule, 256 * 33 * 128, 1, False),
+])
+def test_sha2_path_rule_at_the_sphincs_shapes(split_rule, rows, blocks, want):
+    assert split_rule(rows, blocks, 132) is want
+
+
+@pytest.mark.parametrize("sms", [132, 114])  # H100 SXM, H100 PCIe
+def test_sha2_path_rule_edges(sms):
+    """Few rows of two blocks or more take the few-row path, up to the
+    crossover's rows an SM (exclusive); one block a row never does."""
+    rule, edge = sha256_cuda.split_rule, sha256_cuda.SPLIT_ROWS_PER_SM * sms
+    assert rule(1, 2, sms) and rule(edge - 1, 2, sms)
+    assert not rule(edge, 2, sms) and not rule(edge, 17, sms)
+    assert not rule(1, 1, sms) and not rule(edge - 1, 1, sms)
+    assert rule(edge, 2, sms + 1) and not rule(edge - 1, 2, sms - 1)
+
+
+@pytest.mark.parametrize("wrapper,width", [(sha256_cuda.compress, 64),
+                                           (sha512_cuda.compress, 128)])
+def test_kernel_wrappers_raise_on_bad_shapes_and_paths(wrapper, width):
+    """Shapes and the path are checked before the device: each of these
+    raises on the CPU with its own message and counts no launch."""
+    st, blk = torch.zeros((2, 8), dtype=torch.int64), torch.zeros((2, width), dtype=torch.uint8)
+    before = wrapper.launches, wrapper.split_launches
+    for args, match in (((st[:, :7], blk), "state must be"),
+                        ((st, blk[:, :-1]), "blocks must be"),
+                        ((st, blk[:, :0]), "blocks must be"),
+                        ((st, blk, 2), "rows for 2 states"),
+                        ((st, blk, 0), "rows for 2 states")):
+        with pytest.raises(ValueError, match=match):
+            wrapper(*args)
+    with pytest.raises(ValueError, match="path must be"):
+        sha256_cuda.launch(width, st, blk, path="warp")
+    assert (wrapper.launches, wrapper.split_launches) == before
