@@ -102,7 +102,26 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              of one sign_digest (B = 16) within sphincs.BYTES_PER_ROW, and
              one SPHINCS+-SHA2-256s sign_batch of three chunks whose peak
              stays within the provider's budget, every signature verified;
-14. profile  torch.profiler over the KEM flagship, one sign batch, five
+14. obs and faults  the observability and fault layer on the GPU
+             providers: warmup() of BatchedKEM (ML-KEM-768),
+             BatchedSignature (ML-DSA-65), BatchedFused and BatchedAEAD
+             (ChaCha20-Poly1305) under a cost ledger (each one compile
+             event); 1024 ML-KEM-768 clients, then 256 fused handshakes,
+             under the process tracer with a fresh ledger: one queue.flush
+             and one device.dispatch span a flush, each dispatch under its
+             flush, the Chrome trace parses, the ledger's device seconds
+             are the queues' device histograms' (within 1e-6 s), secrets
+             agree; a seeded FaultPlan raising at one ML-KEM-768.enc flush
+             and poisoning one slot of a ML-KEM-768.dec flush: exactly those
+             futures raise FaultInjected, every other secret agrees, the
+             plan's log holds the two faults; 512 bulk and 64
+             handshake-lane seals against a bulk capacity of 64: the excess
+             is shed with LaneShed and counted, every handshake-lane seal
+             served, every frame opens; obs.trace.device_trace around one
+             flagship batch holds CUDA kernel events; before it, the serve
+             rate of phase 4 with the process tracer and with spans off,
+             five serves each, in turns;
+15. profile  torch.profiler over the KEM flagship, one sign batch, five
              verify batches, one 4096 x 4 KiB seal batch, one
              FrodoKEM-640-SHAKE encaps batch of 1024 keys, one 128f sign
              batch of 1024 and one 128s verify batch of 2048: device time
@@ -113,14 +132,14 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              the counts are read).
 
 Every kernel wrapper counts its launches.  The counts are set to 0 just
-before each of phases 4-13 and read just after it: every ML-KEM kernel
+before each of phases 4-14 and read just after it: every ML-KEM kernel
 must have run in phase 4, every kernel that encaps runs in phase 5, every
 ML-DSA kernel and K1 in phase 6, K1 and K7 in phase 7, every kernel but
 K8 (K1 with per-row lengths included) in phase 8, K8 in phase 9, K1 and
 K9-K11 in phase 10, K1, K10 and K11 in phase 11, K12 in phase 12 and in
 each set of phase 13, and K13 in phase 13's 192f run and in its memory
 check; K12's few-row path in phase 12 and 13's 128f run, K13's in 13's
-192f run.  The last three lines of output are the card's name and power
+192f run; every kernel of phase 8 and K8 in phase 14.  The last three lines of output are the card's name and power
 limit (nvidia-smi), one JSON object with key "kernels", and the result
 line {"ok": true, "device": {...}}.  Without a GPU, or without the package
 beside this file, the script prints no result and exits non-zero.
@@ -129,6 +148,7 @@ beside this file, the script prints no result and exits non-zero.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import hashlib
 import json
 import re
@@ -281,6 +301,15 @@ SHA2_SHAPES = (("sha256_compress", 1024, 8 * 35, 1, "128f chain step, B = 1024")
 #: K12/K13's kernels (csrc/sha2.cu): the rows path and the few-row path
 SHA2_KERNELS = {"sha256_compress": ("sha256_kernel", "sha256_split_kernel"),
                 "sha512_compress": ("sha512_kernel", "sha512_split_kernel")}
+#: the obs and faults phase: fused handshakes traced after the ML-KEM-768
+#: clients, the clients of the faulted queues, the bulk lane's capacity and
+#: the bulk and handshake-lane seals submitted against it, the plan's seed
+OBS_HANDSHAKES, FAULT_CLIENTS = 256, 256
+LANE_CAP, BULK_SEALS, LANE_SEALS = 64, 512, 64
+FAULT_SEED = 12
+#: the serve rate with spans on and off: five pairs, which side runs first
+#: alternating
+SERVE_RATE_ORDER = ("tracer", "no_tracer", "no_tracer", "tracer") * 2 + ("tracer", "no_tracer")
 
 
 class PhaseFailed(RuntimeError):
@@ -1219,6 +1248,262 @@ def phase_seal_batch(torch, device, scalar, inputs) -> dict:
     return out
 
 
+class NoTracer:
+    """Stands in for the process tracer when the serve rate is read without
+    spans: records nothing."""
+
+    @contextlib.contextmanager
+    def span(self, name, parent=None, **attrs):
+        yield None
+
+
+def attach_cost(facades, ledger) -> list:
+    """``ledger`` as the cost ledger of each facade and of its queues; ->
+    the queues."""
+    from quantum_resistant_p2p_tpu_torch.provider import facade_queues
+
+    queues = []
+    for f in facades:
+        f.cost = ledger
+        for q in facade_queues(f):
+            q.cost = ledger
+            queues.append(q)
+    return queues
+
+
+async def fused_sessions(kem, dsa, bf, bs, n: int) -> float:
+    """``n`` fused handshakes, both sides' steps through one BatchedFused,
+    the gateway's verify of each confirm through BatchedSignature; every
+    session must agree.  -> wall seconds."""
+    pks, sks = dsa.generate_keypair_batch(n)
+    gw_pk, gw_sk = dsa.generate_keypair()
+
+    async def session(i: int) -> bool:
+        peer, sk, spk = f"peer-{i:04d}", bytes(sks[i]), bytes(pks[i])
+        init = {"message_id": str(uuid.UUID(int=4 << 64 | i)), "kem": kem.name, "aead": AEAD,
+                "public_key": "0" * (2 * kem.public_key_len), "sender": peer,
+                "recipient": GATEWAY, "timestamp": 1.8e9 + i / 1e3}
+        kem_pk, kem_sk, s1 = await bf.keygen_sign(sk, canonical(init))
+        init["public_key"] = kem_pk.hex()
+        resp = {"message_id": str(uuid.UUID(int=5 << 64 | i)), "sender": GATEWAY,
+                "ciphertext": "0" * (2 * kem.ciphertext_len), "recipient": peer,
+                "timestamp": 1.8e9 + 1 + i / 1e3}
+        ok, ct, ss_gw, s2 = await bf.encaps_verify_sign(kem_pk, spk, canonical(init), s1, gw_sk,
+                                                        canonical(resp))
+        resp["ciphertext"] = ct.hex()
+        confirm = canonical({"message_id": str(uuid.UUID(int=6 << 64 | i)), "sender": peer,
+                             "recipient": GATEWAY, "timestamp": 1.8e9 + 2 + i / 1e3})
+        ok2, ss_peer, s3 = await bf.decaps_verify_sign(kem_sk, ct, gw_pk, canonical(resp), s2,
+                                                       sk, confirm)
+        ok3 = await bs.verify(spk, confirm, s3)
+        return ok and ok2 and ok3 and hmac.compare_digest(ss_gw, ss_peer)
+
+    t0 = time.perf_counter()
+    done = await asyncio.gather(*(session(i) for i in range(n)))
+    wall = time.perf_counter() - t0
+    if not all(done):
+        raise PhaseFailed(f"obs: {done.count(False)} of {n} traced fused handshakes failed")
+    return wall
+
+
+async def faulted_kem(provider, faults, kem) -> dict:
+    """FAULT_CLIENTS clients through one BatchedKEM under a seeded plan: the
+    2nd encaps flush raises at device.dispatch, one slot of the 1st decaps
+    flush is poisoned.  Exactly those futures raise FaultInjected; every
+    other secret agrees; the plan's log holds exactly the two faults."""
+    rules = [faults.FaultRule("device.dispatch", "raise", match={"op": f"{kem.name}.enc"}, nth=2),
+             faults.FaultRule("device.dispatch", "poison", match={"op": f"{kem.name}.dec"})]
+    plan = faults.FaultPlan(FAULT_SEED, rules)
+    with provider.BatchedKEM(kem, max_wait_ms=20.0) as fk, plan.activate():
+        pairs = await asyncio.gather(*(fk.generate_keypair() for _ in range(FAULT_CLIENTS)))
+        good = await asyncio.gather(*(fk.encapsulate(pk) for pk, _ in pairs))
+        failed = await asyncio.gather(*(fk.encapsulate(pk) for pk, _ in pairs),
+                                      return_exceptions=True)
+        keys = await asyncio.gather(*(fk.decapsulate(sk, ct) for (_, sk), (ct, _)
+                                      in zip(pairs, good)), return_exceptions=True)
+        flushes = {op: st["flushes"] for op, st in fk.stats().items()}
+    if flushes != {"keygen": 1, "encaps": 2, "decaps": 1}:
+        raise PhaseFailed(f"faults: the rounds did not each ride one flush: {flushes}")
+    applied = [(e["action"], e["op"]) for e in plan.injected]
+    if applied != [("raise", f"{kem.name}.enc"), ("poison", f"{kem.name}.dec")]:
+        raise PhaseFailed(f"faults: the plan's log is {plan.injected}")
+    if not all(isinstance(r, faults.FaultInjected) for r in failed):
+        raise PhaseFailed("faults: a future of the raising encaps flush did not raise")
+    slot = plan.injected[1]["slot"]
+    raised = [i for i, r in enumerate(keys) if isinstance(r, BaseException)]
+    if raised != [slot] or not isinstance(keys[slot], faults.FaultInjected):
+        raise PhaseFailed(f"faults: decaps futures {raised} raised, the poisoned slot is {slot}")
+    if any(keys[i] != good[i][1] for i in range(FAULT_CLIENTS) if i != slot):
+        raise PhaseFailed("faults: a secret of an unfaulted future differs")
+    return {"clients": FAULT_CLIENTS, "flushes": flushes, "injected": plan.injected,
+            "raised": {"encaps": len(failed), "decaps": raised}}
+
+
+async def lane_shed(np, provider, aead) -> dict:
+    """BULK_SEALS bulk seals and LANE_SEALS handshake-lane seals at once
+    through a BatchedAEAD whose bulk lane holds LANE_CAP pending: each bulk
+    seal past the capacity raises LaneShed and is counted; every
+    handshake-lane seal is served; a gateway opens every sealed frame."""
+    rng = np.random.default_rng(13)
+    key = bytes(rng.integers(0, 256, 32, dtype=np.uint8))
+    msgs = [bytes(r) for r in rng.integers(0, 256, size=(BULK_SEALS + LANE_SEALS, 256),
+                                           dtype=np.uint8)]
+    with provider.BatchedAEAD(aead, max_wait_ms=20.0,
+                              lane_capacity={provider.LANE_BULK: LANE_CAP}) as cli,             provider.BatchedAEAD(aead, max_wait_ms=2.0) as gw:
+        frames = await asyncio.gather(
+            *(cli.encrypt(key, m) for m in msgs[:BULK_SEALS]),
+            *(cli.encrypt(key, m, lane=provider.LANE_HANDSHAKE) for m in msgs[BULK_SEALS:]),
+            return_exceptions=True)
+        served = [i for i, f in enumerate(frames) if isinstance(f, bytes)]
+        opened = await asyncio.gather(*(gw.decrypt(key, frames[i]) for i in served))
+        stats = cli.stats()["seal"]
+    shed = [i for i, f in enumerate(frames) if isinstance(f, provider.LaneShed)]
+    if len(shed) + len(served) != len(frames):
+        raise PhaseFailed("lanes: a seal failed with another error than LaneShed")
+    if any(i >= BULK_SEALS for i in shed):
+        raise PhaseFailed("lanes: a handshake-lane seal was shed")
+    bulk = BULK_SEALS - len(shed)
+    if bulk < LANE_CAP or (stats["flushes"] == 1 and bulk != LANE_CAP):
+        raise PhaseFailed(f"lanes: {bulk} bulk seals served over {stats['flushes']} flushes "
+                          f"with a capacity of {LANE_CAP}")
+    if stats["lane_sheds"] != {"bulk": len(shed)}:
+        raise PhaseFailed(f"lanes: lane_sheds {stats['lane_sheds']} for {len(shed)} shed seals")
+    if opened != [msgs[i] for i in served]:
+        raise PhaseFailed("lanes: an opened frame differs from its plaintext")
+    return {"bulk_submitted": BULK_SEALS, "bulk_served": bulk, "bulk_shed": len(shed),
+            "handshake_served": LANE_SEALS, "seal_flushes": stats["flushes"],
+            "lanes": stats["lanes"], "lane_sheds": stats["lane_sheds"]}
+
+
+def phase_obs_faults(np, provider, faults, obs_cost, obs_trace, kem, dsa, fused, aead, pk_off,
+                     ct_off, entry) -> dict:
+    """The observability and fault layer on the card: warm-up under a cost
+    ledger, traced serving, a seeded fault plan, lane shedding, the
+    profiler, and the serve rate with spans and without."""
+    t_phase = time.perf_counter()
+    out = {"warmup": {}}
+    scalar = provider.get_symmetric(AEAD)
+    with provider.BatchedKEM(kem) as bk, provider.BatchedSignature(dsa) as bs,             provider.BatchedFused(fused, pk_off, ct_off) as bf,             provider.BatchedAEAD(aead, scalar) as ba:
+        warm_ledger = obs_cost.CostLedger()
+        attach_cost((bk, bs, bf, ba), warm_ledger)
+        for f in (bk, bs, bf, ba):
+            t0 = time.perf_counter()
+            f.warmup()
+            out["warmup"][f.name] = time.perf_counter() - t0
+        compiles = warm_ledger.snapshot()["recent_compiles"]
+        for f in (bk, bs, bf, ba):
+            events = [e for e in compiles if e["queue"] == f.name]
+            print(f"[obs] warmup {f.name}: {out['warmup'][f.name]:.4f} s; compile events "
+                  f"{[(e['bucket'], e['where'], e['seconds']) for e in events]}")
+            if len(events) != 1:
+                raise PhaseFailed(f"obs: {f.name} warm-up made {len(events)} compile events")
+        out["warm_compiles"] = compiles
+
+        # traced serving: the process tracer from empty, a fresh ledger
+        tracer = obs_trace.TRACER
+        tracer.reset()
+        ledger = obs_cost.CostLedger()
+        queues = attach_cost((bk, bs, bf), ledger)
+        kem.opcache.attach_cost(ledger, "kem")
+        dsa.opcache.attach_cost(ledger, "sig")
+
+        async def traced():
+            async def client():
+                pk, sk = await bk.generate_keypair()
+                ct, ss = await bk.encapsulate(pk)
+                return ss == await bk.decapsulate(sk, ct)
+
+            t0 = time.perf_counter()
+            agreed = await asyncio.gather(*(client() for _ in range(SERVE_CLIENTS)))
+            wall = time.perf_counter() - t0
+            if not all(agreed):
+                raise PhaseFailed(f"obs: {agreed.count(False)} traced secrets differ")
+            return wall, await fused_sessions(kem, dsa, bf, bs, OBS_HANDSHAKES)
+
+        kem_wall, fused_wall = asyncio.run(traced())
+        spans = tracer.snapshot()
+        flushes = {s["span_id"]: s for s in spans if s["name"] == "queue.flush"}
+        dispatches = [s for s in spans if s["name"] == "device.dispatch"]
+        n_flushes = sum(q.stats.flushes for q in queues)
+        if not (len(flushes) == len(dispatches) == n_flushes):
+            raise PhaseFailed(f"obs: {len(flushes)} queue.flush and {len(dispatches)} "
+                              f"device.dispatch spans for {n_flushes} flushes")
+        orphans = [d for d in dispatches if d["parent_id"] not in flushes
+                   or flushes[d["parent_id"]]["attrs"]["op"] != d["attrs"]["op"]]
+        if orphans or len({d["parent_id"] for d in dispatches}) != len(dispatches):
+            raise PhaseFailed(f"obs: device.dispatch spans without their own flush: {orphans[:2]}")
+        chrome = json.loads(json.dumps(obs_trace.to_chrome_trace(spans)))
+        hist_s = sum(q.stats.device_hist.total for q in queues)
+        if abs(ledger.device_seconds_total() - hist_s) > 1e-6:
+            raise PhaseFailed(f"obs: ledger device seconds {ledger.device_seconds_total()} "
+                              f"against the histograms' {hist_s}")
+        out["traced"] = {"kem_clients": SERVE_CLIENTS, "kem_wall_s": kem_wall,
+                         "fused_handshakes": OBS_HANDSHAKES, "fused_wall_s": fused_wall,
+                         "queue_flush_spans": len(flushes),
+                         "device_dispatch_spans": len(dispatches), "flushes": n_flushes,
+                         "chrome_events": len(chrome["traceEvents"]),
+                         "device_seconds_total": ledger.device_seconds_total(),
+                         "device_hist_seconds": hist_s, "cost": ledger.totals(),
+                         "flushes_by_queue": {q.label: q.stats.flushes for q in queues}}
+        print(f"[obs] traced: {SERVE_CLIENTS} ML-KEM-768 clients in {kem_wall:.3f} s, "
+              f"{OBS_HANDSHAKES} fused handshakes in {fused_wall:.3f} s; {len(flushes)} "
+              f"queue.flush and {len(dispatches)} device.dispatch spans for {n_flushes} "
+              f"flushes {out['traced']['flushes_by_queue']}; ledger device seconds "
+              f"{ledger.device_seconds_total():.6f} (histograms {hist_s:.6f}); "
+              f"cost {ledger.totals()}")
+
+    out["faults"] = asyncio.run(faulted_kem(provider, faults, kem))
+    print(f"[obs] faults: {out['faults']['injected']}; encaps futures raised "
+          f"{out['faults']['raised']['encaps']}, decaps {out['faults']['raised']['decaps']}")
+    out["lanes"] = asyncio.run(lane_shed(np, provider, aead))
+    print(f"[obs] lanes: {out['lanes']}")
+
+    rates = out["serve_rate"] = serve_rates(provider, obs_trace, kem)
+    print(f"[obs] ML-KEM-768 serve, {SERVE_CLIENTS} clients, handshakes/s in the order "
+          f"{' '.join(SERVE_RATE_ORDER)}: with the process tracer "
+          f"{[round(r, 1) for r in rates['tracer']]} (median "
+          f"{statistics.median(rates['tracer']):.1f}), with spans off "
+          f"{[round(r, 1) for r in rates['no_tracer']]} (median "
+          f"{statistics.median(rates['no_tracer']):.1f})")
+    out["device_trace"] = traced_flagship(obs_trace, entry)
+    print(f"[obs] device_trace over one flagship batch: {out['device_trace']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[obs] phase took {out['phase_s']:.1f} s")
+    return out
+
+
+def traced_flagship(obs_trace, entry) -> dict:
+    """obs.trace.device_trace around one warm flagship batch: the trace
+    file must hold the card's kernel events."""
+    fn, args = entry()
+    fn(*args)
+    with tempfile.TemporaryDirectory() as tmp:
+        with obs_trace.device_trace(tmp) as path:
+            fn(*args)
+        events = json.loads(path.read_text())["traceEvents"]
+        trace_bytes = path.stat().st_size
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise PhaseFailed("obs: device_trace wrote no CUDA kernel events")
+    return {"events": len(events), "kernel_events": len(kernels), "bytes": trace_bytes,
+            "kernel_us": sum(e.get("dur", 0) for e in kernels)}
+
+
+def serve_rates(provider, obs_trace, kem) -> dict:
+    """The serve phase's handshakes/s with the process tracer and with
+    NoTracer in its place, in the turns of SERVE_RATE_ORDER."""
+    tracer = obs_trace.TRACER
+    rates = {"tracer": [], "no_tracer": []}
+    for mode in SERVE_RATE_ORDER:
+        if mode == "no_tracer":
+            obs_trace.TRACER = NoTracer()
+        try:
+            rates[mode].append(asyncio.run(serve(provider.BatchedKEM, kem))["handshakes_per_s"])
+        finally:
+            obs_trace.TRACER = tracer
+    return rates
+
+
 def pct(xs, q):
     return 1e3 * sorted(xs)[min(len(xs) - 1, int(q / 100 * len(xs)))]
 
@@ -1718,12 +2003,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     try:
-        from quantum_resistant_p2p_tpu_torch import provider
+        from quantum_resistant_p2p_tpu_torch import faults, provider
         from quantum_resistant_p2p_tpu_torch.core import (chacha, chacha_cuda, keccak, keccak_cuda,
                                                           sha256, sha256_cuda, sha512,
                                                           sha512_cuda)
         from quantum_resistant_p2p_tpu_torch.entry import entry
         from quantum_resistant_p2p_tpu_torch.kem import frodo, frodo_cuda, mlkem, mlkem_cuda
+        from quantum_resistant_p2p_tpu_torch.obs import cost as obs_cost
+        from quantum_resistant_p2p_tpu_torch.obs import trace as obs_trace
         from quantum_resistant_p2p_tpu_torch.provider import (BatchedKEM, BatchedSignature,
                                                               get_kem, get_signature, health)
         from quantum_resistant_p2p_tpu_torch.sig import mldsa, mldsa_cuda, slhdsa_params, sphincs
@@ -1877,6 +2164,10 @@ def main() -> int:
         slh_memory = phase_sphincs_memory(torch, np, provider, sphincs, slhdsa_params)
         launches["sphincs_memory"] = read("sphincs memory", ("sha256_compress",
                                                              "sha512_compress"))
+        reset()
+        observed = phase_obs_faults(np, provider, faults, obs_cost, obs_trace, kem, dsa, fused,
+                                    aead, pk_off, ct_off, entry)
+        launches["obs_faults"] = read("obs and faults", HANDSHAKE_KERNELS + ("chacha_blocks",))
 
         # launches of one batched call of each op (after the counted window)
         def count(call):
@@ -1973,7 +2264,7 @@ def main() -> int:
                                  "health": verdicts, "handshake": shaken, "data_plane": plane,
                                  "frodo_serve": frodo_served, "frodo_batch": frodo_batch,
                                  "sphincs_serve": slh_served, "sphincs_batch": slh_batch,
-                                 "sphincs_memory": slh_memory,
+                                 "sphincs_memory": slh_memory, "obs_faults": observed,
                                  "launches": launches, "launches_per_op": per_op,
                                  "profile": profiled}}))
     print(card)

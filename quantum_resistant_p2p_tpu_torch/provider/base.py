@@ -4,7 +4,9 @@ AEAD interfaces (scalar and batched).
 
 An algorithm reports its ``backend`` ("cuda" or "cpu") and offers
 ``*_batch`` operations over ``(batch, ...)`` uint8 numpy arrays; the scalar
-operations are the batch-of-one case.
+operations are the batch-of-one case.  The KEM, signature and scalar AEAD
+interfaces share :class:`CryptoAlgorithm`, which arms the ``scalar.op``
+fault hook (faults/) on their scalar operations.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import os
 import numpy as np
 import torch
 
+from ..faults import instrument_scalar_ops
 
 #: the port's backends: kernels on the GPU, or their plain versions on the CPU
 BACKENDS = ("cuda", "cpu")
@@ -55,7 +58,24 @@ def pad_rows(rows: np.ndarray, target: int) -> np.ndarray:
     return np.concatenate([np.asarray(rows), pad], axis=0)
 
 
-class KeyExchangeAlgorithm(abc.ABC):
+class CryptoAlgorithm(abc.ABC):
+    """Common base of the KEM, signature and scalar AEAD interfaces.
+
+    When a class deriving from it is created (these interfaces included),
+    the scalar ops it defines itself (generate_keypair / encapsulate /
+    decapsulate / sign / verify / encrypt / decrypt; abstract ones
+    excepted) are wrapped with the ``scalar.op`` fault hook, so a chaos
+    plan reaches every provider without monkeypatching.  With no plan
+    installed a call pays one global ``None`` check.  The ``*_batch`` ops
+    are never wrapped.
+    """
+
+    def __init_subclass__(cls, **kwargs) -> None:
+        super().__init_subclass__(**kwargs)
+        instrument_scalar_ops(cls)
+
+
+class KeyExchangeAlgorithm(CryptoAlgorithm):
     """KEM interface; byte-level scalar API + array-level batch API."""
 
     #: canonical registry name, e.g. "ML-KEM-768"
@@ -96,7 +116,7 @@ class KeyExchangeAlgorithm(abc.ABC):
         return bytes(self.decapsulate_batch(sk, ct)[0])
 
 
-class SignatureAlgorithm(abc.ABC):
+class SignatureAlgorithm(CryptoAlgorithm):
     """Signature interface; verify returns False for a malformed or invalid
     signature (a device failure raises)."""
 
@@ -181,7 +201,7 @@ class FusedHandshakeOps(abc.ABC):
         verify(msgs_in) + KEM decaps + sign(msgs_out)."""
 
 
-class SymmetricAlgorithm(abc.ABC):
+class SymmetricAlgorithm(CryptoAlgorithm):
     """AEAD interface, scalar (one message a call, on the host).
 
     The batched device path is a separate capability (:class:`BatchedAEADOps`,

@@ -23,7 +23,8 @@ Counterpart of the reference's ``provider/health.py``.  The probes:
 
 The CPU twins are the port's "cpu" providers (and the scalar AEAD), passed
 in by the caller; nothing on the GPU routes to them.  With no breaker in
-the port, a failed verdict raises from :func:`gate_facades`.  The
+the port, a failed verdict raises from :func:`gate_facades`.  Every
+verdict is a flight-recorder event (``health_ok`` / ``health_failed``).  The
 reference's on-disk verdict cache is not ported: every gate runs its
 probes.
 """
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 
 from ..kem import frodo, mlkem
+from ..obs import flight as obs_flight
 from ..utils.wipe import wipe
 from .base import (BatchedAEADOps, FusedHandshakeOps, KeyExchangeAlgorithm,
                    SignatureAlgorithm)
@@ -288,6 +290,9 @@ def gate_facades(*facades, cpu_kem=None, cpu_sig=None, scalar=None) -> list[Heal
         else:
             raise TypeError(f"no health check for a facade over {type(algo).__name__}")
         out.append(verdict)
-        if not verdict.ok:
-            raise RuntimeError(f"device health {verdict.family} failed: {verdict.detail}")
+        if verdict.ok:
+            obs_flight.record("health_ok", family=verdict.family, detail=verdict.detail)
+            continue
+        obs_flight.record("health_failed", family=verdict.family, detail=verdict.detail)
+        raise RuntimeError(f"device health {verdict.family} failed: {verdict.detail}")
     return out

@@ -12,6 +12,9 @@ never appear in stats.
 Lookups and inserts take a lock (queues dispatch from an executor thread).
 The miss path computes outside the lock, so two threads racing on one cold
 key may both compute; the second insert wins with an identical value.
+With a cost ledger attached (:meth:`DeviceOperandCache.attach_cost`),
+every lookup is a hit or miss event in its sliding window; releasing the
+entries is a flight-recorder event.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import threading
 from collections import OrderedDict
 from typing import Any
 
+from ..obs import flight as obs_flight
 from ..utils.wipe import wipe
 
 
@@ -40,6 +44,15 @@ class DeviceOperandCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        #: cost-ledger feed (obs/cost.py): None records nothing extra
+        self._cost = None
+        self._cost_kind = ""
+
+    def attach_cost(self, ledger, kind: str) -> None:
+        """Feed hit/miss events into a :class:`obs.cost.CostLedger` under
+        cache label ``kind`` ("kem" / "sig")."""
+        self._cost = ledger
+        self._cost_kind = kind
 
     @staticmethod
     def _key(kind: str, key_bytes: bytes) -> tuple[str, bytes]:
@@ -54,9 +67,14 @@ class DeviceOperandCache:
             if k in self._entries:
                 self._entries.move_to_end(k)
                 self.hits += 1
-                return self._entries[k]
-            self.misses += 1
-            return None
+                hit, out = True, self._entries[k]
+            else:
+                self.misses += 1
+                hit, out = False, None
+        if self._cost is not None:
+            # outside the lock: the ledger takes its own
+            self._cost.opcache_event(self._cost_kind, hit)
+        return out
 
     def put(self, kind: str, key_bytes: bytes, val: Any) -> None:
         k = self._key(kind, bytes(key_bytes))
@@ -75,6 +93,9 @@ class DeviceOperandCache:
             self._entries.clear()
         for val in entries:
             wipe(*val.values())
+        # key-lifetime events belong in the flight ring (counts only,
+        # never key identities)
+        obs_flight.record("opcache_zeroized", entries=len(entries))
         return len(entries)
 
     def stats(self) -> dict[str, int]:

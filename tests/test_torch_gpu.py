@@ -669,3 +669,61 @@ def test_batched_sphincs_on_the_default_backend(gpu, monkeypatch):
     budget = 2 * sphincs.rows_in_flight(dsa.params) * sphincs.BYTES_PER_ROW
     monkeypatch.setattr(dsa, "memory_budget", lambda: budget)
     assert dsa.sign_batch(sks, msgs) == sigs
+
+
+def test_device_trace_records_the_cards_kernels(gpu, tmp_path):
+    """obs.trace.device_trace on the card: a Chrome trace of CUDA activity
+    that holds the launched kernel, and no host operators."""
+    from quantum_resistant_p2p_tpu_torch.obs import trace
+
+    seeds = _u8(130, 64, 34).to(gpu)
+    with trace.device_trace(tmp_path) as path:
+        mlkem_cuda.sample_ntt(seeds)
+    events = json.loads(path.read_text())["traceEvents"]
+    assert any(e.get("cat") == "kernel" and "sample_ntt_kernel" in e.get("name", "")
+               for e in events)
+    assert not any(e.get("cat") == "cpu_op" for e in events)
+
+
+def test_traced_and_faulted_kem_flushes(gpu, monkeypatch):
+    """One BatchedKEM on the card under a tracer, a cost ledger and a
+    seeded plan: the 2nd encaps flush raises in all its futures, one decaps
+    slot is poisoned, every other secret agrees; one queue.flush and one
+    device.dispatch span a flush, each dispatch under its flush; the
+    ledger's device seconds are the queues' device histograms'."""
+    from quantum_resistant_p2p_tpu_torch import faults
+    from quantum_resistant_p2p_tpu_torch.obs import cost, trace
+    from quantum_resistant_p2p_tpu_torch.provider import facade_queues
+
+    tracer = trace.Tracer()
+    monkeypatch.setattr(trace, "TRACER", tracer)
+    ledger = cost.CostLedger()
+    plan = faults.FaultPlan(12, [
+        faults.FaultRule("device.dispatch", "raise", match={"op": "ML-KEM-768.enc"}, nth=2),
+        faults.FaultRule("device.dispatch", "poison", match={"op": "ML-KEM-768.dec"})])
+
+    async def run():
+        with BatchedKEM(get_kem("ML-KEM-768"), max_wait_ms=5.0) as bk:
+            for q in facade_queues(bk):
+                q.cost = ledger
+            pairs = await asyncio.gather(*(bk.generate_keypair() for _ in range(8)))
+            enc = await asyncio.gather(*(bk.encapsulate(pk) for pk, _ in pairs))
+            failed = await asyncio.gather(*(bk.encapsulate(pk) for pk, _ in pairs),
+                                          return_exceptions=True)
+            dec = await asyncio.gather(*(bk.decapsulate(sk, ct) for (_, sk), (ct, _)
+                                         in zip(pairs, enc)), return_exceptions=True)
+            return enc, failed, dec, facade_queues(bk)
+
+    with plan.activate():
+        enc, failed, dec, queues = asyncio.run(run())
+    assert all(isinstance(r, faults.FaultInjected) for r in failed)
+    poisoned = [i for i, r in enumerate(dec) if isinstance(r, faults.FaultInjected)]
+    assert len(poisoned) == 1 and [e["action"] for e in plan.injected] == ["raise", "poison"]
+    assert all(dec[i] == enc[i][1] for i in range(8) if i not in poisoned)
+    spans = tracer.snapshot()
+    flushes = {s["span_id"] for s in spans if s["name"] == "queue.flush"}
+    dispatches = [s for s in spans if s["name"] == "device.dispatch"]
+    assert len(flushes) == len(dispatches) == sum(q.stats.flushes for q in queues) == 4
+    assert {s["parent_id"] for s in dispatches} == flushes
+    assert abs(ledger.device_seconds_total()
+               - sum(q.stats.device_hist.total for q in queues)) < 1e-9

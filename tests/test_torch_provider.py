@@ -242,6 +242,11 @@ def test_port_imports_no_jax():
         "import quantum_resistant_p2p_tpu_torch.provider.aead_device\n"
         "import quantum_resistant_p2p_tpu_torch.provider.health\n"
         "import quantum_resistant_p2p_tpu_torch.provider.symmetric\n"
+        "import quantum_resistant_p2p_tpu_torch.provider.batched, quantum_resistant_p2p_tpu_torch.obs\n"
+        "from quantum_resistant_p2p_tpu_torch.obs import cost, flight, metrics, redaction, slo, trace\n"
+        "from quantum_resistant_p2p_tpu_torch.faults import plan\n"
+        "with trace.Tracer().span('s'):\n"
+        "    cost.CostLedger(metrics.Registry('r')).device_time('q.enc', 0.1)\n"
         "from quantum_resistant_p2p_tpu_torch.provider import get_batched_aead\n"
         "dev = get_batched_aead('ChaCha20-Poly1305', backend='cpu')\n"
         "k, n = np.zeros((1, 32), np.uint8), np.zeros((1, 12), np.uint8)\n"
