@@ -121,7 +121,36 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              flagship batch holds CUDA kernel events; before it, the serve
              rate of phase 4 with the process tracer and with spans off,
              five serves each, in turns;
-15. profile  torch.profiler over the KEM flagship, one sign batch, five
+15. transport  the transport, session and degrade layers on the GPU
+             providers: BatchedKEM, BatchedSignature, BatchedFused and
+             BatchedAEAD over one DeviceProgramScheduler (one shard, a
+             0.2 s cool-off) with the "cpu" providers and the scalar AEAD
+             as their fallbacks, under a cost ledger and an Autotuner; the
+             health gate into a fresh verdict cache runs every probe, a
+             second gate reads every verdict back; 64 fused handshakes;
+             two P2PNodes on 127.0.0.1 negotiate bin1; 256 ML-KEM-768 key
+             agreements across the wire in two waves (B's keys to A, A's
+             encaps, the ciphertexts back as raw fields, B's decaps) under
+             a seeded FaultPlan that raises at the 2nd ML-KEM-768.enc
+             flush: its ops are served by the cpu fallback and agree with
+             B's device decaps, the breaker trips once, and after the
+             cool-off the next flush is the canary on the device and the
+             breaker closes (the flight ring holds breaker_open, then the
+             close); 1024 messages of 256 B sealed by the AEAD facade, one
+             dropped by the plan's net.send rule, the rest opened from the
+             frames' memoryviews into a MessageStore in order; one 96 KiB
+             message chunked and reassembled; a resumption ticket minted
+             by B's STEKRing, A's disconnect and reconnect, the resumed
+             key on both sides and a message under it; a replayed and a
+             corrupted ticket refused as replayed_ticket and
+             bad_ticket_auth; no queue but the faulted one served by its
+             fallback, the breaker closed at the end; the largest
+             dispatch a queue against degrade_after_ms and
+             dispatch_timeout_ms, the ledger's shard_device_time against
+             the device histograms, and phase 4's serve rate through the
+             scheduler, breaker and autotuner against the plain queues in
+             five alternating pairs;
+16. profile  torch.profiler over the KEM flagship, one sign batch, five
              verify batches, one 4096 x 4 KiB seal batch, one
              FrodoKEM-640-SHAKE encaps batch of 1024 keys, one 128f sign
              batch of 1024 and one 128s verify batch of 2048: device time
@@ -132,14 +161,14 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              the counts are read).
 
 Every kernel wrapper counts its launches.  The counts are set to 0 just
-before each of phases 4-14 and read just after it: every ML-KEM kernel
+before each of phases 4-15 and read just after it: every ML-KEM kernel
 must have run in phase 4, every kernel that encaps runs in phase 5, every
 ML-DSA kernel and K1 in phase 6, K1 and K7 in phase 7, every kernel but
 K8 (K1 with per-row lengths included) in phase 8, K8 in phase 9, K1 and
 K9-K11 in phase 10, K1, K10 and K11 in phase 11, K12 in phase 12 and in
 each set of phase 13, and K13 in phase 13's 192f run and in its memory
 check; K12's few-row path in phase 12 and 13's 128f run, K13's in 13's
-192f run; every kernel of phase 8 and K8 in phase 14.  The last three lines of output are the card's name and power
+192f run; every kernel of phase 8 and K8 in phases 14 and 15.  The last three lines of output are the card's name and power
 limit (nvidia-smi), one JSON object with key "kernels", and the result
 line {"ok": true, "device": {...}}.  Without a GPU, or without the package
 beside this file, the script prints no result and exits non-zero.
@@ -155,6 +184,7 @@ import re
 import statistics
 import hmac
 import os
+import random
 import subprocess
 import sys
 import tempfile
@@ -310,6 +340,17 @@ FAULT_SEED = 12
 #: the serve rate with spans on and off: five pairs, which side runs first
 #: alternating
 SERVE_RATE_ORDER = ("tracer", "no_tracer", "no_tracer", "tracer") * 2 + ("tracer", "no_tracer")
+#: the transport phase: key agreements over the wire (two waves, the
+#: second's encaps flush faulted), sealed messages of MESSAGE_BYTES and the
+#: one the plan drops, a message past the 64 KiB chunk size, the fused
+#: handshakes through the scheduled facades, the breaker's cool-off, the
+#: longest wait for a message, and the serve-rate turns against phase 4
+AGREEMENTS, MESSAGES, MESSAGE_BYTES, DROP_NTH = 256, 1024, 256, 100
+BIG_MESSAGE, TRANSPORT_HANDSHAKES, TRANSPORT_SEED = 96 * 1024, 64, 15
+TRANSPORT_COOLOFF_S, TRANSPORT_WAIT_S = 0.2, 60.0
+#: serve-rate arms: phase 4's plain queues, the scheduler and its breaker,
+#: and the same with the autotuner attached, five rounds in rotating order
+SCHED_RATE_ARMS, SCHED_RATE_ROUNDS = ("plain", "scheduled", "tuned"), 5
 
 
 class PhaseFailed(RuntimeError):
@@ -1145,6 +1186,9 @@ async def handshake(provider, kem, dsa, fused, cpu_dsa, pk_off, ct_off) -> dict:
                  "gateway.encaps_verify_sign": gw.stats()["encaps_verify_sign"],
                  "initiator.decaps_verify_sign": ini.stats()["decaps_verify_sign"],
                  "gateway.verify": gw_sig.stats()["verify"]}
+        sizes = {k: q.stats.batch_sizes[-16:] for k, q in (
+            ("initiator.keygen_sign", ini._kg), ("gateway.encaps_verify_sign", gw._enc),
+            ("initiator.decaps_verify_sign", ini._dec), ("gateway.verify", gw_sig._verify))}
     sessions, tampered = done[:HANDSHAKES], done[HANDSHAKES]
     bad = [r["i"] for r in sessions if not (r["ok"] and r.get("ok2") and r.get("ok3")
                                             and r.get("agree"))]
@@ -1173,7 +1217,7 @@ async def handshake(provider, kem, dsa, fused, cpu_dsa, pk_off, ct_off) -> dict:
     return {"handshakes": HANDSHAKES, "keygen_s": keygen_s, "wall_s": wall,
             "handshakes_per_s": HANDSHAKES / wall, "trips_per_handshake": trips,
             "flushes": flushes, "device_trips": sum(flushes.values()),
-            "flush_sizes": {k: v["recent_batch_sizes"] for k, v in stats.items()},
+            "flush_sizes": sizes,
             "queues": stats, "sessions": [(r["peer"], *r["keys"]) for r in sessions],
             "latency_ms": {op: {"p50": pct(v, 50), "p99": pct(v, 99)} for op, v in lat.items()}}
 
@@ -1504,6 +1548,429 @@ def serve_rates(provider, obs_trace, kem) -> dict:
     return rates
 
 
+class Session:
+    """What one side of the transport phase keeps: its node, its message
+    handlers' inboxes, and a waiter per message type."""
+
+    def __init__(self, node):
+        self.node = node
+        self.inbox: dict[str, list] = {}
+        self._want: dict[str, tuple[int, asyncio.Event]] = {}
+        #: the key of the last resumed session (the responder side)
+        self.resumed_key = b""
+
+    def listen(self, *msg_types: str) -> None:
+        for t in msg_types:
+            async def handler(peer_id, msg, t=t):
+                box = self.inbox.setdefault(t, [])
+                box.append(msg)
+                n, ev = self._want.get(t, (0, None))
+                if ev is not None and len(box) >= n:
+                    ev.set()
+
+            self.node.register_message_handler(t, handler)
+
+    async def wait(self, msg_type: str, n: int) -> list:
+        """The first ``n`` messages of ``msg_type``, within TRANSPORT_WAIT_S."""
+        ev = asyncio.Event()
+        self._want[msg_type] = (n, ev)
+        if len(self.inbox.get(msg_type, [])) >= n:
+            ev.set()
+        try:
+            await asyncio.wait_for(ev.wait(), TRANSPORT_WAIT_S)
+        except asyncio.TimeoutError:
+            raise PhaseFailed(
+                f"transport: {self.node.node_id} got {len(self.inbox.get(msg_type, []))} of "
+                f"{n} {msg_type} messages in {TRANSPORT_WAIT_S} s; peers "
+                f"{self.node.get_peers()}, wire errors {self.node.wire_errors}, inboxes "
+                f"{ {k: len(v) for k, v in self.inbox.items()} }") from None
+        return self.inbox[msg_type][:n]
+
+    def take(self, msg_type: str) -> list:
+        return self.inbox.pop(msg_type, [])
+
+
+async def until(cond, what: str) -> None:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > TRANSPORT_WAIT_S:
+            raise PhaseFailed(f"transport: timed out waiting for {what}")
+        await asyncio.sleep(0.002)
+
+
+def validate_resume(res, faults, ring, replay, msg, node_id: str, peer: str, kem: str,
+                    sig: str) -> tuple[str, dict]:
+    """The responder's check of a presented ticket, as the reference's
+    engine runs it: the ticket fault point, open, single use, expiry,
+    holder, suite, binder.  -> ("ok", reply) or (reason, {})."""
+    blob = bytes(msg["ticket"])
+    if "corrupt" in faults.ticket_validation(node_id, peer):
+        doctored = bytearray(blob)
+        doctored[len(doctored) // 2] ^= 0xFF
+        blob = bytes(doctored)
+    try:
+        fields, rsec = ring.open_ticket(blob)
+        if replay.seen(fields["nonce"], fields["expires_at"], time.time()):
+            raise res.TicketError("replayed_ticket")
+        if fields["expires_at"] <= time.time():
+            raise res.TicketError("expired_ticket")
+        if fields["holder"] != peer:
+            raise res.TicketError("holder_mismatch")
+        if (fields["kem"], fields["aead"], fields["sig"]) != (kem, AEAD, sig):
+            raise res.TicketError("suite_mismatch")
+        data = canonical({"client_nonce": msg["client_nonce"], "sender": peer})
+        if not hmac.compare_digest(res.resume_binder(rsec, data, blob), msg["binder"]):
+            raise res.TicketError("bad_binder")
+    except res.TicketError as e:
+        return e.reason, {}
+    server_nonce = uuid.uuid4().hex
+    key = res.derive_resumed_key(rsec, msg["client_nonce"], server_nonce, AEAD)
+    confirm = res.resume_confirm_tag(key, msg["message_id"], msg["client_nonce"], server_nonce)
+    return "ok", {"server_nonce": server_nonce, "confirm": confirm, "key": key}
+
+
+async def transport(np, faults, obs_trace, res, store, p2p, facades, kem, dsa) -> dict:
+    """Two P2PNodes on loopback over the scheduled facades: bin1, the key
+    agreements (the injected device fault among them), the sealed
+    messages (one dropped by the plan), a chunked message, and a resumed
+    session with a replayed and a corrupted ticket."""
+    from quantum_resistant_p2p_tpu_torch.obs import flight as obs_flight
+
+    bk, _, _, ba = facades
+    rng = np.random.default_rng(TRANSPORT_SEED)
+    plan = faults.FaultPlan(TRANSPORT_SEED, [
+        faults.FaultRule("device.dispatch", "raise", match={"op": f"{kem.name}.enc"}, nth=2),
+        faults.FaultRule("net.send", "drop", match={"msg_type": "secure_message"},
+                         nth=DROP_NTH),
+        faults.FaultRule("ticket", "corrupt", nth=3)])
+    a = Session(p2p.P2PNode("node-a", "127.0.0.1", 0, jitter_rng=random.Random(TRANSPORT_SEED)))
+    b = Session(p2p.P2PNode("node-b", "127.0.0.1", 0))
+    a.listen("kem_pk", "ticket", "resume_ok", "resume_reject")
+    b.listen("kem_ct", "secure_message", "file", "resume_message")
+    out = {}
+    shard = bk.scheduler.shards[0]
+    await a.node.start()
+    await b.node.start()
+    try:
+        if await a.node.connect_to_peer("127.0.0.1", b.node.port, timeout=5.0) != "node-b":
+            raise PhaseFailed("transport: node-a could not reach node-b")
+        await until(lambda: b.node.is_connected("node-a"), "node-b to register node-a")
+        wires = (a.node.peer_wire_format("node-b"), b.node.peer_wire_format("node-a"))
+        if wires != ("bin1", "bin1"):
+            raise PhaseFailed(f"transport: negotiated {wires}, not bin1 on both sides")
+        with plan.activate():
+            # key agreements in two waves: B's keys travel to A, A
+            # encapsulates a wave in one flush and sends the ciphertexts
+            # back as raw fields, B decapsulates them on the device
+            seq0 = max((e["seq"] for e in obs_flight.RECORDER.snapshot()), default=0)
+            pairs = await asyncio.gather(*(bk.generate_keypair() for _ in range(AGREEMENTS)))
+            ss_a, ss_b, waves = [None] * AGREEMENTS, [None] * AGREEMENTS, []
+            half = AGREEMENTS // 2
+            for w, lo in enumerate((0, half)):
+                for i in range(lo, lo + half):
+                    await b.node.send_message("node-a", "kem_pk", i=i, pk=pairs[i][0])
+                got = await a.wait("kem_pk", half)
+                a.take("kem_pk")
+                enc = await asyncio.gather(*(bk.encapsulate(bytes(m["pk"])) for m in got))
+                for m, (ct, ss) in zip(got, enc):
+                    ss_a[m["i"]] = ss
+                    await a.node.send_message("node-b", "kem_ct", i=m["i"], ct=ct)
+                cts = await b.wait("kem_ct", half)
+                b.take("kem_ct")
+                waves.append(shard.breaker.state)
+                if w == 1:
+                    # the raised flush was served by the fallback and opened
+                    # the breaker: wait out the cool-off, so the next flush
+                    # (these decaps) is the canary on the device
+                    if shard.breaker.state != "open":
+                        raise PhaseFailed(f"transport: the breaker is {shard.breaker.state} "
+                                          "after the injected fault, not open")
+                    dispatches, mark = shard.dispatches, obs_trace.TRACER.now()
+                    await asyncio.sleep(TRANSPORT_COOLOFF_S + 0.1)
+                keys = await asyncio.gather(*(bk.decapsulate(pairs[m["i"]][1], bytes(m["ct"]))
+                                              for m in cts))
+                for m, ss in zip(cts, keys):
+                    ss_b[m["i"]] = ss
+            ring_events = [(e["kind"], e.get("state")) for e in obs_flight.RECORDER.snapshot()
+                           if e["kind"].startswith("breaker") and e["seq"] > seq0]
+            healed = (shard.breaker.state, shard.dispatches - dispatches)
+            probes = [s["attrs"]["op"] for s in obs_trace.TRACER.snapshot()
+                      if s["name"] == "device.dispatch" and s["attrs"].get("route") == "probe"
+                      and s["t0"] >= mark]
+            if ss_a != ss_b or None in ss_a:
+                bad = [i for i in range(AGREEMENTS) if ss_a[i] != ss_b[i]]
+                raise PhaseFailed(f"transport: {len(bad)} key agreements differ, first {bad[:4]}")
+            enc_q = bk._enc
+            faulted = [e for e in plan.injected if e["scope"] == "device.dispatch"]
+            if (len(faulted) != 1 or enc_q.stats.breaker_trips != 1
+                    or enc_q.stats.fallback_ops != faulted[0]["n_items"]
+                    or enc_q.stats.fallback_flushes != 1):
+                raise PhaseFailed(f"transport: injected {faulted}, enc queue "
+                                  f"{enc_q.stats.as_dict()}")
+            if healed[0] != "closed" or healed[1] < 1 or probes != [f"{kem.name}.dec"]:
+                raise PhaseFailed(f"transport: after the cool-off the breaker is {healed[0]} "
+                                  f"with {healed[1]} more shard dispatches, probes {probes}")
+            if ring_events != [("breaker_open", "open"), ("breaker_transition", "half_open"),
+                               ("breaker_transition", "closed")]:
+                raise PhaseFailed(f"transport: the flight ring's breaker events {ring_events}")
+            out["agreements"] = {"n": AGREEMENTS, "faulted_flush": faulted[0]["n_items"],
+                                 "breaker_events": ring_events, "canary": probes,
+                                 "canary_dispatches": healed[1], "breaker_after_waves": waves}
+
+            # sealed messages: A seals them in one flush, sends each as a
+            # raw field; the plan drops one on the way; B opens the rest
+            # from the frames' memoryviews, in one flush, into its store
+            key_a = derive_message_key(ss_a[1], "node-a", "node-b", AEAD)
+            key_b = derive_message_key(ss_b[1], "node-b", "node-a", AEAD)
+            msgs = [bytes(r) for r in rng.integers(0, 256, size=(MESSAGES, MESSAGE_BYTES),
+                                                   dtype=np.uint8)]
+            ad = canonical({"sender": "node-a", "recipient": "node-b"})
+            corked = a.node._peers["node-b"].writer
+            flushes0 = corked.flushes
+            t0 = time.perf_counter()
+            frames = await asyncio.gather(*(ba.encrypt(key_a, m, ad) for m in msgs))
+            for i, f in enumerate(frames):
+                if not await a.node.send_message("node-b", "secure_message", i=i, frame=f):
+                    raise PhaseFailed(f"transport: message {i} was not sent")
+            got = await b.wait("secure_message", MESSAGES - 1)
+            sends = corked.flushes - flushes0
+            views = [m["frame"] for m in got]
+            if not all(isinstance(v, memoryview) for v in views):
+                raise PhaseFailed("transport: a frame did not arrive as a memoryview")
+            plain = await asyncio.gather(*(ba.decrypt(key_b, v, ad) for v in views))
+            wall = time.perf_counter() - t0
+            dropped = [e for e in plan.injected if e["scope"] == "net.send"]
+            sent = {m["i"] for m in got}
+            missing = sorted(set(range(MESSAGES)) - sent)
+            if len(dropped) != 1 or missing != [DROP_NTH - 1]:
+                raise PhaseFailed(f"transport: dropped {dropped}, missing {missing}")
+            kept = store.MessageStore()
+            for m, pt in zip(got, plain):
+                kept.add_message("node-a", store.Message(
+                    content=pt, sender_id="node-a", recipient_id="node-b",
+                    message_id=f"m{m['i']}", key_exchange_algo=kem.name, symmetric_algo=AEAD),
+                    unread=True)
+            held = kept.get_messages("node-a")
+            if [h.content for h in held] != [msgs[i] for i in range(MESSAGES) if i in sent]:
+                raise PhaseFailed("transport: the store's messages differ from those sent")
+            if kept.get_unread_count("node-a") != MESSAGES - 1:
+                raise PhaseFailed("transport: the store's unread count is wrong")
+            big = bytes(rng.integers(0, 256, BIG_MESSAGE, dtype=np.uint8))
+            await a.node.send_message("node-b", "file", blob=big)
+            (f,) = await b.wait("file", 1)
+            if bytes(f["blob"]) != big or len(big) <= a.node.chunk_size:
+                raise PhaseFailed("transport: the chunked message did not reassemble")
+            out["messages"] = {"sent": MESSAGES, "bytes": MESSAGE_BYTES, "dropped": dropped[0],
+                               "socket_sends": sends,
+                               "opened": len(plain), "wall_s": wall,
+                               "messages_per_s": (MESSAGES - 1) / wall,
+                               "chunked_bytes": len(big)}
+
+            # resumption: B mints a ticket from agreement 0's secret; A
+            # reconnects and presents it; then a replay, and a fresh ticket
+            # that the ticket fault point corrupts
+            ring, replay = res.STEKRing(), res.ReplayCache()
+            rsec_b = res.derive_resumption_secret(ss_b[0], "node-b", "node-a")
+            rsec_a = res.derive_resumption_secret(ss_a[0], "node-a", "node-b")
+
+            def mint():
+                return ring.seal_ticket(res.mint_fields("node-a", "node-b", rsec_b, kem.name,
+                                                       AEAD, dsa.name, time.time() + 600))
+
+            async def on_resume(peer_id, msg):
+                verdict, reply = validate_resume(res, faults, ring, replay, msg, "node-b",
+                                                 peer_id, kem.name, dsa.name)
+                if verdict != "ok":
+                    await b.node.send_message(peer_id, "resume_reject", reason=verdict)
+                    return
+                b.resumed_key = reply.pop("key")
+                await b.node.send_message(peer_id, "resume_ok", **reply)
+
+            b.node.register_message_handler("resume", on_resume)
+            await b.node.send_message("node-a", "ticket", ticket=mint())
+            (t,) = await a.wait("ticket", 1)
+            ticket = bytes(t["ticket"])
+            await a.node.disconnect_from_peer("node-b", intentional=False)
+            await until(lambda: not b.node.is_connected("node-a"), "node-b to drop node-a")
+            if not await a.node.reconnect("node-b", timeout=5.0):
+                raise PhaseFailed("transport: reconnect failed")
+            await until(lambda: b.node.is_connected("node-a"), "node-b to register node-a")
+            if a.node.peer_wire_format("node-b") != "bin1":
+                raise PhaseFailed("transport: the new connection is not bin1")
+
+            async def present(blob: bytes, k: int):
+                cn = uuid.uuid4().hex
+                data = canonical({"client_nonce": cn, "sender": "node-a"})
+                await a.node.send_message("node-b", "resume", ticket=blob, client_nonce=cn,
+                                          message_id=f"resume-{k}",
+                                          binder=res.resume_binder(rsec_a, data, blob))
+                return cn
+
+            cn = await present(ticket, 0)
+            (ok,) = await a.wait("resume_ok", 1)
+            key = res.derive_resumed_key(rsec_a, cn, ok["server_nonce"], AEAD)
+            if not hmac.compare_digest(res.resume_confirm_tag(key, "resume-0", cn,
+                                                              ok["server_nonce"]),
+                                       ok["confirm"]):
+                raise PhaseFailed("transport: the resume confirmation does not verify")
+            note = b"resumed session: first message"
+            await a.node.send_message("node-b", "resume_message",
+                                      frame=await ba.encrypt(key, note, b"resume"))
+            (r,) = await b.wait("resume_message", 1)
+            if await ba.decrypt(b.resumed_key, r["frame"], b"resume") != note:
+                raise PhaseFailed("transport: the resumed session's message did not open")
+            await present(ticket, 1)
+            await present(mint(), 2)
+            rejects = [m["reason"] for m in await a.wait("resume_reject", 2)]
+            if rejects != ["replayed_ticket", "bad_ticket_auth"] or \
+                    not set(rejects) <= set(res.REASONS):
+                raise PhaseFailed(f"transport: the bad presentations got {rejects}")
+            out["resumption"] = {"resumed": True, "rejects": rejects,
+                                 "ticket_bytes": len(ticket), "replays": replay.replays}
+        out["injected"] = plan.injected
+        out["wire_errors"] = (a.node.wire_errors, b.node.wire_errors)
+        if out["wire_errors"] != (0, 0):
+            raise PhaseFailed(f"transport: wire errors {out['wire_errors']}")
+    finally:
+        await a.node.stop()
+        await b.node.stop()
+    return out
+
+
+def phase_transport(np, provider, faults, health, obs_cost, obs_trace, kem, dsa, fused, aead,
+                    pk_off, ct_off) -> dict:
+    """Phase 15: the transport, session and degrade layers on the card, over
+    the four facades on one DeviceProgramScheduler with the "cpu" providers
+    and the scalar AEAD as their fallbacks and an Autotuner attached."""
+    from quantum_resistant_p2p_tpu_torch.app import message_store, resumption
+    from quantum_resistant_p2p_tpu_torch.net import p2p_node
+    from quantum_resistant_p2p_tpu_torch.provider import autotune, facade_queues
+    from quantum_resistant_p2p_tpu_torch.provider.scheduler import DeviceProgramScheduler
+
+    t_phase = time.perf_counter()
+    out = {}
+    cpu_kem = provider.get_kem(kem.name, backend="cpu")
+    cpu_dsa = provider.get_signature(dsa.name, backend="cpu")
+    scalar = provider.get_symmetric(AEAD)
+    sched = DeviceProgramScheduler(shards=1, cooloff_s=TRANSPORT_COOLOFF_S)
+    ledger = obs_cost.CostLedger()
+    sched.attach_cost(ledger)
+    tuner = autotune.Autotuner(scheduler=sched, cost=ledger) \
+        if autotune.autotune_enabled_default() else None
+    facades = (provider.BatchedKEM(kem, fallback=cpu_kem, scheduler=sched),
+               provider.BatchedSignature(dsa, fallback=cpu_dsa, scheduler=sched),
+               provider.BatchedFused(fused, pk_off, ct_off, fallback_kem=cpu_kem,
+                                     fallback_sig=cpu_dsa, scheduler=sched),
+               provider.BatchedAEAD(aead, scalar, scheduler=sched, fallback=scalar))
+    queues = attach_cost(facades, ledger)
+    if tuner is not None:
+        tuner.attach_facades(*facades)
+    try:
+        # the health gate, twins from the fallbacks, into a fresh verdict
+        # cache: every probe runs, then every verdict is read back
+        saved = os.environ.get("QRP2P_HEALTH_CACHE")
+        with tempfile.TemporaryDirectory() as cache:
+            os.environ["QRP2P_HEALTH_CACHE"] = cache
+            try:
+                first = health.gate_facades(*facades)
+                second = health.gate_facades(*facades)
+            finally:
+                if saved is None:
+                    os.environ.pop("QRP2P_HEALTH_CACHE", None)
+                else:
+                    os.environ["QRP2P_HEALTH_CACHE"] = saved
+        if not all(v.ok for v in first + second) or len(first) != 4:
+            raise PhaseFailed(f"transport: health verdicts {[v.as_dict() for v in first]}")
+        if [v.cached for v in first] != [False] * 4 or [v.cached for v in second] != [True] * 4:
+            raise PhaseFailed("transport: the verdict cache did not round-trip: "
+                              f"{[(v.family, v.cached) for v in first + second]}")
+        out["health"] = [v.as_dict() for v in first + second]
+        print(f"[transport] health: {[(v.family, v.cached) for v in first + second]}")
+
+        t0 = time.perf_counter()
+        out["fused_wall_s"] = asyncio.run(fused_sessions(kem, dsa, facades[2], facades[1],
+                                                         TRANSPORT_HANDSHAKES))
+        out["wire"] = asyncio.run(asyncio.wait_for(
+            transport(np, faults, obs_trace, resumption, message_store, p2p_node, facades, kem,
+                      dsa), 120))
+        out["wire_s"] = time.perf_counter() - t0
+        faulted = f"{kem.name}.enc"
+        fallback = {q.label: q.stats.fallback_ops for q in queues if q.stats.fallback_ops}
+        if set(fallback) != {faulted}:
+            raise PhaseFailed(f"transport: fallback ops outside the injected fault {fallback}")
+        states = [s.breaker.state for s in sched.shards]
+        if states != ["closed"]:
+            raise PhaseFailed(f"transport: breakers end {states}")
+        healthy = {}
+        for q in queues:
+            st = q.stats
+            healthy[q.label] = {"flushes": st.flushes, "device_trips": st.device_trips,
+                                "max_device_ms": round(1e3 * (st.device_hist.percentile(100)
+                                                              or 0.0), 3),
+                                "fallback_ops": st.fallback_ops,
+                                "breaker_trips": st.breaker_trips}
+        worst = max(h["max_device_ms"] for h in healthy.values())
+        q0 = queues[0]
+        print(f"[transport] largest dispatch a queue (ms, device worker) against "
+              f"degrade_after_ms {1e3 * q0.degrade_after_s:.0f} and dispatch_timeout_ms "
+              f"{1e3 * q0.dispatch_timeout_s:.0f} (for <= {q0.degrade_ref_batch} rows): "
+              f"{ {k: v['max_device_ms'] for k, v in healthy.items()} }; worst {worst} ms")
+        hist_s = sum(q.stats.device_hist.total for q in queues)
+        shard_s = ledger.snapshot()["device_seconds_by_shard"]
+        print(f"[transport] ledger shard_device_time {shard_s} s; the queues' device_hist "
+              f"totals {hist_s:.6f} s")
+        out.update(queues=healthy, shard_device_s=shard_s, device_hist_s=hist_s,
+                   shard=sched.stats())
+        print(f"[transport] {AGREEMENTS} key agreements over bin1 "
+              f"({out['wire']['agreements']}); {MESSAGES - 1} of {MESSAGES} sealed "
+              f"{MESSAGE_BYTES}-byte messages opened ({out['wire']['messages']['wall_s']:.3f} s, "
+              f"sent in {out['wire']['messages']['socket_sends']} socket sends), "
+              f"one dropped by the plan; {BIG_MESSAGE} bytes chunked; resumption "
+              f"{out['wire']['resumption']}")
+
+        # the serve rate of phase 4 through the scheduler and its breaker,
+        # with and without the autotuner, against phase 4's plain queues, in
+        # rotating turns; each scheduled arm's facade lives across its
+        # turns, so the tuner sees every turn's flushes (closing them is the
+        # scheduler's business)
+        arms = {"plain": provider.BatchedKEM,
+                "scheduled": provider.BatchedKEM(kem, fallback=cpu_kem, scheduler=sched)}
+        if tuner is not None:
+            arms["tuned"] = provider.BatchedKEM(kem, fallback=cpu_kem, scheduler=sched)
+            tuner.attach_facades(arms["tuned"])
+        rates, order = {arm: [] for arm in arms}, []
+        for r in range(SCHED_RATE_ROUNDS):
+            for arm in SCHED_RATE_ARMS[r % 3:] + SCHED_RATE_ARMS[:r % 3]:
+                if arm not in arms:
+                    continue
+                facade = arms[arm]
+                served = asyncio.run(serve(facade if arm == "plain"
+                                           else lambda algo, facade=facade, **kw: facade, kem))
+                if any(st["fallback_ops"] or st["breaker_trips"]
+                       for st in served["queues"].values()):
+                    raise PhaseFailed(f"transport: a healthy serve degraded: {served['queues']}")
+                rates[arm].append(served["handshakes_per_s"])
+                order.append(arm)
+        out["serve_rate"] = rates
+        print(f"[transport] ML-KEM-768 serve, {SERVE_CLIENTS} clients, handshakes/s in the "
+              f"order {' '.join(order)}: " + "; ".join(
+                  f"{arm} {[round(x, 1) for x in xs]} (median {statistics.median(xs):.1f})"
+                  for arm, xs in rates.items()))
+        out["autotune"] = tuner.snapshot() if tuner is not None else {"enabled": False}
+        print(f"[transport] autotuner: "
+              f"{ {k: (v['bucket'], v['window_ms']) for k, v in out['autotune']['queues'].items()} }"
+              if tuner is not None else "[transport] autotuner off (QRP2P_AUTOTUNE=0)")
+        if [s.breaker.state for s in sched.shards] != ["closed"]:
+            raise PhaseFailed("transport: the breaker did not end closed")
+    finally:
+        for f in facades:
+            f.close()
+        sched.close()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[transport] phase took {out['phase_s']:.1f} s")
+    return out
+
+
 def pct(xs, q):
     return 1e3 * sorted(xs)[min(len(xs) - 1, int(q / 100 * len(xs)))]
 
@@ -1774,6 +2241,7 @@ async def sphincs_serve(torch, provider, sphincs, slhdsa_params) -> tuple[dict, 
         flipped[len(flipped) // 2] ^= 1
         flipped_ok = await bs.verify(bytes(pks[0]), msgs[0], bytes(flipped))
         stats = bs.stats()
+        verify_sizes = bs._verify.stats.batch_sizes[-16:]
     if not all(oks):
         raise PhaseFailed(f"sphincs serve: {oks.count(False)} of {SLH_SERVE_KEYS} signatures "
                           "did not verify")
@@ -1788,7 +2256,7 @@ async def sphincs_serve(torch, provider, sphincs, slhdsa_params) -> tuple[dict, 
            "sign_chunks": -(-SLH_SERVE_KEYS // per_chunk), "sign_peak_gb": peak_gb,
            "verify_wall_s": wall, "verifies_per_s": SLH_SERVE_KEYS / wall,
            "verify_latency_ms": {"p50": pct(lat, 50), "p99": pct(lat, 99)},
-           "verify_flush_sizes": stats["verify"]["recent_batch_sizes"], "queues": stats}
+           "verify_flush_sizes": verify_sizes, "queues": stats}
     print(f"[sphincs serve] {SLH_SERVE}: keygen of {SLH_SERVE_KEYS} keys {keygen_s:.3f} s "
           f"({out['keygens_per_s']:.0f}/s); sign_batch {sign_s:.3f} s ({out['signs_per_s']:.0f}"
           f"/s) in {out['sign_chunks']} chunk(s) of up to {per_chunk}, peak {peak_gb:.1f} GB; "
@@ -2168,6 +2636,10 @@ def main() -> int:
         observed = phase_obs_faults(np, provider, faults, obs_cost, obs_trace, kem, dsa, fused,
                                     aead, pk_off, ct_off, entry)
         launches["obs_faults"] = read("obs and faults", HANDSHAKE_KERNELS + ("chacha_blocks",))
+        reset()
+        carried = phase_transport(np, provider, faults, health, obs_cost, obs_trace, kem, dsa,
+                                  fused, aead, pk_off, ct_off)
+        launches["transport"] = read("transport", HANDSHAKE_KERNELS + ("chacha_blocks",))
 
         # launches of one batched call of each op (after the counted window)
         def count(call):
@@ -2265,6 +2737,7 @@ def main() -> int:
                                  "frodo_serve": frodo_served, "frodo_batch": frodo_batch,
                                  "sphincs_serve": slh_served, "sphincs_batch": slh_batch,
                                  "sphincs_memory": slh_memory, "obs_faults": observed,
+                                 "transport": carried,
                                  "launches": launches, "launches_per_op": per_op,
                                  "profile": profiled}}))
     print(card)
@@ -2276,4 +2749,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # this run's health verdicts go to a fresh cache, so every gate of the
+    # earlier phases probes the card (phase 15 checks the cache itself)
+    with tempfile.TemporaryDirectory(prefix="qrp2p-health-") as _cache:
+        os.environ["QRP2P_HEALTH_CACHE"] = _cache
+        code = main()
+    sys.exit(code)

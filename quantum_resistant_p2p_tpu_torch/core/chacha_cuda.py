@@ -35,7 +35,7 @@ def chacha_blocks(states: torch.Tensor) -> torch.Tensor:
             err = lib.qrp_chacha_blocks(states.data_ptr(), out.data_ptr(), states.shape[0],
                                         cuda.stream_of(states))
         cuda.check(lib, err, "chacha blocks launch")
-        chacha_blocks.launches += 1
+        cuda.count_launch(chacha_blocks)
     return out
 
 

@@ -95,7 +95,7 @@ def sponge(data: torch.Tensor, rate: int, ds_byte: int, out_len: int) -> torch.T
             err = lib.qrp_keccak_sponge(data.data_ptr(), out.data_ptr(), n_rows, data.shape[-1],
                                         rate, ds_byte, out_len, cuda.stream_of(data))
         cuda.check(lib, err, "keccak sponge launch")
-        sponge.launches += 1
+        cuda.count_launch(sponge)
     return out
 
 
@@ -123,7 +123,7 @@ def sponge_varlen(data: torch.Tensor, lengths: torch.Tensor, rate: int, ds_byte:
                                                n_rows, data.shape[-1], rate, ds_byte, out_len,
                                                cuda.stream_of(data))
         cuda.check(lib, err, "keccak sponge_varlen launch")
-        sponge_varlen.launches += 1
+        cuda.count_launch(sponge_varlen)
     return out
 
 

@@ -97,8 +97,9 @@ def launch(block_bytes: int, states: torch.Tensor, blocks: torch.Tensor,
 def count(wrapper, rows: int, path: str) -> None:
     """One launch of ``wrapper`` (none for 0 rows), and one of its path."""
     if rows:
-        wrapper.launches += 1
-        wrapper.split_launches += path == "split"
+        cuda.count_launch(wrapper)
+        if path == "split":
+            cuda.count_launch(wrapper, "split_launches")
 
 
 def compress(states: torch.Tensor, blocks: torch.Tensor, rows_per_state: int = 1) -> torch.Tensor:

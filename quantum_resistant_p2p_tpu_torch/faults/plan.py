@@ -16,9 +16,9 @@ points:
 * ``process``        — a fleet's health loop (kill, pause, partition or
                        drain a gateway; kill or pause a router)
 
-The port feeds ``device.dispatch`` (both hooks), ``scalar.op`` and
-``warmup``; it has no transport, session tickets or fleet yet, so
-:func:`net_send`, :func:`ticket_validation`, :func:`process_control` and
+The port feeds ``device.dispatch`` (both hooks), ``scalar.op``, ``warmup``
+and ``net.send`` (``net/p2p_node.py``); it has no protocol engine or fleet
+yet, so :func:`ticket_validation`, :func:`process_control` and
 :func:`router_control` wait for their callers.
 
 The hooks are no-ops (one module-global ``None`` check) unless a plan is

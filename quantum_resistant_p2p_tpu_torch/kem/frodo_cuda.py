@@ -60,7 +60,7 @@ def _product(wrapper, fn: str, p: FrodoParams, x: torch.Tensor, seed_a: torch.Te
             err = getattr(lib, fn)(seed_a.data_ptr(), x.data_ptr(), out.data_ptr(), lanes, p.n,
                                    p.q - 1, cuda.stream_of(x))
         cuda.check(lib, err, f"{what} launch")
-        wrapper.launches += 1
+        cuda.count_launch(wrapper)
     return out
 
 
@@ -88,7 +88,7 @@ def cdf_sample(p: FrodoParams, r16: torch.Tensor) -> torch.Tensor:
                                            table.ctypes.data, len(table), p.q - 1,
                                            cuda.stream_of(r16))
         cuda.check(lib, err, "frodo cdf_sample launch")
-        cdf_sample.launches += 1
+        cuda.count_launch(cdf_sample)
     return out
 
 

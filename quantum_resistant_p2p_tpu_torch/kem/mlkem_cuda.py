@@ -118,7 +118,7 @@ def _seed_launch(wrapper, seeds: torch.Tensor, seed_len: int, what: str,
             err = call(lib, rows.data_ptr(), out.data_ptr(), rows.shape[0],
                        cuda.stream_of(seeds))
         cuda.check(lib, err, f"{what} launch")
-        wrapper.launches += 1
+        cuda.count_launch(wrapper)
     return out.reshape(batch + (N,))
 
 
@@ -153,7 +153,7 @@ def _ntt_launch(wrapper, f: torch.Tensor, inverse: int) -> torch.Tensor:
             err = lib.qrp_mlkem_ntt(rows.data_ptr(), out.data_ptr(), rows.shape[0],
                                     inverse, cuda.stream_of(f))
         cuda.check(lib, err, f"{what} launch")
-        wrapper.launches += 1
+        cuda.count_launch(wrapper)
     return out.reshape(f.shape)
 
 

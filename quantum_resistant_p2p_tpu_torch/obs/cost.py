@@ -26,9 +26,10 @@ device time is being spent on**:
   and chosen bucket/window, sequence-numbered and stamped with the
   tuner's clock.
 
-The port has no placement scheduler and no autotuner yet, so
-:meth:`CostLedger.shard_device_time` and :meth:`CostLedger.tuner_decision`
-have no feed.
+:meth:`CostLedger.shard_device_time` is fed by the placement scheduler
+(``provider/scheduler.py``, ``attach_cost``) and
+:meth:`CostLedger.tuner_decision` by the autotuner
+(``provider/autotune.py``).
 
 Everything lands in the metrics registry given as labeled instruments
 (``cost_compile_events{queue,shard,where}``,

@@ -27,7 +27,8 @@ per episode.  Budget and burn gauges land in the registry
 (``slo_budget_remaining`` / ``slo_burn_fast`` / ``slo_burn_slow``,
 labeled ``slo=<name>``), and :meth:`SLOEngine.status` is the JSON report.
 
-The reference's breaker-availability probe waits for the port's breaker.
+A time SLI over a provider breaker (:func:`breaker_availability_probe`:
+wall time the breaker was closed vs degraded) uses the same shape.
 Stdlib only; probes read counters other layers already keep.
 """
 
@@ -422,5 +423,20 @@ def counter_pair_probe(good_fn: Callable[[], float],
     """Event SLI from two cumulative counter reads."""
     def probe() -> tuple[float, float]:
         return float(good_fn()), float(bad_fn())
+
+    return probe
+
+
+def breaker_availability_probe(breaker,
+                               clock: Callable[[], float] = time.monotonic
+                               ) -> Probe:
+    """Time SLI over a provider breaker (provider/batched.py): bad = the
+    cumulative seconds its device path was NOT closed
+    (:meth:`Breaker.degraded_seconds`), good = the rest of wall time.
+    Offsets cancel in the engine's window deltas, so the raw clock reading
+    works as the total-time side."""
+    def probe() -> tuple[float, float]:
+        bad = breaker.degraded_seconds()
+        return clock() - bad, bad
 
     return probe

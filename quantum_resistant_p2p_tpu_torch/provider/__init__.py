@@ -5,8 +5,8 @@ GPU batches."""
 
 from .aead_device import ChaChaPolyDevice
 from .batched import (LANE_BULK, LANE_HANDSHAKE, LANE_NAMES, LANE_REKEY, BatchedAEAD,
-                      BatchedFused, BatchedKEM, BatchedSignature, LaneShed, OpQueue, QueueStats,
-                      facade_queues)
+                      BatchedFused, BatchedKEM, BatchedSignature, Breaker, LaneShed, OpQueue,
+                      QueueStats, facade_queues)
 from .fused_providers import FusedMLKEMMLDSA, init_pk_offset, resp_ct_offset
 from .kem_providers import FrodoKEMKeyExchange, MLKEMKeyExchange
 from .registry import (get_batched_aead, get_fused, get_kem, get_signature, get_symmetric,
@@ -16,7 +16,7 @@ from .sig_providers import MLDSASignature, SPHINCSSignature
 from .symmetric import AES256GCM, ChaCha20Poly1305
 
 __all__ = ["AES256GCM", "BatchedAEAD", "BatchedFused", "BatchedKEM", "BatchedSignature",
-           "ChaCha20Poly1305", "ChaChaPolyDevice", "FrodoKEMKeyExchange", "FusedMLKEMMLDSA",
+           "Breaker", "ChaCha20Poly1305", "ChaChaPolyDevice", "FrodoKEMKeyExchange", "FusedMLKEMMLDSA",
            "LANE_BULK", "LANE_HANDSHAKE", "LANE_NAMES", "LANE_REKEY", "LaneShed",
            "MLDSASignature", "MLKEMKeyExchange", "OpQueue", "QueueStats", "SPHINCSSignature",
            "facade_queues", "get_batched_aead", "get_fused", "get_kem", "get_signature",

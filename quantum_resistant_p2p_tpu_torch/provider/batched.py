@@ -4,9 +4,10 @@ Concurrent callers enqueue their KEM, signature and AEAD operations as
 futures; a flush takes up to ``max_batch`` of them, pads the batch to a
 power-of-two bucket and runs it as one batched call on the device, then
 resolves every future.  A flush happens at ``max_batch`` pending operations
-or ``max_wait_ms`` after the first enqueue, whichever comes first.  The
-queues of one facade share a :class:`CoalescingHub`, so when one flushes,
-its siblings' pending work goes in the same scheduling window.
+or ``max_wait_ms`` after the first enqueue, whichever comes first (an
+attached autotuner, provider/autotune.py, moves both).  The queues sharing
+a :class:`Breaker` (or a placement scheduler, provider/scheduler.py) flush
+in one scheduling window.
 
 Every operation rides a priority lane (:data:`LANE_REKEY`,
 :data:`LANE_HANDSHAKE`, :data:`LANE_BULK`): a flush takes its operations
@@ -18,18 +19,22 @@ the loop and a ``device.dispatch`` span on the worker thread
 attached (obs/cost.py), counts occupancy, device seconds, scalar bypasses
 and warm-up compiles.
 
-The device call runs on the facade's one worker thread, so the event loop
-never blocks on the GPU and flushes reach the device in order.  A failed
-flush raises in every future it carried (an injected fault too): there is
-no CPU path to fall back to.
+Device calls run on the breaker's 2-thread device pool (each shard's,
+under a scheduler), so the event loop never blocks on the GPU; each flush
+is placed whole, so its results do not depend on which worker ran it.
+A queue degrades only where its caller armed a fallback (``fallback=``, a
+"cpu" provider or the scalar AEAD): then a device dispatch that is slow,
+hung or raising trips the breaker, the flush is served on the CPU, and a
+canary flush heals the device path after the cool-off.  Without a
+fallback a failed flush raises in every future it carried (an injected
+fault too).
 
 Counterpart of the reference's ``provider/batched.py`` (``OpQueue``,
-``QueueStats``, the lanes and ``LaneShed``, ``_run_valid``,
+``QueueStats``, ``Breaker``, the lanes and ``LaneShed``, ``_run_valid``,
 ``facade_queues``, ``BatchedKEM``, ``BatchedSignature``, ``BatchedFused``,
-``BatchedAEAD`` and their ``warmup``), held to the reference's queue
-without a fallback.  Not ported yet: the circuit breaker and the CPU
-degrade path, the warm-bucket tracking, the autotuner and the placement
-scheduler.
+``BatchedAEAD`` and their ``warmup``), held to the reference's queue with
+and without a fallback.  The port has no jit, so it has no warm-bucket
+gating: every bucket is warm.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import asyncio
 import functools
 import logging
 import os
+import threading
 import time
 import weakref
 from concurrent.futures import ThreadPoolExecutor
@@ -85,13 +91,19 @@ class QueueStats:
     #: seconds from each flush's first enqueue to its dispatch, summed
     total_wait_s: float = 0.0
     total_dispatch_s: float = 0.0
-    #: device calls made (one batch_fn call on the worker thread a flush)
+    #: ops and flushes served by the CPU fallback while the device path was
+    #: slow, hung or raising; breaker trips this queue caused
+    fallback_ops: int = 0
+    fallback_flushes: int = 0
+    breaker_trips: int = 0
+    #: device calls made (one batch_fn call on a device worker a flush)
     device_trips: int = 0
     #: per-flush batch sizes, most recent last (bounded)
     batch_sizes: list[int] = field(default_factory=list)
     #: per-flush latency seen from the event loop (executor wait included)
     dispatch_hist: LatencyHistogram = field(default_factory=LatencyHistogram)
-    #: the batch function's own time on the worker thread
+    #: the batch function's own time on the worker thread (device calls
+    #: only: the fallback's and a warm-up's time are not in it)
     device_hist: LatencyHistogram = field(default_factory=LatencyHistogram)
     #: ops submitted / shed per priority lane (lane tag -> count)
     lane_ops: dict = field(default_factory=dict)
@@ -106,7 +118,6 @@ class QueueStats:
             "ops": self.ops,
             "flushes": self.flushes,
             "max_batch_seen": self.max_batch_seen,
-            "recent_batch_sizes": self.batch_sizes[-16:],
             "avg_batch": (self.ops / self.flushes) if self.flushes else 0.0,
             "avg_dispatch_ms": (
                 1e3 * self.total_dispatch_s / self.flushes if self.flushes else 0.0
@@ -115,7 +126,13 @@ class QueueStats:
             "p99_dispatch_ms": ms(self.dispatch_hist, 99),
             "p50_device_ms": ms(self.device_hist, 50),
             "p99_device_ms": ms(self.device_hist, 99),
+            "fallback_ops": self.fallback_ops,
+            "fallback_flushes": self.fallback_flushes,
+            "breaker_trips": self.breaker_trips,
             "device_trips": self.device_trips,
+            # 1.0 = every op rode the device path
+            "device_served_fraction": (round((self.ops - self.fallback_ops) / self.ops, 4)
+                                       if self.ops else None),
             "lanes": {LANE_NAMES.get(k, str(k)): v for k, v in sorted(self.lane_ops.items())},
             "lane_sheds": {LANE_NAMES.get(k, str(k)): v
                            for k, v in sorted(self.lane_sheds.items())},
@@ -123,12 +140,14 @@ class QueueStats:
 
 
 class CoalescingHub:
-    """The queues registered on one hub flush in the same scheduling
-    window: when one flushes, every sibling holding items flushes too, so
-    independent batches go in flight together instead of one timer window
-    apart.  Only queues that already hold items are touched."""
+    """The queues registered on one hub (a :class:`Breaker`, or the
+    placement scheduler) flush in the same scheduling window: when one
+    flushes, every sibling holding items flushes too, so independent
+    batches go in flight together instead of one timer window apart.  Only
+    queues that already hold items are touched."""
 
     def __init__(self):
+        #: weak: a rebuilt facade's dead queues must not linger
         self._queues: weakref.WeakSet = weakref.WeakSet()
         self._coalescing = False
 
@@ -147,35 +166,301 @@ class CoalescingHub:
             self._coalescing = False
 
 
+class Breaker(CoalescingHub):
+    """Circuit breaker for one device's dispatch path: closed, open,
+    half-open and quarantined.
+
+    * ``closed``: every armed flush dispatches to the device.
+    * ``open``: every armed flush runs on the fallback until the cool-off
+      expires; failures of canary probes double the cool-off (capped).
+    * ``half_open``: the cool-off expired; exactly one real queued flush
+      goes to the device as a canary while its siblings keep falling back.
+      Its success closes the breaker (and resets the cool-off); its
+      failure re-opens it with a doubled cool-off.
+    * ``quarantined``: the health gate (provider/health.py) found the
+      device path WRONG, not slow; the fallback is pinned for the process.
+
+    Every transition logs one WARNING and is a flight event: ``open`` and
+    ``quarantined`` are auto-dump triggers (``breaker_open``,
+    ``breaker_quarantined``), the rest ``breaker_transition`` records.
+    ``clock`` is injectable (tests drive the state machine on a fake
+    timeline).
+
+    The breaker owns two executors: a 2-thread DEVICE pool for live
+    dispatches, and a 1-thread WARM-UP pool at nice 19 for ``OpQueue.warm``.
+    A hung, abandoned dispatch holds at most the 2 device threads and never
+    starves the default executor the fallback runs on.  :meth:`close`
+    stops both.
+    """
+
+    def __init__(self, cooloff_s: float = 30.0, cooloff_max_s: float = 480.0,
+                 clock: Callable[[], float] = time.monotonic):
+        super().__init__()
+        self._clock = clock
+        #: guards every state-machine mutation: outcomes arrive on the event
+        #: loop, a health-gate quarantine may come from another thread
+        self._lock = threading.RLock()
+        self.base_cooloff_s = cooloff_s
+        self.cooloff_s = cooloff_s  # current (grows while probes fail)
+        self.cooloff_max_s = cooloff_max_s
+        #: placement identity ("shard<i>" when a scheduler's shard owns it),
+        #: in logs and flight events
+        self.label = ""
+        self.state = "closed"
+        self.trips = 0
+        self.opens = 0
+        self.closes = 0
+        #: device and fallback dispatches of every queue sharing this breaker
+        self.device_trips = 0
+        self.fallback_trips = 0
+        self._open_until = 0.0
+        self._probe_in_flight = False
+        #: cumulative seconds NOT closed, and the start of the current
+        #: degraded stretch: the availability SLO's feed (obs/slo.py)
+        self._degraded_s = 0.0
+        self._degraded_since: float | None = None
+        self._executor: ThreadPoolExecutor | None = None
+        self._warmup_executor: ThreadPoolExecutor | None = None
+
+    def is_open(self) -> bool:
+        """True while no regular device dispatch may proceed."""
+        with self._lock:
+            if self.state == "quarantined":
+                return True
+            return self.state == "open" and self._clock() < self._open_until
+
+    def probe_ready(self) -> bool:
+        """True when the next :meth:`acquire_dispatch` would route a canary
+        probe (open past the cool-off, or half-open with no probe in
+        flight): the placement policy routes a flush back to such a shard
+        so it can heal."""
+        with self._lock:
+            if self._probe_in_flight or self.state == "quarantined":
+                return False
+            if self.state == "half_open":
+                return True
+            return self.state == "open" and self._clock() >= self._open_until
+
+    def _set_state(self, new: str, why: str = "") -> None:
+        """Transition, log line and flight event (callers hold the lock)."""
+        with self._lock:
+            if new == self.state:
+                return
+            log = logging.getLogger(__name__)
+            old = self.state
+            self.state = new
+            now = self._clock()
+            if old == "closed" and new != "closed":
+                self._degraded_since = now
+            elif new == "closed" and self._degraded_since is not None:
+                self._degraded_s += now - self._degraded_since
+                self._degraded_since = None
+            if new == "open":
+                self.opens += 1
+                log.warning(
+                    "circuit breaker OPEN (%s): device dispatch path degraded; "
+                    "serving from cpu fallback for %.1fs, then probing",
+                    why or "tripped", self.cooloff_s,
+                )
+            elif new == "closed":
+                self.closes += 1
+                self.cooloff_s = self.base_cooloff_s
+                log.warning(
+                    "circuit breaker CLOSED: device canary probe succeeded; "
+                    "traffic restored to the device path"
+                )
+            elif new == "quarantined":
+                log.error(
+                    "circuit breaker QUARANTINED (%s): device path disabled for "
+                    "this process; all ops served from the cpu fallback", why,
+                )
+            # after the bookkeeping, so the event carries the real counters
+            emit = (obs_flight.trigger if new in ("open", "quarantined")
+                    else obs_flight.record)
+            emit(
+                "breaker_open" if new == "open"
+                else "breaker_quarantined" if new == "quarantined"
+                else "breaker_transition",
+                state=new, prev=old, why=why, cooloff_s=round(self.cooloff_s, 3),
+                opens=self.opens, closes=self.closes, shard=self.label or None,
+            )
+
+    def trip(self) -> None:
+        """Record a device failure seen outside the claim protocol: opens
+        the breaker without escalating the cool-off."""
+        self._trip(escalate=False)
+
+    def _trip(self, escalate: bool) -> None:
+        """From closed: open at the base cool-off.  ``escalate`` (a FAILED
+        CANARY PROBE) doubles the cool-off, capped; other failures only
+        refresh the open clock, so one incident's concurrent dispatches
+        cannot compound the backoff.  A quarantined breaker stays so."""
+        with self._lock:
+            self.trips += 1
+            if self.state == "quarantined":
+                return
+            if escalate:
+                self.cooloff_s = min(self.cooloff_s * 2.0, self.cooloff_max_s)
+            elif self.state == "closed":
+                self.cooloff_s = self.base_cooloff_s
+            self._open_until = self._clock() + self.cooloff_s
+            if self.state == "open":
+                logging.getLogger(__name__).debug(
+                    "circuit breaker already open: cool-off clock refreshed "
+                    "(concurrent dispatch of the same incident)"
+                )
+            else:
+                self._set_state("open", "canary probe failed" if escalate else "tripped")
+
+    def degraded_seconds(self) -> float:
+        """Cumulative seconds this breaker spent NOT closed, the live
+        stretch included: the bad side of the availability SLO."""
+        with self._lock:
+            total = self._degraded_s
+            if self._degraded_since is not None:
+                total += self._clock() - self._degraded_since
+            return total
+
+    def quarantine(self, why: str) -> None:
+        """Pin the fallback for the process lifetime (the health gate found
+        the device path computing wrong answers)."""
+        with self._lock:
+            self.trips += 1
+            self._set_state("quarantined", why)
+
+    def acquire_dispatch(self) -> str:
+        """Claim the next armed flush's route: ``"device"`` (closed),
+        ``"probe"`` (half-open canary, one in flight) or ``"fallback"``.
+        Pair with :meth:`record_success`, :meth:`record_failure` or
+        :meth:`release`."""
+        with self._lock:
+            if self.state == "closed":
+                return "device"
+            if self.state == "quarantined":
+                return "fallback"
+            if self.state == "open":
+                if self._clock() < self._open_until:
+                    return "fallback"
+                self._set_state("half_open")
+            if self._probe_in_flight:
+                return "fallback"
+            self._probe_in_flight = True
+            return "probe"
+
+    def record_success(self, claim: str) -> None:
+        with self._lock:
+            if claim == "probe":
+                self._probe_in_flight = False
+                self._set_state("closed")
+
+    def record_failure(self, claim: str) -> None:
+        with self._lock:
+            if claim == "probe":
+                self._probe_in_flight = False
+                self._trip(escalate=True)
+            else:
+                self._trip(escalate=False)
+
+    def release(self, claim: str) -> None:
+        """Return an un-dispatched claim without recording an outcome."""
+        with self._lock:
+            if claim == "probe":
+                self._probe_in_flight = False
+
+    @property
+    def device_executor(self) -> ThreadPoolExecutor:
+        if self._executor is None:
+            self._executor = ThreadPoolExecutor(max_workers=2, thread_name_prefix="qrp2p-device")
+        return self._executor
+
+    @property
+    def warmup_executor(self) -> ThreadPoolExecutor:
+        if self._warmup_executor is None:
+            def _background_priority():
+                # nice() is per thread on Linux: demote the warm-up worker
+                try:
+                    os.nice(19)
+                except OSError:
+                    pass
+
+            self._warmup_executor = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="qrp2p-warmup",
+                initializer=_background_priority)
+        return self._warmup_executor
+
+    def close(self) -> None:
+        """Wait for in-flight dispatches and stop both executors (a later
+        dispatch starts new ones)."""
+        for attr in ("_executor", "_warmup_executor"):
+            ex = getattr(self, attr)
+            setattr(self, attr, None)
+            if ex is not None:
+                ex.shutdown(wait=True)
+
+
 class OpQueue:
     """Accumulates (item -> future) pairs; flushes through a batch function.
 
     ``batch_fn(items) -> list[results]`` is called with at most
-    ``max_batch`` items on ``executor``.  A result that is an Exception
-    instance fails only its own future; an exception raised by
-    ``batch_fn`` (or by an injected device fault) fails every future of
-    the flush.  ``label`` names the queue at the fault points and in spans
-    and the cost ledger; ``lane_capacity`` maps a lane to its most pending
+    ``max_batch`` items on a device worker: ``executor`` when given, else
+    the breaker's (under a scheduler, the placed shard's breaker's) device
+    pool.  A result that is an Exception instance fails only its own
+    future.  ``label`` names the queue at the fault points and in spans and
+    the cost ledger; ``lane_capacity`` maps a lane to its most pending
     operations (absent: unbounded).
+
+    Without ``fallback_fn``, an exception raised by ``batch_fn`` (or by an
+    injected device fault) fails every future of the flush, and the breaker
+    is not consulted.  With it, the breaker watches every device dispatch:
+    one that raises, outlasts ``dispatch_timeout_ms`` (the watchdog: the
+    stuck call is abandoned to finish in the background) or takes longer
+    than ``degrade_after_ms`` trips the breaker, and while it is open the
+    flushes run ``fallback_fn`` on the loop's default executor.  Both
+    thresholds hold for a flush of up to ``degrade_ref_batch`` rows and
+    scale linearly above it.  Every trip is counted
+    (``stats.breaker_trips``) and logged at WARNING.
+
+    ``scheduler`` (provider/scheduler.py) places each flush whole on one
+    of its shards, whose breaker takes the claim; ``tuner``
+    (provider/autotune.py), when attached, sets the flush-at count and the
+    timer window.
     """
 
     def __init__(self, batch_fn: Callable[[list[Any]], list[Any]],
-                 executor: ThreadPoolExecutor, max_batch: int = 4096,
-                 max_wait_ms: float = 2.0, hub: CoalescingHub | None = None,
-                 bucket_floor: int = 1, label: str = "",
+                 executor: ThreadPoolExecutor | None = None, max_batch: int = 4096,
+                 max_wait_ms: float = 2.0,
+                 fallback_fn: Callable[[list[Any]], list[Any]] | None = None,
+                 degrade_after_ms: float = 2000.0, dispatch_timeout_ms: float = 15000.0,
+                 degrade_ref_batch: int = 256, breaker: Breaker | None = None,
+                 bucket_floor: int = 1, label: str = "", scheduler=None,
                  lane_capacity: dict[int, int] | None = None):
         self.label = label
         self.batch_fn = batch_fn
         self.executor = executor
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1e3
+        self.fallback_fn = fallback_fn
+        self.degrade_after_s = degrade_after_ms / 1e3
+        self.dispatch_timeout_s = dispatch_timeout_ms / 1e3
+        self.degrade_ref_batch = degrade_ref_batch
         #: flushes pad up to at least this power of two (the cost ledger's
-        #: padded slots)
+        #: padded slots, the degrade thresholds' scale)
         self.bucket_floor = min(next_pow2(max(1, bucket_floor)), max_batch)
-        self.hub = hub if hub is not None else CoalescingHub()
+        self.scheduler = scheduler
+        if scheduler is not None:
+            # shard 0's breaker is the handle stats readers use; claims are
+            # taken on each placed shard's breaker
+            self.breaker = breaker if breaker is not None else scheduler.shards[0].breaker
+            self.hub = scheduler
+        else:
+            self.breaker = breaker if breaker is not None else Breaker()
+            self.hub = self.breaker
         self.hub.register_queue(self)
         self.stats = QueueStats()
         self.lane_capacity = lane_capacity
+        #: adaptive flush policy (provider/autotune.py QueueTuner): None
+        #: reads the constructor's max_batch and max_wait_ms
+        self.tuner = None
         #: device-cost ledger (obs/cost.py) when attached: observation only
         self.cost = None
         self._items: list[Any] = []
@@ -188,6 +473,24 @@ class OpQueue:
         self._first_enqueue_t = 0.0
         #: strong refs to in-flight flush tasks (the loop holds them weakly)
         self._dispatch_tasks: set[asyncio.Task] = set()
+
+    def _wait_s(self) -> float:
+        """The timer window: the tuner's once it has decided, else the
+        constructor's."""
+        if self.tuner is None:
+            return self.max_wait_s
+        w = self.tuner.wait_s()
+        return self.max_wait_s if w is None else w
+
+    def _flush_at(self) -> int:
+        """Pending ops that flush at once: the tuner's choice once decided
+        (a bucket of 1 is no early trigger), else ``max_batch``."""
+        if self.tuner is None:
+            return self.max_batch
+        b = self.tuner.flush_at()
+        if b is None or b <= 1:
+            return self.max_batch
+        return min(self.max_batch, b)
 
     def _shed(self, lane: int) -> None:
         n = self.stats.lane_sheds.get(lane, 0) + 1
@@ -220,8 +523,8 @@ class OpQueue:
         self.stats.lane_ops[lane] = self.stats.lane_ops.get(lane, 0) + 1
         if len(self._items) == 1:
             self._first_enqueue_t = time.perf_counter()
-            self._timer = loop.call_later(self.max_wait_s, self._flush_soon)
-        if len(self._items) >= self.max_batch:
+            self._timer = loop.call_later(self._wait_s(), self._flush_soon)
+        if len(self._items) >= self._flush_at():
             self._flush_soon()
         return await fut
 
@@ -274,66 +577,158 @@ class OpQueue:
             self._dispatch_tasks.add(task)
             task.add_done_callback(self._dispatch_tasks.discard)
 
-    def _traced_call(self, fn, route: str, parent, items: list[Any]) -> list[Any]:
-        """Run one device call inside a ``device.dispatch`` span ON the
-        worker thread, so the span measures the call itself and carries the
-        worker's thread lane.  ``parent`` is the loop-side context captured
-        before the executor hop (contextvars do not cross it).  Only a
-        flush's call (route "direct") feeds ``device_hist`` and the
-        ledger's device seconds; a warm-up's does not."""
-        with obs_trace.span("device.dispatch", parent=parent, op=self.label, n=len(items),
-                            route=route):
+    def _executor_for(self, breaker: Breaker) -> ThreadPoolExecutor:
+        return self.executor if self.executor is not None else breaker.device_executor
+
+    def _traced_call(self, fn, span_name: str, route: str, parent, items: list[Any],
+                     shard=None) -> list[Any]:
+        """Run one dispatch callable inside a span ON the worker thread, so
+        the span measures the call itself and carries the worker's thread
+        lane.  ``parent`` is the loop-side context captured before the
+        executor hop (contextvars do not cross it).  With a ``shard`` the
+        call runs under its placement and the span carries its index.
+        Device calls feed ``device_hist`` and the ledger's device seconds;
+        the fallback's and a warm-up's do not."""
+        attrs = {"op": self.label, "n": len(items), "route": route}
+        if shard is not None:
+            attrs["shard"] = shard.index
+        with obs_trace.span(span_name, parent=parent, **attrs):
             t0 = time.perf_counter()
             try:
+                if shard is not None:
+                    return shard.run_placed(fn, items)
                 return fn(items)
             finally:
-                if route != "warmup":
+                if route not in ("fallback", "warmup"):
                     dt = time.perf_counter() - t0
                     self.stats.device_hist.record(dt)
                     if self.cost is not None:
                         self.cost.device_time(self.label, dt)
 
-    def _device_call(self, lane: int, items: list[Any]) -> list[Any]:
+    def _device_call(self, items: list[Any], shard_index: int | None = None,
+                     lane: int | None = None) -> list[Any]:
         """The device dispatch boundary: the fault points wrap the real
-        batch function, a raise at the first failing the whole flush, a
-        poisoned slot only its own future.  The flush's lane rides into the
-        fault-match info (match={"lane": "bulk"})."""
-        _faults.device_dispatch(self.label, len(items), shard=None, lane=LANE_NAMES.get(lane))
+        batch function, a raise at the first failing like a device fault,
+        a poisoned slot only its own future.  The shard index and the
+        flush's lane ride into the fault-match info."""
+        _faults.device_dispatch(self.label, len(items), shard=shard_index,
+                                lane=LANE_NAMES.get(lane) if lane is not None else None)
         return _faults.poison_results(self.label, self.batch_fn(items))
+
+    def _direct_fn(self, shard, lane: int | None):
+        return functools.partial(self._device_call,
+                                 shard_index=shard.index if shard is not None else None,
+                                 lane=lane)
 
     def _warm_call(self, items: list[Any]) -> list[Any]:
         """The warm-up boundary (fault scope "warmup": a killed warm-up
-        surfaces as this call raising)."""
+        surfaces as this call raising).  Under a scheduler the warm-up runs
+        on every closed shard."""
         _faults.warmup(self.label)
+        if self.scheduler is not None:
+            warm = self.scheduler.warmable_shards()
+            if warm:
+                out = None
+                for sh in warm:
+                    out = sh.run_placed(self.batch_fn, items)
+                return out
         return self.batch_fn(items)
 
     def warm(self, items: list[Any]) -> list[Any]:
-        """Run the batch function once on ``items`` on the worker thread,
+        """Run the batch function once on ``items`` on the warm-up worker,
         through the warm-up fault point and in a ``device.dispatch`` span
         of route "warmup"; block until it is done and return its results.
         An item whose result is an Exception raises it.  The facades'
         ``warmup`` calls this; it is not a flush and counts none."""
-        out = self.executor.submit(self._traced_call, self._warm_call, "warmup",
-                                   obs_trace.current(), items).result()
+        ex = self.executor if self.executor is not None else self.breaker.warmup_executor
+        out = ex.submit(self._traced_call, self._warm_call, "device.dispatch", "warmup",
+                        obs_trace.current(), items).result()
         for r in out:
             if isinstance(r, Exception):
                 raise r
         return out
 
-    def _cost_occupancy(self, items: list[Any], lane: int) -> None:
-        """Ledger hook for one flush: real items vs the padded bucket the
-        batch function dispatches."""
+    def _cost_occupancy(self, items: list[Any], lane: int, shard) -> None:
+        """Ledger hook for one device flush: real items vs the padded
+        bucket the batch function dispatches (fallback flushes pad none)."""
         if self.cost is None:
             return
         self.cost.flush_occupancy(self.label, LANE_NAMES.get(lane, str(lane)), len(items),
-                                  max(self.bucket_floor, next_pow2(len(items))))
+                                  max(self.bucket_floor, next_pow2(len(items))),
+                                  shard=shard.index if shard is not None else None)
 
-    async def _run_batch(self, items: list[Any], lane: int) -> list[Any]:
+    def _count_trip(self, breaker: Breaker) -> None:
+        """One device call, counted here and on the serving breaker."""
         self.stats.device_trips += 1
-        self._cost_occupancy(items, lane)
+        breaker.device_trips += 1
+
+    def _trip_breaker(self, reason: str, dt: float, claim: str, breaker: Breaker) -> None:
+        self.stats.breaker_trips += 1
+        breaker.record_failure(claim)
+        logging.getLogger(__name__).warning(
+            "batch queue %s%s: device dispatch %s (%.1fs); serving from cpu "
+            "fallback for %.0fs", self.label or "?",
+            f" [{breaker.label}]" if breaker.label else "", reason, dt, breaker.cooloff_s,
+        )
+
+    async def _run_fallback(self, items: list[Any], breaker: Breaker) -> list[Any]:
+        self.stats.fallback_flushes += 1
+        self.stats.fallback_ops += len(items)
+        breaker.fallback_trips += 1
         return await asyncio.get_running_loop().run_in_executor(
-            self.executor, self._traced_call, functools.partial(self._device_call, lane),
-            "direct", obs_trace.current(), items)
+            None, self._traced_call, self.fallback_fn, "fallback.dispatch", "fallback",
+            obs_trace.current(), items)
+
+    async def _run_batch(self, items: list[Any], flush_span, lane: int) -> list[Any]:
+        """One flush: placed whole on one shard (under a scheduler), then
+        the device call.  With a fallback it runs under the breaker's claim
+        and the watchdog; without one its claim is ``direct``, the breaker
+        is not consulted, and a raise fails the flush."""
+        if self.scheduler is not None:
+            shard = self.scheduler.place()
+            breaker = shard.breaker
+            flush_span.set_attr("shard", shard.index)
+        else:
+            shard, breaker = None, self.breaker
+        claim = breaker.acquire_dispatch() if self.fallback_fn is not None else "direct"
+        try:
+            return await self._run_claimed(items, shard, claim, breaker, lane)
+        finally:
+            if shard is not None:
+                self.scheduler.done(shard)
+
+    async def _run_claimed(self, items: list[Any], shard, claim: str, breaker: Breaker,
+                           lane: int) -> list[Any]:
+        if claim == "fallback":
+            return await self._run_fallback(items, breaker)
+        t0 = time.perf_counter()
+        self._count_trip(breaker)
+        self._cost_occupancy(items, lane, shard)
+        device = asyncio.get_running_loop().run_in_executor(
+            self._executor_for(breaker), self._traced_call, self._direct_fn(shard, lane),
+            "device.dispatch", claim, obs_trace.current(), items, shard)
+        if claim == "direct":
+            return await device
+        scale = max(1.0, max(self.bucket_floor, next_pow2(len(items))) / self.degrade_ref_batch)
+        try:
+            results = await asyncio.wait_for(asyncio.shield(device),
+                                             self.dispatch_timeout_s * scale)
+        except asyncio.TimeoutError:
+            # a thread cannot be cancelled: abandon the call to finish in
+            # the background and serve these ops from the fallback
+            self._trip_breaker("timed out", time.perf_counter() - t0, claim, breaker)
+            device.add_done_callback(lambda f: f.exception())  # reap quietly
+            return await self._run_fallback(items, breaker)
+        except Exception as exc:  # recorded to the breaker and logged, then served by the fallback
+            self._trip_breaker(f"raised {type(exc).__name__}", time.perf_counter() - t0, claim,
+                               breaker)
+            return await self._run_fallback(items, breaker)
+        dt = time.perf_counter() - t0
+        if dt > self.degrade_after_s * scale:
+            self._trip_breaker("slow", dt, claim, breaker)
+        else:
+            breaker.record_success(claim)
+        return results
 
     async def _dispatch(self, items: list[Any], futs: list[asyncio.Future], first_t: float,
                         lane: int) -> None:
@@ -348,11 +743,14 @@ class OpQueue:
             # task was scheduled: the first enqueuer's span is its parent
             with obs_trace.span("queue.flush", op=self.label, n=len(items),
                                 lane=LANE_NAMES.get(lane, str(lane)),
-                                waited_ms=round(1e3 * (t0 - first_t), 3)):
-                results = await self._run_batch(items, lane)
+                                waited_ms=round(1e3 * (t0 - first_t), 3)) as sp:
+                results = await self._run_batch(items, sp, lane)
             dt = time.perf_counter() - t0
             self.stats.total_dispatch_s += dt
             self.stats.dispatch_hist.record(dt)
+            if self.tuner is not None:
+                # the autotuner steps on flush completion (no background task)
+                self.tuner.maybe_step()
             for f, r in zip(futs, results):
                 if f.cancelled():
                     continue
@@ -415,31 +813,56 @@ def _timed_warm(facade, n: int) -> None:
                                   where="warmup")
 
 
+def _facade_breaker(breaker: Breaker | None, cooloff_s: float | None,
+                    scheduler) -> tuple[Breaker, bool]:
+    """-> (the facade's breaker, whether the facade made it).  Under a
+    scheduler it is shard 0's (the stats handle: each flush claims on its
+    placed shard's breaker)."""
+    if scheduler is not None:
+        if breaker is not None or cooloff_s is not None:
+            raise ValueError("pass either scheduler or breaker/cooloff_s: a scheduler owns one "
+                             "breaker per shard")
+        return scheduler.shards[0].breaker, False
+    if breaker is not None:
+        if cooloff_s is not None:
+            raise ValueError("pass either breaker or cooloff_s, not both (an explicit breaker "
+                             "carries its own cool-off)")
+        return breaker, False
+    return Breaker(cooloff_s if cooloff_s is not None else 30.0), True
+
+
 class _Facade:
-    """Queues of one algorithm's batch functions on one hub and one device
-    thread.
+    """Queues of one algorithm's batch functions, sharing one breaker (or
+    one scheduler's shards) and its device workers.
 
     ``ops`` names each queue: its label is ``f"{name}.{op}"``.
-    ``bucket_floor`` raises every padded batch to at least that power of
-    two; ``lane_capacity`` bounds each lane's pending operations in every
-    queue.  Call :meth:`close` (or use ``with``) to stop the worker
-    thread.
+    ``fallback_fns`` (None, or one per queue) arm each queue's CPU degrade
+    path.  ``bucket_floor`` raises every padded batch to at least that
+    power of two; ``lane_capacity`` bounds each lane's pending operations
+    in every queue; ``degrade_opts`` are the queues' ``degrade_after_ms``,
+    ``dispatch_timeout_ms`` and ``degrade_ref_batch``.  Call :meth:`close`
+    (or use ``with``) to stop the workers of a breaker the facade made
+    itself; a passed breaker or scheduler is its owner's to close.
     """
 
-    def __init__(self, algo, batch_fns, ops, max_batch: int, max_wait_ms: float,
-                 bucket_floor: int, lane_capacity: dict[int, int] | None):
+    def __init__(self, algo, batch_fns, fallback_fns, ops, max_batch: int, max_wait_ms: float,
+                 bucket_floor: int, lane_capacity: dict[int, int] | None,
+                 breaker: Breaker | None, cooloff_s: float | None, scheduler, degrade_opts):
         self.algo = algo
         self.name = algo.name
         self.bucket_floor = min(next_pow2(max(1, bucket_floor)), max_batch)
+        #: placement axis shared with sibling facades (None: one breaker)
+        self.scheduler = scheduler
         #: device-cost ledger (obs/cost.py): warm-up compile attribution
         self.cost = None
-        self._executor = ThreadPoolExecutor(max_workers=1,
-                                            thread_name_prefix=f"{algo.name}-device")
-        hub = CoalescingHub()
-        self._queues = [OpQueue(lambda items, fn=fn: fn(algo, self.bucket_floor, items),
-                                self._executor, max_batch, max_wait_ms, hub, self.bucket_floor,
-                                f"{algo.name}.{op}", lane_capacity)
-                        for fn, op in zip(batch_fns, ops)]
+        self.breaker, self._owns_breaker = _facade_breaker(breaker, cooloff_s, scheduler)
+        self._queues = [
+            OpQueue(lambda items, fn=fn: fn(algo, self.bucket_floor, items), None, max_batch,
+                    max_wait_ms, fallback_fn=fb,
+                    breaker=None if scheduler is not None else self.breaker,
+                    bucket_floor=self.bucket_floor, label=f"{algo.name}.{op}",
+                    scheduler=scheduler, lane_capacity=lane_capacity, **degrade_opts)
+            for fn, fb, op in zip(batch_fns, fallback_fns or [None] * len(ops), ops)]
 
     def warmup(self, sizes: tuple[int, ...] = (1,)) -> None:
         """Run every queue's batch function at the padded bucket of each
@@ -454,8 +877,10 @@ class _Facade:
         return max(self.bucket_floor, next_pow2(n))
 
     def close(self) -> None:
-        """Wait for in-flight flushes and stop the device thread."""
-        self._executor.shutdown(wait=True)
+        """Wait for in-flight flushes and stop the workers of the facade's
+        own breaker."""
+        if self._owns_breaker:
+            self.breaker.close()
 
     def __enter__(self):
         return self
@@ -464,17 +889,33 @@ class _Facade:
         self.close()
 
 
+def _fallbacks(fallback, batch_fns):
+    """The batch functions bound to a same-name CPU provider, padded to
+    nothing (floor 1), or None without one."""
+    if fallback is None:
+        return None
+    return [functools.partial(fn, fallback, 1) for fn in batch_fns]
+
+
 class BatchedKEM(_Facade):
     """Async facade over a KeyExchangeAlgorithm's batch operations: three
     queues (keygen, encaps, decaps), labelled ``<name>.kg``, ``.enc`` and
-    ``.dec``."""
+    ``.dec``.
+
+    ``fallback`` (a same-name "cpu" provider) arms the queues' degrade
+    path: a device dispatch that is slow, hung or raising trips the breaker
+    and its operations run on the CPU instead of failing."""
 
     def __init__(self, algo: KeyExchangeAlgorithm, max_batch: int = 4096,
-                 max_wait_ms: float = 2.0, bucket_floor: int = 1,
-                 lane_capacity: dict[int, int] | None = None):
-        super().__init__(algo, (self._kg_batch, self._enc_batch, self._dec_batch),
-                         ("kg", "enc", "dec"), max_batch, max_wait_ms, bucket_floor,
-                         lane_capacity)
+                 max_wait_ms: float = 2.0, fallback: KeyExchangeAlgorithm | None = None,
+                 breaker: Breaker | None = None, cooloff_s: float | None = None,
+                 bucket_floor: int = 1, scheduler=None,
+                 lane_capacity: dict[int, int] | None = None, **degrade_opts):
+        self.fallback = fallback
+        fns = (self._kg_batch, self._enc_batch, self._dec_batch)
+        super().__init__(algo, fns, _fallbacks(fallback, fns), ("kg", "enc", "dec"), max_batch,
+                         max_wait_ms, bucket_floor, lane_capacity, breaker, cooloff_s,
+                         scheduler, degrade_opts)
         self._kg, self._enc, self._dec = self._queues
 
     @staticmethod
@@ -549,13 +990,19 @@ class BatchedSignature(_Facade):
 
     An item of the wrong key or signature length fails alone: a sign with
     a ValueError, a verify with False.  A failed flush raises in every
-    future it carried, verify included."""
+    future it carried, verify included.  ``fallback`` arms the degrade
+    path as on :class:`BatchedKEM`."""
 
     def __init__(self, algo: SignatureAlgorithm, max_batch: int = 4096,
-                 max_wait_ms: float = 2.0, bucket_floor: int = 1,
-                 lane_capacity: dict[int, int] | None = None):
-        super().__init__(algo, (self._sign_batch, self._verify_batch), ("sign", "verify"),
-                         max_batch, max_wait_ms, bucket_floor, lane_capacity)
+                 max_wait_ms: float = 2.0, fallback: SignatureAlgorithm | None = None,
+                 breaker: Breaker | None = None, cooloff_s: float | None = None,
+                 bucket_floor: int = 1, scheduler=None,
+                 lane_capacity: dict[int, int] | None = None, **degrade_opts):
+        self.fallback = fallback
+        fns = (self._sign_batch, self._verify_batch)
+        super().__init__(algo, fns, _fallbacks(fallback, fns), ("sign", "verify"), max_batch,
+                         max_wait_ms, bucket_floor, lane_capacity, breaker, cooloff_s,
+                         scheduler, degrade_opts)
         self._sign, self._verify = self._queues
 
     @staticmethod
@@ -626,18 +1073,31 @@ class BatchedFused(_Facade):
     Every field is length-checked per item: a malformed ``keygen_sign``
     item fails alone with a ValueError, a malformed ``encaps_verify_sign``
     or ``decaps_verify_sign`` item fails alone as ``ok=False`` (the verify
-    contract: most of their fields come from the peer).  A failed flush
-    raises in every waiter: there is no CPU path to fall back to.
+    contract: most of their fields come from the peer).
+
+    With both ``fallback_kem`` and ``fallback_sig`` (the "cpu" providers),
+    a tripped breaker serves each step composed of per-op CPU calls
+    (verify, the KEM op, the host render into the template, sign), which
+    give the same bytes the device does.  Without them a failed flush
+    raises in every waiter.
     """
 
     def __init__(self, fused: FusedHandshakeOps, pk_off: int, ct_off: int,
-                 max_batch: int = 4096, max_wait_ms: float = 2.0, bucket_floor: int = 1,
-                 lane_capacity: dict[int, int] | None = None):
+                 max_batch: int = 4096, max_wait_ms: float = 2.0, fallback_kem=None,
+                 fallback_sig=None, breaker: Breaker | None = None,
+                 cooloff_s: float | None = None, bucket_floor: int = 1, scheduler=None,
+                 lane_capacity: dict[int, int] | None = None, **degrade_opts):
         self.pk_off = pk_off
         self.ct_off = ct_off
+        self.fallback_kem = fallback_kem
+        self.fallback_sig = fallback_sig
+        have_fb = fallback_kem is not None and fallback_sig is not None
         super().__init__(fused, (self._kg_batch, self._enc_batch, self._dec_batch),
+                         (self._kg_fallback, self._enc_fallback, self._dec_fallback)
+                         if have_fb else None,
                          ("keygen_sign", "encaps_verify_sign", "decaps_verify_sign"), max_batch,
-                         max_wait_ms, bucket_floor, lane_capacity)
+                         max_wait_ms, bucket_floor, lane_capacity, breaker, cooloff_s,
+                         scheduler, degrade_opts)
         self._kg, self._enc, self._dec = self._queues
 
     def _kg_valid(self, it) -> bool:
@@ -706,6 +1166,47 @@ class BatchedFused(_Facade):
 
         return _run_valid(items, self._dec_valid, dispatch, lambda: (False, b"", b""), floor)
 
+    # -- the per-op CPU fallbacks (the same bytes as the device) -----------
+
+    def _kg_fallback(self, items):
+        def dispatch(valid, _tgt):
+            out = []
+            for sk, tmpl in valid:
+                pk, ksk = self.fallback_kem.generate_keypair()
+                out.append((pk, ksk,
+                            self.fallback_sig.sign(sk, self._render(tmpl, pk, self.pk_off))))
+            return out
+
+        return _run_valid(items, self._kg_valid, dispatch,
+                          lambda: ValueError("bad secret-key/template length"), 1)
+
+    def _enc_fallback(self, items):
+        def dispatch(valid, _tgt):
+            out = []
+            for peer_pk, peer_sig_pk, msg_in, sig_in, sk, tmpl in valid:
+                if not self.fallback_sig.verify(peer_sig_pk, msg_in, sig_in):
+                    out.append((False, b"", b"", b""))
+                    continue
+                ct, ss = self.fallback_kem.encapsulate(peer_pk)
+                out.append((True, ct, ss,
+                            self.fallback_sig.sign(sk, self._render(tmpl, ct, self.ct_off))))
+            return out
+
+        return _run_valid(items, self._enc_valid, dispatch, lambda: (False, b"", b"", b""), 1)
+
+    def _dec_fallback(self, items):
+        def dispatch(valid, _tgt):
+            out = []
+            for kem_sk, ct, peer_sig_pk, msg_in, sig_in, sk, msg_out in valid:
+                if not self.fallback_sig.verify(peer_sig_pk, msg_in, sig_in):
+                    out.append((False, b"", b""))
+                    continue
+                ss = self.fallback_kem.decapsulate(kem_sk, ct)
+                out.append((True, ss, self.fallback_sig.sign(sk, msg_out)))
+            return out
+
+        return _run_valid(items, self._dec_valid, dispatch, lambda: (False, b"", b""), 1)
+
     def _warm_one(self, n: int) -> None:
         """One handshake's three steps at ``n``'s bucket and the live
         offsets, under one fresh signature key: keygen_sign, then
@@ -759,22 +1260,33 @@ class BatchedAEAD(_Facade):
     provider) on the loop's default executor without enqueueing, counted
     as a bypass by the cost ledger; without ``scalar`` it fails alone with
     a ValueError, as a malformed item does (an open: the same
-    "authentication failed" a bad tag gives).  A failed flush raises in
-    every waiter.  Operands may be ``memoryview``s.
+    "authentication failed" a bad tag gives).  Operands may be
+    ``memoryview``s: a frame's bytes go from the wire into the batch rows
+    without a copy of their own.
+
+    ``fallback`` (the scalar provider) arms the degrade path: a tripped
+    breaker seals and opens on the CPU, with the same bytes.  Without it a
+    failed flush raises in every waiter.
     """
 
     #: the (message, AAD) lengths each warm-up size seals and opens
     warm_shapes = ((256, 256), (1024, 256))
 
     def __init__(self, device: BatchedAEADOps, scalar: SymmetricAlgorithm | None = None,
-                 max_batch: int = 4096, max_wait_ms: float = 2.0, bucket_floor: int = 1,
-                 lane_capacity: dict[int, int] | None = None):
+                 max_batch: int = 4096, max_wait_ms: float = 2.0,
+                 breaker: Breaker | None = None, cooloff_s: float | None = None,
+                 bucket_floor: int = 1, scheduler=None,
+                 lane_capacity: dict[int, int] | None = None,
+                 fallback: SymmetricAlgorithm | None = None, **degrade_opts):
         self.scalar = scalar
+        self.fallback = fallback
         self.key_size = device.key_size
         self.nonce_size = device.nonce_size
         self.tag_size = device.tag_size
-        super().__init__(device, (self._seal_batch, self._open_batch), ("seal", "open"),
-                         max_batch, max_wait_ms, bucket_floor, lane_capacity)
+        super().__init__(device, (self._seal_batch, self._open_batch),
+                         (self._seal_fallback, self._open_fallback) if fallback is not None else None,
+                         ("seal", "open"), max_batch, max_wait_ms, bucket_floor, lane_capacity,
+                         breaker, cooloff_s, scheduler, degrade_opts)
         self._seal, self._open = self._queues
 
     def _seal_valid(self, it) -> bool:
@@ -810,6 +1322,26 @@ class BatchedAEAD(_Facade):
         # every malformed input fails as the scalar decrypt's bad tag does
         return _run_valid(items, self._open_valid, dispatch,
                           lambda: ValueError("authentication failed"), floor)
+
+    def _seal_fallback(self, items):
+        def dispatch(valid, _tgt):
+            return [self.fallback.seal(k, n, bytes(p), bytes(a) or None) for k, n, p, a in valid]
+
+        return _run_valid(items, self._seal_valid, dispatch,
+                          lambda: ValueError("bad AEAD seal operand"), 1)
+
+    def _open_fallback(self, items):
+        def dispatch(valid, _tgt):
+            out = []
+            for k, n, d, a in valid:
+                try:
+                    out.append(self.fallback.open_(k, n, bytes(d), bytes(a) or None))
+                except ValueError as e:
+                    out.append(ValueError(str(e)))
+            return out
+
+        return _run_valid(items, self._open_valid, dispatch,
+                          lambda: ValueError("authentication failed"), 1)
 
     def _warm_one(self, n: int) -> None:
         """Seal, then open, at ``n``'s bucket for each of ``warm_shapes``."""

@@ -21,12 +21,24 @@ Counterpart of the reference's ``provider/health.py``.  The probes:
   through the device seal, tamper rejection on open, and agreement with
   the scalar provider.
 
-The CPU twins are the port's "cpu" providers (and the scalar AEAD), passed
-in by the caller; nothing on the GPU routes to them.  With no breaker in
-the port, a failed verdict raises from :func:`gate_facades`.  Every
-verdict is a flight-recorder event (``health_ok`` / ``health_failed``).  The
-reference's on-disk verdict cache is not ported: every gate runs its
-probes.
+The CPU twins are the port's "cpu" providers (and the scalar AEAD): the
+caller passes them, or :func:`gate_facades` takes a facade's own fallbacks.
+Every verdict is a flight-recorder event (``health_ok`` /
+``health_failed``).  On a failed verdict, a facade with a fallback armed
+has its breaker (under a scheduler, every shard's) QUARANTINED, so the CPU
+serves it for the process lifetime; a facade without one raises
+RuntimeError, since no failed device may serve.  ``QRP2P_HEALTH_GATE=0``
+skips the gate (:func:`gate_enabled`).
+
+Positive verdicts of a GPU are cached on disk (``QRP2P_HEALTH_CACHE``, else
+``build/health_cache/`` at the root of the checkout), keyed by
+:func:`env_fingerprint`: the torch and CUDA runtime versions, the GPU's
+name and compute capability, the probe version, and a digest of every
+source file of the package (the kernels in ``csrc/`` and the Python that
+packs, batches and launches them) and the ``nvcc`` flags.  So a change to
+any of it re-probes, and a cached "ok" never vouches for code it did not
+run.  Negative verdicts
+are never cached, and a probe on the CPU is never cached.
 """
 
 from __future__ import annotations
@@ -34,6 +46,10 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import hmac
+import json
+import logging
+import os
+import pathlib
 from typing import Any
 
 import numpy as np
@@ -41,9 +57,21 @@ import torch
 
 from ..kem import frodo, mlkem
 from ..obs import flight as obs_flight
+from ..utils import cuda as cuda_build
 from ..utils.wipe import wipe
 from .base import (BatchedAEADOps, FusedHandshakeOps, KeyExchangeAlgorithm,
                    SignatureAlgorithm)
+
+logger = logging.getLogger(__name__)
+
+#: bump to invalidate cached verdicts when the probe suite changes
+_PROBE_VERSION = 1
+
+#: the package whose sources :func:`source_digest` covers
+PACKAGE_ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+CACHE_ENV = "QRP2P_HEALTH_CACHE"
+DEFAULT_CACHE_DIR = cuda_build.BUILD_DIR.parent / "health_cache"
 
 #: pinned ML-KEM-768 KAT: ML_KEM.KeyGen_internal / Encaps_internal with
 #: d = 00..1f, z = 20..3f, m = 40..5f (FIPS 203)
@@ -85,9 +113,81 @@ class HealthVerdict:
     family: str
     ok: bool
     detail: str
+    #: read back from the verdict cache instead of probed
+    cached: bool = False
 
     def as_dict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)
+
+
+def gate_enabled() -> bool:
+    return os.environ.get("QRP2P_HEALTH_GATE", "1") != "0"
+
+
+def source_digest() -> str:
+    """SHA-256 over the ``nvcc`` flags and every source file of the
+    package (``.py``, ``.cu``, ``.cuh``: paths and bytes)."""
+    h = hashlib.sha256(" ".join(cuda_build.NVCC_FLAGS).encode())
+    for src in sorted(PACKAGE_ROOT.rglob("*")):
+        if src.suffix in (".py", ".cu", ".cuh") and "__pycache__" not in src.parts:
+            data = src.read_bytes()
+            h.update(src.relative_to(PACKAGE_ROOT).as_posix().encode())
+            h.update(len(data).to_bytes(8, "big"))
+            h.update(data)
+    return h.hexdigest()
+
+
+def env_fingerprint(device="cuda") -> str:
+    """The axes along which the device path's answers can change: the
+    torch and CUDA runtime versions, the device's name and compute
+    capability, the probe version and the package's :func:`source_digest`."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        name = torch.cuda.get_device_name(dev)
+        cc = "%d.%d" % torch.cuda.get_device_capability(dev)
+    else:
+        name, cc = dev.type, "-"
+    return (f"torch={torch.__version__}|cuda={torch.version.cuda}|dev={name}|cc={cc}"
+            f"|probe={_PROBE_VERSION}|src={source_digest()}")
+
+
+def _cache_dir() -> pathlib.Path:
+    override = os.environ.get(CACHE_ENV)
+    return pathlib.Path(override) if override else DEFAULT_CACHE_DIR
+
+
+def _marker(family: str, fingerprint: str) -> pathlib.Path:
+    digest = hashlib.sha256(f"{family}|{fingerprint}".encode()).hexdigest()[:16]
+    return _cache_dir() / f"health_{digest}.json"
+
+
+def _read_cached(family: str, fingerprint: str) -> HealthVerdict | None:
+    """Positive cached verdict for (family, environment), else None."""
+    try:
+        rec = json.loads(_marker(family, fingerprint).read_text())
+        if (isinstance(rec, dict) and rec.get("key") == fingerprint
+                and rec.get("family") == family and rec.get("ok")):
+            return HealthVerdict(family, True, rec.get("detail", "cached"), cached=True)
+    except (OSError, ValueError, KeyError):
+        pass
+    return None
+
+
+def _write_cached(family: str, fingerprint: str, verdict: HealthVerdict) -> None:
+    if not verdict.ok:
+        return  # negative verdicts re-probe every time
+    try:
+        d = _cache_dir()
+        d.mkdir(parents=True, exist_ok=True)
+        _marker(family, fingerprint).write_text(json.dumps(
+            {"family": family, "key": fingerprint, "ok": True, "detail": verdict.detail}))
+    except OSError:
+        pass
+
+
+def _cacheable(device) -> bool:
+    """Only a GPU's verdicts are cached: the CPU runs the plain versions."""
+    return torch.device(device).type == "cuda"
 
 
 def _check_mlkem_kat(algo) -> HealthVerdict:
@@ -244,55 +344,85 @@ def _probe(algo, cpu_twin) -> HealthVerdict:
     raise ValueError(f"no device probe for {algo.name}")
 
 
-def ensure_validated(algo, cpu_twin=None) -> HealthVerdict:
-    """Run the health probe of one provider.  A probe that crashes is a
-    failed verdict: a device that cannot run the probe serves no traffic."""
-    if algo.backend == "cpu":
-        return HealthVerdict(algo.name, True, "cpu backend; no device to gate")
-    try:
-        return _probe(algo, cpu_twin)
-    except Exception as e:  # the verdict carries the failure to gate_facades
-        return HealthVerdict(algo.name, False, f"probe crashed: {e!r}")
-
-
-def _verdict(family: str, check, *args) -> HealthVerdict:
+def _verdict(family: str, device, check, *args) -> HealthVerdict:
+    """Recall a cached positive verdict of a GPU, or run ``check`` (and
+    cache its positive verdict).  A probe that crashes is a failed verdict:
+    a device that cannot run the probe serves no traffic."""
+    fingerprint = env_fingerprint(device) if _cacheable(device) else None
+    if fingerprint is not None:
+        cached = _read_cached(family, fingerprint)
+        if cached is not None:
+            return cached
     try:
         verdict = check(*args)
-    except Exception as e:  # as in ensure_validated
+    except Exception as e:  # the verdict carries the failure to gate_facades
+        logger.exception("device-health probe for %s crashed", family)
         verdict = HealthVerdict(family, False, f"probe crashed: {e!r}")
     verdict.family = family
+    if fingerprint is not None:
+        _write_cached(family, fingerprint, verdict)
     return verdict
 
 
+def ensure_validated(algo, cpu_twin=None) -> HealthVerdict:
+    """Run (or recall) the health probe of one provider."""
+    if algo.backend == "cpu":
+        return HealthVerdict(algo.name, True, "cpu backend; no device to gate")
+    return _verdict(algo.name, algo.device, _probe, algo, cpu_twin)
+
+
+def _armed(facade) -> bool:
+    """True when the facade's queues have a CPU fallback to degrade to."""
+    return any(q.fallback_fn is not None for q in facade._queues)
+
+
 def gate_facades(*facades, cpu_kem=None, cpu_sig=None, scalar=None) -> list[HealthVerdict]:
-    """Check each batched facade's device path; raise RuntimeError on the
-    first failed verdict, else return the verdicts.
+    """Check each batched facade's device path and return the verdicts.
 
     Takes ``BatchedKEM`` / ``BatchedSignature`` (probed with ``cpu_kem`` /
     ``cpu_sig`` as their CPU twins), ``BatchedFused`` (needs both twins)
     and ``BatchedAEAD`` (with ``scalar``, the scalar provider, for the
-    agreement check); None entries are skipped."""
+    agreement check); a twin not passed is the facade's own fallback.
+    None entries are skipped.  On a failed verdict a facade with a
+    fallback armed is quarantined (every shard of its scheduler); one
+    without raises RuntimeError."""
     out: list[HealthVerdict] = []
+    if not gate_enabled():
+        return out
     for facade in facades:
         if facade is None:
             continue
         algo = facade.algo
         if isinstance(algo, FusedHandshakeOps):
-            if cpu_kem is None or cpu_sig is None:
+            kem_twin = cpu_kem if cpu_kem is not None else facade.fallback_kem
+            sig_twin = cpu_sig if cpu_sig is not None else facade.fallback_sig
+            if kem_twin is None or sig_twin is None:
                 raise ValueError("gating a fused facade needs cpu_kem and cpu_sig twins")
-            verdict = _verdict(f"fused:{algo.name}@{facade.pk_off}", _check_fused,
-                               facade, cpu_kem, cpu_sig)
+            verdict = _verdict(f"fused:{algo.name}@{facade.pk_off}", algo.device, _check_fused,
+                               facade, kem_twin, sig_twin)
         elif isinstance(algo, BatchedAEADOps):  # the data plane
-            verdict = _verdict(f"aead:{facade.name}", _check_aead, facade, scalar)
+            verdict = _verdict(f"aead:{facade.name}", algo.device, _check_aead, facade,
+                               scalar if scalar is not None else facade.fallback)
         elif isinstance(algo, (KeyExchangeAlgorithm, SignatureAlgorithm)):
             twin = cpu_kem if isinstance(algo, KeyExchangeAlgorithm) else cpu_sig
-            verdict = ensure_validated(algo, twin)
+            verdict = ensure_validated(algo, twin if twin is not None else facade.fallback)
         else:
             raise TypeError(f"no health check for a facade over {type(algo).__name__}")
         out.append(verdict)
         if verdict.ok:
-            obs_flight.record("health_ok", family=verdict.family, detail=verdict.detail)
+            obs_flight.record("health_ok", family=verdict.family, detail=verdict.detail,
+                              cached=verdict.cached)
+            logger.info("device health %s: ok (%s)%s", verdict.family, verdict.detail,
+                        " [cached]" if verdict.cached else "")
             continue
         obs_flight.record("health_failed", family=verdict.family, detail=verdict.detail)
-        raise RuntimeError(f"device health {verdict.family} failed: {verdict.detail}")
+        if not _armed(facade):
+            raise RuntimeError(f"device health {verdict.family} failed: {verdict.detail}")
+        why = f"{verdict.family} failed the device-health gate: {verdict.detail}"
+        logger.error("device health %s: FAILED (%s); quarantined", verdict.family,
+                     verdict.detail)
+        if facade.scheduler is not None:
+            facade.scheduler.quarantine_all(why)
+        else:
+            facade.breaker.quarantine(why)
     return out

@@ -15,10 +15,17 @@ key may both compute; the second insert wins with an identical value.
 With a cost ledger attached (:meth:`DeviceOperandCache.attach_cost`),
 every lookup is a hit or miss event in its sliding window; releasing the
 entries is a flight-recorder event.
+
+Entries are partitioned by placement shard (:func:`shard_scope`, entered
+by ``provider.scheduler.Shard.placement`` on the dispatching thread), so
+tensors cached for one shard's device are never fed to a program placed
+on another; the LRU capacity is shared across shards.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import hashlib
 import threading
 from collections import OrderedDict
@@ -31,16 +38,36 @@ from ..utils.wipe import wipe
 #: keys whose device state a provider's cache keeps (LRU)
 OPCACHE_KEYS = 8
 
+#: the placement shard of the current dispatch (0: the one-device world)
+_SHARD: contextvars.ContextVar[int] = contextvars.ContextVar("qrp2p_opcache_shard", default=0)
+
+
+@contextlib.contextmanager
+def shard_scope(index: int):
+    """Namespace operand-cache lookups and inserts to placement shard
+    ``index`` for the duration of the block."""
+    token = _SHARD.set(index)
+    try:
+        yield
+    finally:
+        _SHARD.reset(token)
+
+
+def current_shard() -> int:
+    """The active placement scope."""
+    return _SHARD.get()
+
 
 class DeviceOperandCache:
-    """Content-hash-keyed LRU of per-key dicts of device tensors."""
+    """Content-hash-keyed LRU of per-key dicts of device tensors,
+    partitioned by placement shard (:func:`shard_scope`)."""
 
     def __init__(self, capacity: int = OPCACHE_KEYS):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.capacity = capacity
         self._lock = threading.Lock()
-        self._entries: OrderedDict[tuple[str, bytes], Any] = OrderedDict()
+        self._entries: OrderedDict[tuple[str, int, bytes], Any] = OrderedDict()
         self.hits = 0
         self.misses = 0
         self.evictions = 0
@@ -55,8 +82,8 @@ class DeviceOperandCache:
         self._cost_kind = kind
 
     @staticmethod
-    def _key(kind: str, key_bytes: bytes) -> tuple[str, bytes]:
-        return (kind, hashlib.sha256(key_bytes).digest())
+    def _key(kind: str, key_bytes: bytes) -> tuple[str, int, bytes]:
+        return (kind, _SHARD.get(), hashlib.sha256(key_bytes).digest())
 
     def lookup(self, kind: str, key_bytes: bytes) -> Any | None:
         """Cached state or None.  A lookup/put split rather than a

@@ -38,6 +38,18 @@ _libs: dict[str, ctypes.CDLL] = {}
 _initialised: set[tuple[str, int]] = set()  # (library, device index)
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper, attr: str = "launches", n: int = 1) -> None:
+    """Add ``n`` to a kernel wrapper's launch counter.  Locked: the
+    serving queues launch from a pool of device threads, and ``+=`` on an
+    attribute is a read, an add and a write that another thread may
+    interleave."""
+    with _count_lock:
+        setattr(wrapper, attr, getattr(wrapper, attr) + n)
+
+
 def require_device(device) -> torch.device:
     """``device`` as a ``torch.device``; a CUDA device must exist."""
     dev = torch.device(device)

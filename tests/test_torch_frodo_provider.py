@@ -102,12 +102,12 @@ def test_batched_kem_serves_a_handful_of_clients():
             pk, sk = await bk.generate_keypair()
             outs = await asyncio.gather(*(bk.encapsulate(pk) for _ in range(3)))
             agreed += [await bk.decapsulate(sk, ct) == ss for ct, ss in outs]
-            return agreed, bk.stats()
+            return agreed, bk.stats(), bk._enc.stats.batch_sizes
 
-    agreed, stats = asyncio.run(run())
+    agreed, stats, enc_sizes = asyncio.run(run())
     assert agreed == [True] * 7
     assert stats["keygen"]["ops"] == 5 and stats["encaps"]["ops"] == 8
-    assert stats["encaps"]["recent_batch_sizes"][-1] == 3
+    assert enc_sizes[-1] == 3
     assert kem.opcache.stats()["misses"] == 1
 
 

@@ -727,3 +727,63 @@ def test_traced_and_faulted_kem_flushes(gpu, monkeypatch):
     assert {s["parent_id"] for s in dispatches} == flushes
     assert abs(ledger.device_seconds_total()
                - sum(q.stats.device_hist.total for q in queues)) < 1e-9
+
+
+def test_breaker_never_trips_on_healthy_device_flushes(gpu):
+    """ML-KEM-768 and ChaCha20-Poly1305 facades on one scheduler shard
+    pinned to the card, each with its CPU fallback armed: 256 clients'
+    keygen, encaps and decaps and 256 seals and opens all run on the
+    device (no trip, no fallback op, the breaker closed), every secret
+    agrees and every frame opens."""
+    from quantum_resistant_p2p_tpu_torch.provider import facade_queues
+    from quantum_resistant_p2p_tpu_torch.provider.scheduler import DeviceProgramScheduler
+
+    sched = DeviceProgramScheduler(shards=1, devices=[torch.device("cuda", 0)])
+    scalar = get_symmetric("ChaCha20-Poly1305")
+    key = bytes(range(32))
+    msgs = [bytes([i]) * 256 for i in range(256)]
+
+    async def run():
+        with BatchedKEM(get_kem("ML-KEM-768"), max_wait_ms=5.0,
+                        fallback=get_kem("ML-KEM-768", backend="cpu"), scheduler=sched) as bk, \
+                BatchedAEAD(get_batched_aead("ChaCha20-Poly1305"), scalar, max_wait_ms=5.0,
+                            scheduler=sched, fallback=scalar) as ba:
+            async def client():
+                pk, sk = await bk.generate_keypair()
+                ct, ss = await bk.encapsulate(pk)
+                return ss == await bk.decapsulate(sk, ct)
+
+            agreed = await asyncio.gather(*(client() for _ in range(256)))
+            frames = await asyncio.gather(*(ba.encrypt(key, m, b"ad") for m in msgs))
+            opened = await asyncio.gather(*(ba.decrypt(key, memoryview(f), b"ad")
+                                            for f in frames))
+            return agreed, opened, list(facade_queues(bk)) + list(facade_queues(ba))
+
+    agreed, opened, queues = asyncio.run(run())
+    shard = sched.shards[0]
+    sched.close()
+    assert all(agreed) and opened == msgs
+    assert shard.breaker.state == "closed" and shard.breaker.trips == 0
+    assert all(q.stats.breaker_trips == q.stats.fallback_ops == 0 for q in queues)
+    assert shard.dispatches == shard.breaker.device_trips == sum(q.stats.device_trips
+                                                                 for q in queues)
+
+
+def test_health_cache_round_trip_on_the_card(gpu, tmp_path, monkeypatch):
+    """The gate into a fresh cache probes the card (cached false) and reads
+    every verdict back (cached true); the fingerprint names the card."""
+    from quantum_resistant_p2p_tpu_torch.provider import health
+
+    monkeypatch.setenv("QRP2P_HEALTH_CACHE", str(tmp_path))
+    kem = get_kem("ML-KEM-768")
+    aead = get_batched_aead("ChaCha20-Poly1305")
+    with BatchedKEM(kem, fallback=get_kem("ML-KEM-768", backend="cpu")) as bk, \
+            BatchedAEAD(aead, fallback=get_symmetric("ChaCha20-Poly1305")) as ba:
+        first = health.gate_facades(bk, ba)
+        second = health.gate_facades(bk, ba)
+    assert [(v.ok, v.cached) for v in first] == [(True, False)] * 2
+    assert [(v.ok, v.cached) for v in second] == [(True, True)] * 2
+    fp = health.env_fingerprint(kem.device)
+    assert f"dev={torch.cuda.get_device_name(0)}|" in fp and "|cc=9.0|" in fp
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+        health._marker(v.family, fp).name for v in first)

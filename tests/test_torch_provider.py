@@ -245,6 +245,14 @@ def test_port_imports_no_jax():
         "import quantum_resistant_p2p_tpu_torch.provider.batched, quantum_resistant_p2p_tpu_torch.obs\n"
         "from quantum_resistant_p2p_tpu_torch.obs import cost, flight, metrics, redaction, slo, trace\n"
         "from quantum_resistant_p2p_tpu_torch.faults import plan\n"
+        "from quantum_resistant_p2p_tpu_torch.net import p2p_node\n"
+        "from quantum_resistant_p2p_tpu_torch.app import message_store, resumption\n"
+        "from quantum_resistant_p2p_tpu_torch.provider import autotune, scheduler\n"
+        "ring = resumption.STEKRing()\n"
+        "ring.open_ticket(ring.seal_ticket(resumption.mint_fields(\n"
+        "    'a', 'b', bytes(32), 'K', 'A', 'S', 1.0)))\n"
+        "scheduler.DeviceProgramScheduler(shards=2).place()\n"
+        "p2p_node.P2PNode('n', '127.0.0.1', 0)._hello()\n"
         "with trace.Tracer().span('s'):\n"
         "    cost.CostLedger(metrics.Registry('r')).device_time('q.enc', 0.1)\n"
         "from quantum_resistant_p2p_tpu_torch.provider import get_batched_aead\n"

@@ -32,11 +32,6 @@ from quantum_resistant_p2p_tpu_torch.provider import (LANE_BULK, LANE_HANDSHAKE,
                                                       health, init_pk_offset, resp_ct_offset)
 from quantum_resistant_p2p_tpu_torch.provider import batched
 
-#: the reference's stats keys that belong to its breaker and CPU degrade
-#: path, which the port has not yet
-BREAKER_KEYS = {"fallback_ops", "fallback_flushes", "breaker_trips", "device_served_fraction"}
-
-
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
     """One PyTorch CPU thread: xdist workers share the cores."""
@@ -142,18 +137,21 @@ def test_lane_shed_at_the_same_depth_with_the_same_message(seed):
     assert q.stats.as_dict()["lanes"] == rq.stats.as_dict()["lanes"]
 
 
-def test_stats_keys_match_the_reference_without_its_breaker():
-    """Inputs: 20 submissions on lanes from seed 26; exact (the key set,
-    and every count that is not a time)."""
+def test_stats_keys_match_the_reference_with_its_breaker():
+    """Inputs: 20 submissions on lanes from seed 26; exact (the whole key
+    set, the breaker's and the degrade path's included, and every value
+    that is not a time)."""
     lanes = _lanes(26, 20)
     (_, q), (_, rq) = _run_both(
         {"batch_fn": (_recording_fn([]), _recording_fn([])), "max_batch": 8},
         lambda q: _submit_all(q, list(range(20)), lanes))
     ours, theirs = q.stats.as_dict(), rq.stats.as_dict()
-    assert set(ours) == (set(theirs) - BREAKER_KEYS) | {"recent_batch_sizes"}
+    assert set(ours) == set(theirs)
     for key in ("ops", "flushes", "max_batch_seen", "avg_batch", "device_trips", "lanes",
-                "lane_sheds"):
+                "lane_sheds", "fallback_ops", "fallback_flushes", "breaker_trips",
+                "device_served_fraction"):
         assert ours[key] == theirs[key], key
+    assert ours["device_served_fraction"] == 1.0 and ours["breaker_trips"] == 0
     assert q.stats.device_trips == q.stats.flushes == 3 and q.stats.total_wait_s > 0
 
 
@@ -417,7 +415,8 @@ def test_health_verdicts_and_opcache_events_reach_the_flight_ring(monkeypatch, c
 def test_facade_queues_lists_every_queue():
     with BatchedKEM(get_kem("ML-KEM-512", backend="cpu")) as bk:
         assert facade_queues(bk) == [bk._kg, bk._enc, bk._dec]
-        assert all(q.hub is bk._kg.hub and q.executor is bk._executor for q in facade_queues(bk))
+        assert all(q.hub is bk.breaker and q.breaker is bk.breaker and q.executor is None
+                   for q in facade_queues(bk))
     assert batched.LANE_NAMES == ref_batched.LANE_NAMES
     assert (batched.LANE_REKEY, batched.LANE_HANDSHAKE, batched.LANE_BULK) == (
         ref_batched.LANE_REKEY, ref_batched.LANE_HANDSHAKE, ref_batched.LANE_BULK)
