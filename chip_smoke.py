@@ -150,7 +150,38 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              the device histograms, and phase 4's serve rate through the
              scheduler, breaker and autotuner against the plain queues in
              five alternating pairs;
-16. profile  torch.profiler over the KEM flagship, one sign batch, five
+16. engine   in a fresh process of its own on the same card (its launch
+             counts come back with its result), the port's
+             SecureMessaging (app/messaging.py) between port
+             nodes on 127.0.0.1, every engine "cuda" with ML-KEM-768 x
+             ML-DSA-65 (fused) and ChaCha20-Poly1305 (the device data
+             plane): a gateway, a second gateway with the autotuner off,
+             client 0 with queues of its own (autotuner off), and 32
+             burst client engines sharing one more engine's queues (as the
+             reference's swarm bench builds its clients: many engines'
+             device threads in one process launch far slower than one),
+             each batched engine gated and warmed by its own warm-up
+             thread before the next is built; every engine ready with
+             every breaker closed; client 0's handshake alone in at most 4
+             trips on its fused queues (no per-op KEM keygen), the keys
+             agreeing; every burst client at once against the tuned and
+             the static gateway in turns (every key agrees, one
+             encaps_verify_sign op a handshake; flush sizes, handshakes/s
+             and each client's handshake_latency_s printed); 128 secure
+             messages of 256 B sent at once from client 0, signed, sealed,
+             opened and verified through the engines' queues, arriving in
+             order (one open op each); a ticket resume on a fresh
+             connection with no fused, KEM or signature op; a forged
+             secure_message that
+             reaches no listener and makes the gateway re-key; an
+             ML-KEM-1024 client refused with a typed algorithm_mismatch; a
+             hot swap of both sides to FrodoKEM-640-SHAKE (the unfused
+             path, K9-K11) and a full re-handshake with messages after it;
+             the gateway's /healthz, /readyz and /metrics answering; no
+             queue of any engine served by its fallback, every breaker
+             closed, every engine ready; the largest device dispatch a
+             queue against degrade_after_ms and dispatch_timeout_ms;
+17. profile  torch.profiler over the KEM flagship, one sign batch, five
              verify batches, one 4096 x 4 KiB seal batch, one
              FrodoKEM-640-SHAKE encaps batch of 1024 keys, one 128f sign
              batch of 1024 and one 128s verify batch of 2048: device time
@@ -161,15 +192,17 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              the counts are read).
 
 Every kernel wrapper counts its launches.  The counts are set to 0 just
-before each of phases 4-15 and read just after it: every ML-KEM kernel
+before each of phases 4-16 and read just after it: every ML-KEM kernel
 must have run in phase 4, every kernel that encaps runs in phase 5, every
 ML-DSA kernel and K1 in phase 6, K1 and K7 in phase 7, every kernel but
 K8 (K1 with per-row lengths included) in phase 8, K8 in phase 9, K1 and
 K9-K11 in phase 10, K1, K10 and K11 in phase 11, K12 in phase 12 and in
 each set of phase 13, and K13 in phase 13's 192f run and in its memory
 check; K12's few-row path in phase 12 and 13's 128f run, K13's in 13's
-192f run; every kernel of phase 8 and K8 in phases 14 and 15.  The last three lines of output are the card's name and power
-limit (nvidia-smi), one JSON object with key "kernels", and the result
+192f run; every kernel of phase 8 and K8 in phases 14, 15 and 16, and K1
+and K9-K11 in phase 16 after its FrodoKEM swap.  The last three lines of
+output are the card's name and power limit (nvidia-smi), one JSON object
+with key "kernels", and the result
 line {"ok": true, "device": {...}}.  Without a GPU, or without the package
 beside this file, the script prints no result and exits non-zero.
 """
@@ -351,6 +384,22 @@ TRANSPORT_COOLOFF_S, TRANSPORT_WAIT_S = 0.2, 60.0
 #: serve-rate arms: phase 4's plain queues, the scheduler and its breaker,
 #: and the same with the autotuner attached, five rounds in rotating order
 SCHED_RATE_ARMS, SCHED_RATE_ROUNDS = ("plain", "scheduled", "tuned"), 5
+#: the engine phase: the burst clients (SecureMessaging engines sharing one
+#: engine's queues; client 0, with queues of its own, comes on top), the
+#: secure messages client 0 sends after its handshake and their size (128:
+#: at 1024 the gateway's one-at-a-time opens took 294 s, PERF.md §7 item 8),
+#: the messages after the FrodoKEM hot swap, the handshake bursts' gateway
+#: (tuned: autotune=True, static: autotune=False) in turn, the trips a lone
+#: handshake may take, the longest wait of the phase's checks, and the wait for the
+#: secure messages (the gateway opens and verifies them one at a time)
+ENGINE_CLIENTS, ENGINE_MESSAGES, ENGINE_MESSAGE_BYTES = 32, 128, 256
+ENGINE_SWAP_MESSAGES, ENGINE_SWAP_KEM = 16, FRODO_SHAKE
+ENGINE_BURSTS = ("tuned", "static", "static", "tuned")
+ENGINE_TRIPS_MAX, ENGINE_WAIT_S, ENGINE_MESSAGES_WAIT_S = 4, 120.0, 300.0
+ENGINE_PROCESS_TIMEOUT_S = 900.0
+#: host threads of the phase's process, each signing ENGINE_THREAD_SIGNS
+#: ML-DSA-65 messages at B = 1, after the phase (PERF.md §7 item 8)
+ENGINE_THREADS, ENGINE_THREAD_SIGNS = (1, 4, 8), 4
 
 
 class PhaseFailed(RuntimeError):
@@ -1971,6 +2020,397 @@ def phase_transport(np, provider, faults, health, obs_cost, obs_trace, kem, dsa,
     return out
 
 
+def engine_queues(engine) -> dict:
+    """label -> OpQueue over every live facade of one engine."""
+    from quantum_resistant_p2p_tpu_torch.provider import facade_queues
+
+    return {q.label: q for f in (engine._bkem, engine._bsig, engine._bfused, engine._baead)
+            if f is not None for q in facade_queues(f)}
+
+
+def queue_ops(engine, facade: str, op: str) -> int:
+    f = getattr(engine, facade)
+    return 0 if f is None else f.stats()[op]["ops"]
+
+
+async def engine_until(cond, what: str, wait_s: float = ENGINE_WAIT_S, detail=None) -> None:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > wait_s:
+            raise PhaseFailed(f"engine: timed out waiting for {what}"
+                              + (f": {detail()}" if detail is not None else ""))
+        await asyncio.sleep(0.002)
+
+
+def queue_brief(q) -> dict:
+    """One queue's flushes, ops, p50 dispatch and device ms, and its tuner's
+    flush window (None without a tuner or before its first decision)."""
+    st = q.stats.as_dict()
+    window = q.tuner.wait_s() if q.tuner is not None else None
+    return {"ops": st["ops"], "flushes": st["flushes"], "p50_dispatch_ms": st["p50_dispatch_ms"],
+            "p50_device_ms": st["p50_device_ms"],
+            "window_ms": None if window is None else round(1e3 * window, 3)}
+
+
+async def engine_run(np, provider, app, p2p, obs_http, counts, backend: str) -> dict:
+    """The port's SecureMessaging between port nodes on loopback: a gateway
+    (and a second, static gateway for the bursts), client 0 with queues of
+    its own, ENGINE_CLIENTS - 1 clients sharing one engine's queues, one
+    handshake alone, the bursts, the secure messages, a ticket resume, a
+    forged frame, a typed rejection, the FrodoKEM hot swap, the telemetry
+    endpoints; every check raises PhaseFailed."""
+    import urllib.request
+
+    out: dict = {"ready_s": {}}
+    nodes, engines = [], []
+    #: id -> (engine, label, queue) of every queue any engine has had: a hot
+    #: swap replaces facades, and the swapped-out queues are checked too
+    seen: dict = {}
+
+    def note_queues() -> None:
+        for e in engines:
+            for label, q in engine_queues(e).items():
+                seen.setdefault(id(q), (e.node_id, label, q))
+
+    async def stack(name: str, **kw):
+        """A node and its engine; a batched engine's gate and warm-up run
+        before the next engine is built (one warm-up thread at a time)."""
+        node = p2p.P2PNode(name, "127.0.0.1", 0)
+        await node.start()
+        kw.setdefault("use_batching", True)
+        kw.setdefault("symmetric", provider.get_symmetric(AEAD))
+        t0 = time.perf_counter()
+        engine = app.SecureMessaging(node, backend=backend, **kw)
+        await engine.wait_ready()
+        if engine._warmup_thread is not None:
+            out["ready_s"][name] = round(time.perf_counter() - t0, 3)
+        nodes.append(node)
+        engines.append(engine)
+        return engine
+
+    def inbox(engine) -> list:
+        box = []
+        engine.register_message_listener(
+            lambda peer, m: None if m.is_system else box.append(m.content))
+        return box
+
+    try:
+        t0 = time.perf_counter()
+        gw = await stack("gateway", autotune=True)
+        static = await stack("gateway-static", autotune=False)
+        # client 0's own queues flush at max_batch (no tuner), so a burst of
+        # its sends rides one flush a queue and leaves in the order sent
+        c0 = await stack("client-000", autotune=False)
+        # the other clients share one engine's queues, as the reference's
+        # swarm bench builds its clients: one device thread pool for all
+        proto = await stack("clients-shared")
+        pks, sks = proto.signature.generate_keypair_batch(ENGINE_CLIENTS)
+        clients = []
+        for i in range(ENGINE_CLIENTS):
+            c = await stack(f"client-{i + 1:03d}", use_batching=False, kem=proto.kem,
+                            symmetric=proto.symmetric, signature=proto.signature,
+                            sig_keypair=(bytes(pks[i]), bytes(sks[i])))
+            c._bkem, c._bsig, c._bfused, c._baead = (proto._bkem, proto._bsig, proto._bfused,
+                                                    proto._baead)
+            c.use_batching = True
+            clients.append(c)
+        out["setup_s"] = time.perf_counter() - t0
+        note_queues()
+        armed = sorted(f"{n}:{label}" for n, label, q in seen.values() if q.fallback_fn is not None)
+        if armed:
+            raise PhaseFailed(f"engine: CPU fallbacks armed on {armed[:4]}")
+        not_ready = [(e.node_id, e.ready_status()) for e in engines
+                     if not e.ready_status()["ready"]]
+        if not_ready:
+            raise PhaseFailed(f"engine: not ready after the warm-up: {not_ready[:2]}")
+        if (gw.kem.name, gw.signature.name, gw.symmetric.name, gw.kem.backend) != (
+                "ML-KEM-768", "ML-DSA-65", AEAD, backend) or gw._bfused is None:
+            raise PhaseFailed(f"engine: the gateway runs {gw.kem.name}/{gw.signature.name}/"
+                              f"{gw.symmetric.name} on {gw.kem.backend}, fused "
+                              f"{gw._bfused is not None}")
+        for c in [c0] + clients:
+            for g in (gw, static):
+                if await c.node.connect_to_peer("127.0.0.1", g.node.port, timeout=5.0) \
+                        != g.node_id:
+                    raise PhaseFailed(f"engine: {c.node_id} could not reach {g.node_id}")
+        await engine_until(lambda: all(g.node.is_connected(c.node_id) for g in (gw, static)
+                                       for c in [c0] + clients),
+                           "the gateways to register clients")
+        await engine_until(lambda: all(c.peer_settings.get(g.node_id) for g in (gw, static)
+                                       for c in [c0] + clients), "the settings gossip")
+        print(f"[engine] {len(engines)} engines ({backend}, ML-KEM-768 x ML-DSA-65 fused, {AEAD}) "
+              f"in {out['setup_s']:.2f} s; each batched engine gated and warmed alone (s): "
+              f"{out['ready_s']}")
+
+        # one handshake alone
+        before = {"kg": queue_ops(c0, "_bkem", "keygen"),
+                  "ks": queue_ops(c0, "_bfused", "keygen_sign"),
+                  "dvs": queue_ops(c0, "_bfused", "decaps_verify_sign"),
+                  "evs": queue_ops(gw, "_bfused", "encaps_verify_sign")}
+        t0 = time.perf_counter()
+        if not await c0.initiate_key_exchange(gw.node_id):
+            raise PhaseFailed("engine: the lone handshake failed")
+        out["lone_s"] = time.perf_counter() - t0
+        await engine_until(lambda: gw.verify_key_exchange_state(c0.node_id),
+                           "the gateway's confirm")
+        trips = c0.metrics()["handshake_trips"]
+        after = {"kg": queue_ops(c0, "_bkem", "keygen"),
+                 "ks": queue_ops(c0, "_bfused", "keygen_sign"),
+                 "dvs": queue_ops(c0, "_bfused", "decaps_verify_sign"),
+                 "evs": queue_ops(gw, "_bfused", "encaps_verify_sign")}
+        delta = {k: after[k] - before[k] for k in before}
+        out["lone"] = {"trips": trips["last"], "ops": delta, "wall_s": out["lone_s"]}
+        if trips["last"] is None or trips["last"] > ENGINE_TRIPS_MAX:
+            raise PhaseFailed(f"engine: the lone handshake took {trips['last']} trips")
+        if delta["ks"] < 1 or delta["dvs"] < 1 or delta["kg"] != 0 or delta["evs"] < 1:
+            raise PhaseFailed(f"engine: the lone handshake's queue ops {delta}")
+        if c0.shared_keys[gw.node_id] != gw.shared_keys[c0.node_id]:
+            raise PhaseFailed("engine: the lone handshake's keys differ")
+        print(f"[engine] client 0's handshake alone: {trips['last']} trips on its queues "
+              f"(limit {ENGINE_TRIPS_MAX}), {1e3 * out['lone_s']:.1f} ms, queue ops {delta} "
+              f"(kg: per-op KEM keygen; ks, dvs: the fused keygen_sign and decaps_verify_sign; "
+              f"evs: the gateway's encaps_verify_sign)")
+
+        # every burst client at once, against the tuned and the static gateway in turn
+        bursts = []
+        for mode in ENGINE_BURSTS:
+            g = gw if mode == "tuned" else static
+            q = g._bfused._enc
+            n0, sizes0 = q.stats.ops, len(q.stats.batch_sizes)
+            t0 = time.perf_counter()
+            oks = await asyncio.gather(*(c.initiate_key_exchange(g.node_id) for c in clients))
+            wall = time.perf_counter() - t0
+            await engine_until(lambda g=g: all(g.verify_key_exchange_state(c.node_id)
+                                               for c in clients), "the burst's confirms")
+            bad = [c.node_id for c, ok in zip(clients, oks)
+                   if not ok or c.shared_keys.get(g.node_id) != g.shared_keys.get(c.node_id)]
+            if bad:
+                raise PhaseFailed(f"engine: {len(bad)} burst handshakes failed or disagree "
+                                  f"({mode}), first {bad[:4]}")
+            if q.stats.ops - n0 != len(clients):
+                raise PhaseFailed(f"engine: the {mode} gateway's encaps_verify_sign ops "
+                                  f"{q.stats.ops - n0} for {len(clients)} handshakes")
+            lat = [c._handshake_latency.last for c in clients]
+            bursts.append({"gateway": mode, "handshakes_per_s": len(clients) / wall,
+                           "wall_s": wall, "flush_sizes": q.stats.batch_sizes[sizes0:],
+                           "verify_flush_sizes": g._bsig._verify.stats.batch_sizes[-8:],
+                           "latency_ms": {"p50": pct(lat, 50), "p99": pct(lat, 99)},
+                           "trips": sorted({c.metrics()["handshake_trips"]["last"]
+                                            for c in clients})})
+            print(f"[engine] burst, {len(clients)} clients -> {mode} gateway: "
+                  f"{len(clients) / wall:.1f} handshakes/s ({wall:.3f} s); gateway "
+                  f"encaps_verify_sign flush sizes {bursts[-1]['flush_sizes']}; handshake "
+                  f"latency ms p50 {bursts[-1]['latency_ms']['p50']:.1f} p99 "
+                  f"{bursts[-1]['latency_ms']['p99']:.1f} (each client's handshake_latency_s); "
+                  f"trips a handshake {bursts[-1]['trips']}")
+        out["bursts"] = bursts
+
+        # the secure messages, client 0 -> gateway, in order
+        rng = np.random.default_rng(TRANSPORT_SEED + 1)
+        payloads = [bytes(r) for r in rng.integers(0, 256, (ENGINE_MESSAGES,
+                                                            ENGINE_MESSAGE_BYTES), dtype=np.uint8)]
+        got = inbox(gw)
+        opens0 = queue_ops(gw, "_baead", "open")
+        seals0 = queue_ops(c0, "_baead", "seal")
+        t0 = time.perf_counter()
+        sent = await asyncio.gather(*(c0.send_message(gw.node_id, m) for m in payloads))
+        if any(m is None for m in sent):
+            raise PhaseFailed("engine: a secure message was not sent")
+        def gateway_side():
+            return {"arrived": len(got), **{k: queue_brief(q) for k, q in (
+                ("open", gw._baead._open), ("verify", gw._bsig._verify))}}
+
+        await engine_until(lambda: len(got) >= ENGINE_MESSAGES, "the secure messages",
+                           ENGINE_MESSAGES_WAIT_S, gateway_side)
+        wall = time.perf_counter() - t0
+        if got != payloads:
+            raise PhaseFailed("engine: the messages arrived changed or out of order")
+        opens = queue_ops(gw, "_baead", "open") - opens0
+        seals = queue_ops(c0, "_baead", "seal") - seals0
+        if (opens, seals) != (ENGINE_MESSAGES, ENGINE_MESSAGES):
+            raise PhaseFailed(f"engine: {seals} seals and {opens} opens through BatchedAEAD "
+                              f"for {ENGINE_MESSAGES} messages")
+        out["messages"] = {"n": ENGINE_MESSAGES, "bytes": ENGINE_MESSAGE_BYTES, "wall_s": wall,
+                           "messages_per_s": ENGINE_MESSAGES / wall,
+                           "sign_flush_sizes": c0._bsig._sign.stats.batch_sizes[-4:],
+                           "seal_flush_sizes": c0._baead._seal.stats.batch_sizes[-4:],
+                           "open_flush_sizes": gw._baead._open.stats.batch_sizes[-4:],
+                           "gateway": gateway_side()}
+        print(f"[engine] {ENGINE_MESSAGES} secure messages of {ENGINE_MESSAGE_BYTES} B sent at "
+              f"once, client 0 -> gateway, each signed, sealed, opened and verified through the "
+              f"engines' queues: {ENGINE_MESSAGES / wall:.1f} messages/s ({wall:.3f} s), in order; "
+              f"client 0's sign / seal flush sizes {out['messages']['sign_flush_sizes']} / "
+              f"{out['messages']['seal_flush_sizes']}; the gateway opens and verifies one "
+              f"message at a time (its read loop awaits each): {out['messages']['gateway']}")
+
+        # a ticket resume on a fresh connection: no fused, KEM or signature op
+        def handshake_ops():
+            return [queue_ops(e, f, op) for e in (c0, gw) for f, op in (
+                ("_bfused", "keygen_sign"), ("_bfused", "encaps_verify_sign"),
+                ("_bfused", "decaps_verify_sign"), ("_bkem", "keygen"), ("_bkem", "encaps"),
+                ("_bkem", "decaps"), ("_bsig", "sign"), ("_bsig", "verify"))]
+
+        if c0.ticket_for(gw.node_id) is None:
+            raise PhaseFailed("engine: client 0 holds no ticket from the gateway")
+        await c0.node.disconnect_from_peer(gw.node_id, intentional=True)
+        await engine_until(lambda: not gw.node.is_connected(c0.node_id), "the disconnect")
+        if await c0.node.connect_to_peer("127.0.0.1", gw.node.port, timeout=5.0) != gw.node_id:
+            raise PhaseFailed("engine: client 0 could not reconnect")
+        await engine_until(lambda: gw.node.is_connected(c0.node_id), "the reconnect")
+        ops0 = handshake_ops()
+        t0 = time.perf_counter()
+        if not await c0.initiate_key_exchange(gw.node_id):
+            raise PhaseFailed("engine: the resumed handshake failed")
+        out["resume_s"] = time.perf_counter() - t0
+        if (c0._ctr_resumes_used.value, gw._ctr_resumes_ok.value) != (1, 1):
+            raise PhaseFailed(f"engine: resumes used {c0._ctr_resumes_used.value}, accepted "
+                              f"{gw._ctr_resumes_ok.value}")
+        if handshake_ops() != ops0:
+            raise PhaseFailed(f"engine: the resume ran queue ops {ops0} -> {handshake_ops()}")
+        await engine_until(lambda: gw.shared_keys.get(c0.node_id) == c0.shared_keys[gw.node_id],
+                           "the resumed key")
+        got.clear()
+        await c0.send_message(gw.node_id, b"resumed")
+        await engine_until(lambda: got == [b"resumed"], "the message under the resumed key")
+
+        # a forged frame never reaches the listener (the gateway re-keys)
+        old = gw.shared_keys[c0.node_id]
+        await c0.node.send_message(gw.node_id, "secure_message", ct=b"\x00" * 64, ad=b"{}")
+        await engine_until(lambda: gw.shared_keys.get(c0.node_id) not in (None, old)
+                           and gw.verify_key_exchange_state(c0.node_id)
+                           and c0.shared_keys.get(gw.node_id) == gw.shared_keys[c0.node_id],
+                           "the re-key after the forged frame")
+        if got != [b"resumed"] or gw.metrics()["resilience"]["rekeys"] != 1:
+            raise PhaseFailed(f"engine: after the forged frame the listener holds {got[1:]}, "
+                              f"rekeys {gw.metrics()['resilience']['rekeys']}")
+        print(f"[engine] ticket resume in {1e3 * out['resume_s']:.1f} ms with no queue op; a "
+              f"forged secure_message reached no listener and the gateway re-keyed")
+
+        # a typed rejection: a client on ML-KEM-1024 (its gossip pre-check
+        # switched off, so the gateway's refusal comes over the wire)
+        odd = await stack("client-kem1024", use_batching=False,
+                          kem=provider.get_kem("ML-KEM-1024", backend))
+        rejects = []
+
+        async def on_reject(peer_id, m):
+            rejects.append(m.get("reason"))
+
+        odd.node.register_message_handler("ke_reject", on_reject)
+        odd.node.unregister_message_handler("settings_update", odd._handle_settings_update)
+        if await odd.node.connect_to_peer("127.0.0.1", gw.node.port, timeout=5.0) != gw.node_id:
+            raise PhaseFailed("engine: the ML-KEM-1024 client could not reach the gateway")
+        status = await odd._initiate_once(gw.node_id)
+        if status != "algorithm_mismatch" or rejects != ["algorithm_mismatch"]:
+            raise PhaseFailed(f"engine: the ML-KEM-1024 client got {status}, rejects {rejects}")
+        print("[engine] an ML-KEM-1024 client was refused with a typed algorithm_mismatch")
+
+        # the FrodoKEM-640-SHAKE hot swap: the unfused path, then messages
+        swap_counts = counts()
+        note_queues()
+        t0 = time.perf_counter()
+        await gw.set_key_exchange_algorithm(ENGINE_SWAP_KEM)
+        await engine_until(lambda: c0.peer_settings.get(gw.node_id, {}).get("kem")
+                           == ENGINE_SWAP_KEM, "the gateway's new settings")
+        await c0.set_key_exchange_algorithm(ENGINE_SWAP_KEM)
+        if c0._bfused is not None or gw._bfused is not None:
+            raise PhaseFailed("engine: a FrodoKEM engine kept a fused facade")
+        await engine_until(lambda: c0.verify_key_exchange_state(gw.node_id)
+                           and gw.verify_key_exchange_state(c0.node_id)
+                           and c0.shared_keys[gw.node_id] == gw.shared_keys[c0.node_id],
+                           "the FrodoKEM re-handshake")
+        out["swap_s"] = time.perf_counter() - t0
+        kem_ops = {op: queue_ops(e, "_bkem", op) for e, op in ((c0, "keygen"), (gw, "encaps"),
+                                                              (c0, "decaps"))}
+        if min(kem_ops.values()) < 1 or c0.kem.name != ENGINE_SWAP_KEM:
+            raise PhaseFailed(f"engine: the FrodoKEM handshake's KEM ops {kem_ops}")
+        got.clear()
+        swap_msgs = [b"frodo %d" % i for i in range(ENGINE_SWAP_MESSAGES)]
+        for m in swap_msgs:
+            await c0.send_message(gw.node_id, m)
+        await engine_until(lambda: len(got) >= len(swap_msgs), "the messages after the swap")
+        if got != swap_msgs:
+            raise PhaseFailed("engine: the messages after the swap differ")
+        out["swap_counts"] = swap_counts
+        print(f"[engine] hot swap to {ENGINE_SWAP_KEM} on both sides and a full re-handshake "
+              f"in {out['swap_s']:.2f} s (KEM queue ops {kem_ops}); {len(swap_msgs)} messages "
+              f"after it")
+
+        # the telemetry endpoints of the gateway
+        srv = obs_http.TelemetryServer.for_engine(gw, port=0)
+        try:
+            def get(path):
+                with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}{path}",
+                                            timeout=10) as r:
+                    return r.status, r.read()
+
+            loop = asyncio.get_running_loop()
+            answers = {p: await loop.run_in_executor(None, get, p)
+                       for p in ("/healthz", "/readyz", "/metrics")}
+        finally:
+            srv.stop()
+        if [answers[p][0] for p in answers] != [200, 200, 200] or \
+                b"handshake_trips" not in answers["/metrics"][1]:
+            raise PhaseFailed(f"engine: telemetry answered "
+                              f"{ {p: a[0] for p, a in answers.items()} }")
+        print("[engine] telemetry: /healthz 200, /readyz 200, /metrics names handshake_trips")
+
+        # no fallback anywhere (every queue any engine had, those the hot
+        # swaps replaced included), no breaker trip, every engine ready
+        note_queues()
+        fallback, states, worst = {}, {}, {}
+        for node_id, label, q in seen.values():
+            if q.fallback_fn is not None or q.stats.fallback_ops:
+                fallback[f"{node_id}:{label}"] = q.stats.fallback_ops
+            ms = 1e3 * (q.stats.device_hist.percentile(100) or 0.0)
+            worst[label] = max(worst.get(label, 0.0), round(ms, 3))
+        served = {}
+        for e in engines:
+            if e._scheduler is None:  # the shared clients: the shared engine's
+                continue
+            states.update({f"{e.node_id}:shard{s.index}": (s.breaker.state, s.breaker.trips)
+                           for s in e._scheduler.shards
+                           if s.breaker.state != "closed" or s.breaker.trips})
+            m = e.metrics()
+            served[e.node_id] = (m["fallback_trips"], m["device_served_fraction"])
+        await asyncio.gather(*(e.wait_ready() for e in engines))
+        unready = [e.node_id for e in engines if not e.ready_status()["ready"]]
+        off_card = {k: v for k, v in served.items() if v != (0, 1.0)}
+        if fallback or states or unready or off_card:
+            raise PhaseFailed(f"engine: fallbacks armed or served {fallback}, breakers "
+                              f"(state, trips) {states}, (fallback_trips, "
+                              f"device_served_fraction) {off_card}, not ready {unready}")
+        q0 = engine_queues(gw)[f"{ENGINE_SWAP_KEM}.enc"]
+        out["largest_dispatch_ms"] = worst
+        print(f"[engine] {len(seen)} queues over {len(served)} batched engines: no CPU fallback "
+              f"armed, no fallback op, no breaker trip, device_served_fraction 1.0 on each")
+        print(f"[engine] largest device dispatch a queue over every engine (ms, device worker) "
+              f"against degrade_after_ms {1e3 * q0.degrade_after_s:.0f} and dispatch_timeout_ms "
+              f"{1e3 * q0.dispatch_timeout_s:.0f}: {worst}")
+        out["gateway"] = {"metrics_trips": gw.metrics()["handshake_trips"],
+                          "autotune": gw.metrics()["gateway"]["autotune"],
+                          "device_served_fraction": gw.metrics()["device_served_fraction"]}
+        return out
+    finally:
+        for node in nodes:
+            await node.stop()
+        for e in engines:
+            e.close()
+
+
+def phase_engine(np, provider, counts, backend: str = "cuda") -> dict:
+    """Phase 16: the port's SecureMessaging engines on the card."""
+    from quantum_resistant_p2p_tpu_torch import app
+    from quantum_resistant_p2p_tpu_torch.net import p2p_node
+    from quantum_resistant_p2p_tpu_torch.obs import http as obs_http
+
+    t0 = time.perf_counter()
+    out = asyncio.run(asyncio.wait_for(engine_run(np, provider, app, p2p_node, obs_http,
+                                                  counts, backend), 900))
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[engine] phase took {out['phase_s']:.1f} s")
+    return out
+
+
 def pct(xs, q):
     return 1e3 * sorted(xs)[min(len(xs) - 1, int(q / 100 * len(xs)))]
 
@@ -2458,6 +2898,120 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
     return out
 
 
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper by name (each counts its launches); the port must
+    be importable."""
+    from quantum_resistant_p2p_tpu_torch.core import (chacha_cuda, keccak_cuda, sha256_cuda,
+                                                      sha512_cuda)
+    from quantum_resistant_p2p_tpu_torch.kem import frodo_cuda, mlkem_cuda
+    from quantum_resistant_p2p_tpu_torch.sig import mldsa_cuda
+
+    return {"keccak_sponge": keccak_cuda.sponge, "mlkem_sample_ntt": mlkem_cuda.sample_ntt,
+            "mlkem_prf_cbd": mlkem_cuda.prf_cbd, "mlkem_prf_cbd_ntt": mlkem_cuda.prf_cbd_ntt,
+            "mlkem_ntt": mlkem_cuda.ntt, "mlkem_ntt_inv": mlkem_cuda.ntt_inv,
+            "mldsa_rej_ntt": mldsa_cuda.rej_ntt, "mldsa_rej_bounded": mldsa_cuda.rej_bounded,
+            "mldsa_ntt": mldsa_cuda.ntt, "mldsa_ntt_inv": mldsa_cuda.ntt_inv,
+            "keccak_sponge_varlen": keccak_cuda.sponge_varlen,
+            "chacha_blocks": chacha_cuda.chacha_blocks,
+            "frodo_a_times_s": frodo_cuda.a_times_s, "frodo_s_times_a": frodo_cuda.s_times_a,
+            "frodo_cdf_sample": frodo_cuda.cdf_sample,
+            "sha256_compress": sha256_cuda.compress, "sha512_compress": sha512_cuda.compress}
+
+
+def launch_counts(wrappers: dict) -> dict:
+    """Each wrapper's launches, K12's and K13's few-row path apart."""
+    counts = {name: w.launches for name, w in wrappers.items()}
+    counts.update({f"{name}[few-row]": wrappers[name].split_launches for name in SHA2_KERNELS})
+    return counts
+
+
+def engine_child() -> int:
+    """Phase 16 in a process of its own (``--engine-phase``, started by
+    phase_engine_process): its launch counts start at 0 in it, and its
+    result, the counts included, is its last line of output."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT))
+    from quantum_resistant_p2p_tpu_torch import provider
+
+    wrappers = kernel_wrappers()
+    try:
+        out = phase_engine(np, provider, lambda: launch_counts(wrappers))
+    except PhaseFailed as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        return 1
+    out["launches"] = launch_counts(wrappers)
+    try:
+        out["thread_signs"] = thread_signs(provider)
+    except PhaseFailed as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        return 1
+    print(json.dumps({"engine_phase": out}, default=str))
+    return 0
+
+
+def thread_signs(provider) -> dict:
+    """Wall seconds of N host threads of this process, each making
+    ENGINE_THREAD_SIGNS ML-DSA-65 signatures at B = 1 through the provider
+    on the card, for each N of ENGINE_THREADS: the launch-bound work that a
+    queue's device pool and several engines in one process launch from
+    several threads.  Runs after the phase's launch counts are read."""
+    import threading
+
+    import torch
+
+    dsa = provider.get_signature("ML-DSA-65")
+    _, sk = dsa.generate_keypair()
+    dsa.sign(sk, b"warm")
+    torch.cuda.synchronize()
+    out = {}
+    for n in ENGINE_THREADS:
+        errors = []
+
+        def worker():
+            try:
+                for i in range(ENGINE_THREAD_SIGNS):
+                    dsa.sign(sk, b"m%d" % i)
+                torch.cuda.synchronize()
+            except Exception as exc:  # raised below, on the main thread
+                errors.append(exc)
+
+        threads = [threading.Thread(target=worker) for _ in range(n)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        if errors:
+            raise PhaseFailed(f"engine: a threaded sign failed: {errors[0]!r}")
+        out[n] = {"wall_s": wall, "ms_a_sign": 1e3 * wall / (n * ENGINE_THREAD_SIGNS)}
+    print(f"[engine] ML-DSA-65 signs at B = 1 from N threads of the phase's process, "
+          f"{ENGINE_THREAD_SIGNS} a thread (after its launch counts were read): "
+          + "; ".join(f"N = {n}: {v['wall_s']:.3f} s, {v['ms_a_sign']:.1f} ms of wall time a sign"
+                      for n, v in out.items()))
+    return out
+
+
+def phase_engine_process() -> dict:
+    """Phase 16 in a fresh process on the same card, as a gateway runs: this
+    process, after phases 1-15, ran the phase's launch-bound work ~2.5x
+    slower than a fresh one (PERF.md §6).  The kernel libraries of
+    phase 1 and the verdict cache (QRP2P_HEALTH_CACHE) are shared."""
+    try:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--engine-phase"],
+                              capture_output=True, text=True, timeout=ENGINE_PROCESS_TIMEOUT_S)
+    except subprocess.TimeoutExpired as exc:
+        raise PhaseFailed(f"engine: the phase's process ran past {exc.timeout} s") from None
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        print(line)
+    if proc.returncode != 0 or not lines or not lines[-1].startswith('{"engine_phase"'):
+        raise PhaseFailed(f"engine: the phase's process exited {proc.returncode}: "
+                          f"{proc.stderr[-3000:]}")
+    return json.loads(lines[-1])["engine_phase"]
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2494,16 +3048,7 @@ def main() -> int:
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; {card}; {sms} SMs, "
           f"max SM clock {max_sm_mhz:.0f} MHz -> int32 peak {int_rate / 1e12:.2f} Tops/s")
 
-    wrappers = {"keccak_sponge": keccak_cuda.sponge, "mlkem_sample_ntt": mlkem_cuda.sample_ntt,
-                "mlkem_prf_cbd": mlkem_cuda.prf_cbd, "mlkem_prf_cbd_ntt": mlkem_cuda.prf_cbd_ntt,
-                "mlkem_ntt": mlkem_cuda.ntt, "mlkem_ntt_inv": mlkem_cuda.ntt_inv,
-                "mldsa_rej_ntt": mldsa_cuda.rej_ntt, "mldsa_rej_bounded": mldsa_cuda.rej_bounded,
-                "mldsa_ntt": mldsa_cuda.ntt, "mldsa_ntt_inv": mldsa_cuda.ntt_inv,
-                "keccak_sponge_varlen": keccak_cuda.sponge_varlen,
-                "chacha_blocks": chacha_cuda.chacha_blocks,
-                "frodo_a_times_s": frodo_cuda.a_times_s, "frodo_s_times_a": frodo_cuda.s_times_a,
-                "frodo_cdf_sample": frodo_cuda.cdf_sample,
-                "sha256_compress": sha256_cuda.compress, "sha512_compress": sha512_cuda.compress}
+    wrappers = kernel_wrappers()
     sources = {"keccak_sponge": "quantum_resistant_p2p_tpu_torch/csrc/sponge.cu",
                "keccak_sponge_varlen": "quantum_resistant_p2p_tpu_torch/csrc/sponge.cu",
                "chacha_blocks": "quantum_resistant_p2p_tpu_torch/csrc/chacha.cu",
@@ -2541,13 +3086,13 @@ def main() -> int:
             for name in SHA2_KERNELS:
                 wrappers[name].split_launches = 0
 
-        def read(phase, expected, few_row=()):
-            """The launch counts since reset(), K12's and K13's few-row path
-            apart ("<name>[few-row]"); each of ``expected`` must have run,
-            and each of ``few_row`` through its few-row path."""
-            counts = {name: w.launches for name, w in wrappers.items()}
-            counts.update({f"{name}[few-row]": wrappers[name].split_launches
-                           for name in SHA2_KERNELS})
+        def read(phase, expected, few_row=(), counts=None):
+            """The launch counts since reset() (or ``counts``, a phase's own
+            process's), K12's and K13's few-row path apart
+            ("<name>[few-row]"); each of ``expected`` must have run, and each
+            of ``few_row`` through its few-row path."""
+            if counts is None:
+                counts = launch_counts(wrappers)
             print(f"[launches] {phase}: {counts}")
             idle = [name for name in expected if counts[name] == 0]
             idle += [f"{name}[few-row]" for name in few_row if counts[f"{name}[few-row]"] == 0]
@@ -2640,6 +3185,15 @@ def main() -> int:
         carried = phase_transport(np, provider, faults, health, obs_cost, obs_trace, kem, dsa,
                                   fused, aead, pk_off, ct_off)
         launches["transport"] = read("transport", HANDSHAKE_KERNELS + ("chacha_blocks",))
+        engined = phase_engine_process()
+        launches["engine"] = read("engine", HANDSHAKE_KERNELS + ("chacha_blocks",),
+                                  counts=engined.pop("launches"))
+        swapped = {name: launches["engine"][name] - engined["swap_counts"][name]
+                   for name in FRODO_KERNELS}
+        print(f"[launches] engine, after the {ENGINE_SWAP_KEM} swap: {swapped}")
+        if not all(swapped.values()):
+            raise PhaseFailed(f"engine: kernels not launched after the {ENGINE_SWAP_KEM} swap: "
+                              f"{[n for n, c in swapped.items() if c == 0]}")
 
         # launches of one batched call of each op (after the counted window)
         def count(call):
@@ -2737,7 +3291,7 @@ def main() -> int:
                                  "frodo_serve": frodo_served, "frodo_batch": frodo_batch,
                                  "sphincs_serve": slh_served, "sphincs_batch": slh_batch,
                                  "sphincs_memory": slh_memory, "obs_faults": observed,
-                                 "transport": carried,
+                                 "transport": carried, "engine": engined,
                                  "launches": launches, "launches_per_op": per_op,
                                  "profile": profiled}}))
     print(card)
@@ -2749,6 +3303,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--engine-phase"]:
+        sys.exit(engine_child())
     # this run's health verdicts go to a fresh cache, so every gate of the
     # earlier phases probes the card (phase 15 checks the cache itself)
     with tempfile.TemporaryDirectory(prefix="qrp2p-health-") as _cache:

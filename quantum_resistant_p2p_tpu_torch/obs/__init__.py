@@ -1,5 +1,5 @@
 """``obs``: the observability layer (counterpart of the reference's
-``obs/``, without its HTTP endpoints).  Stdlib only, apart from
+``obs/``).  Stdlib only, apart from
 :func:`trace.device_trace`, which imports ``torch.profiler`` when called.
 
 * :mod:`.trace`     — correlated span tracer: contextvar-propagated span
@@ -14,6 +14,8 @@
   diagnostic bundle on triggers (injected faults, SLO burns).
 * :mod:`.slo`       — declarative SLO specs evaluated on injectable clocks
   over multi-window burn rates.
+* :mod:`.http`      — the read-only telemetry endpoints (``/metrics``,
+  ``/healthz``, ``/readyz``, ...), off by default; not imported here.
 * :mod:`.cost`      — device-cost ledger: batch occupancy and padding
   waste, compile attribution, device seconds per op family, operand-cache
   hit windows.

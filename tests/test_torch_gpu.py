@@ -787,3 +787,58 @@ def test_health_cache_round_trip_on_the_card(gpu, tmp_path, monkeypatch):
     assert f"dev={torch.cuda.get_device_name(0)}|" in fp and "|cc=9.0|" in fp
     assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
         health._marker(v.family, fp).name for v in first)
+
+
+def test_two_engines_handshake_and_message_on_the_card(gpu, tmp_path, monkeypatch):
+    """Two port ``SecureMessaging`` engines on "cuda" with batching on (the
+    default ML-KEM-768 x ML-DSA-65, fused; ChaCha20-Poly1305 on the device
+    data plane) over loopback: the handshake takes at most 4 trips on the
+    initiator's scheduler, the keys agree, one message arrives, and no
+    queue of either engine has a CPU fallback armed or served a fallback
+    op."""
+    from quantum_resistant_p2p_tpu_torch.app import SecureMessaging
+    from quantum_resistant_p2p_tpu_torch.net.p2p_node import P2PNode
+    from quantum_resistant_p2p_tpu_torch.provider import facade_queues
+
+    monkeypatch.setenv("QRP2P_HEALTH_CACHE", str(tmp_path))
+
+    async def run():
+        nodes = [P2PNode(name, "127.0.0.1", 0) for name in ("gpu-a", "gpu-b")]
+        for n in nodes:
+            await n.start()
+        a, b = (SecureMessaging(n, use_batching=True,
+                                symmetric=get_symmetric("ChaCha20-Poly1305")) for n in nodes)
+        got = []
+        b.register_message_listener(lambda p, m: None if m.is_system else got.append(m))
+        try:
+            await asyncio.wait_for(asyncio.gather(a.wait_ready(), b.wait_ready()), 300)
+            assert a.ready_status()["ready"] and b.ready_status()["ready"]
+            assert await asyncio.wait_for(nodes[0].connect_to_peer("127.0.0.1", nodes[1].port),
+                                          8) == "gpu-b"
+            assert await asyncio.wait_for(a.initiate_key_exchange("gpu-b"), 60)
+            assert await a.send_message("gpu-b", b"on the card") is not None
+            for _ in range(800):
+                if got:
+                    break
+                await asyncio.sleep(0.01)
+            return a, b, got
+        finally:
+            for n in nodes:
+                await n.stop()
+            a.close()
+            b.close()
+
+    a, b, got = asyncio.run(run())
+    assert [m.content for m in got] == [b"on the card"]
+    assert a.shared_keys["gpu-b"] == b.shared_keys["gpu-a"]
+    assert (a.kem.backend, a.signature.backend) == ("cuda", "cuda")
+    assert a.metrics()["handshake_trips"]["last"] <= 4
+    assert a._bfused.stats()["keygen_sign"]["ops"] >= 1
+    assert b._bfused.stats()["encaps_verify_sign"]["ops"] >= 1
+    assert b._baead.stats()["open"]["ops"] == 1
+    for e in (a, b):
+        m = e.metrics()
+        assert m["fallback_trips"] == 0 and m["device_served_fraction"] == 1.0
+        assert m["breaker_state"] == "closed" and m["breaker_trips"] == 0
+        assert all(q.fallback_fn is None for f in (e._bkem, e._bsig, e._bfused, e._baead)
+                   for q in facade_queues(f))

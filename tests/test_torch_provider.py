@@ -247,6 +247,13 @@ def test_port_imports_no_jax():
         "from quantum_resistant_p2p_tpu_torch.faults import plan\n"
         "from quantum_resistant_p2p_tpu_torch.net import p2p_node\n"
         "from quantum_resistant_p2p_tpu_torch.app import message_store, resumption\n"
+        "from quantum_resistant_p2p_tpu_torch.app import messaging, SecureMessaging\n"
+        "from quantum_resistant_p2p_tpu_torch.obs import http\n"
+        "http.TelemetryServer({'/x': http.json_route(dict)}).start().stop()\n"
+        "eng = SecureMessaging(p2p_node.P2PNode('m', '127.0.0.1', 0), backend='cpu',\n"
+        "                      sig_keypair=(b'p', b's'), telemetry_port=0)\n"
+        "assert eng.metrics()['handshake_trips']['count'] == 0 and eng.slo_status()\n"
+        "eng.close()\n"
         "from quantum_resistant_p2p_tpu_torch.provider import autotune, scheduler\n"
         "ring = resumption.STEKRing()\n"
         "ring.open_ticket(ring.seal_ticket(resumption.mint_fields(\n"
