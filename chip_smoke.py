@@ -16,7 +16,9 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              the shapes of the batch-4096 ML-KEM-768 and ML-DSA-65 paths:
              K1 at H, G and J, at one ML-DSA-65 sign attempt's ExpandMask,
              c~ and SampleInBall, at FrodoKEM-640-SHAKE's noise stream and
-             one chunk of its A rows (B = 1024), and at the H shape just
+             one chunk of its A rows (B = 1024), at HQC-256's seedexpand of
+             pk_seed (41 B -> 7,205 B) and its K(m || u || v) (14,438 B ->
+             64) at B = 1024 and at B = 1, and at the H shape just
              below and past its split rule; K1 with per-row lengths on 4096
              transcripts of up to 3458 bytes; K7 forward and inverse at
              4096, 20480 and 24576 polynomials; K8 on 4096 x 65 and 4096 x
@@ -48,8 +50,9 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              the keygen records of acvp_slhdsa128f_fixture.json on the GPU;
              the health gate (ML-KEM-768 KAT, ML-DSA-65 round trip, fused
              keygen_sign, AEAD KAT, FrodoKEM-640-SHAKE KAT, FrodoKEM-640-AES
-             round trip, SPHINCS+-SHA2-128s and -128f round trips) on the
-             "cuda" providers with their "cpu" twins;
+             round trip, SPHINCS+-SHA2-128s and -128f round trips, the
+             pinned HQC-128 vector) on the "cuda" providers with their
+             "cpu" twins;
 4. serve     BatchedKEM over get_kem("ML-KEM-768") (GPU backend) with
              max_batch 4096 and max_wait 2 ms: 1024 concurrent clients each
              run keygen -> encaps -> decaps, then encapsulate twice to one
@@ -88,6 +91,19 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              resp. the AES chunk loop) and to one key over its precompute
              (encaps_pre), checked against the CPU path on the first rows,
              timed with CUDA events and the host clock;
+11b. hqc     the three tests/vectors/hqc_*.json files and the stanzas of
+             PQCgenKAT_hqc128_fixture.rsp (seeds by the KAT harness's
+             AES-256 CTR-DRBG, on the host) through keygen/encaps/decaps on
+             the GPU, byte-exact, a tampered ciphertext giving K(sigma ||
+             u || v); phase 4 over get_kem("HQC-128") (no operand cache);
+             keygen, encaps and decaps at B = 1024 of HQC-128 and HQC-256
+             (published parameters), the first rows held to the CPU path,
+             the odd rows' tampered ciphertexts to their rejection secret and
+             the RM and RS decoders to the CPU path on 64 uniform words (most
+             RM blocks tied),
+             timed with CUDA events and the host clock, with each op's kernel
+             launches and K1's device ms (profiler), K1's launches and its
+             peak device memory a row;
 12. sphincs serve  BASELINE.json config 4's "SPHINCS+-SHA2-128s verify":
              2048 SPHINCS+-SHA2-128s keys from one batched keygen, one
              message signed under each by sign_batch (in chunks that fit the
@@ -176,31 +192,36 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              reaches no listener and makes the gateway re-key; an
              ML-KEM-1024 client refused with a typed algorithm_mismatch; a
              hot swap of both sides to FrodoKEM-640-SHAKE (the unfused
-             path, K9-K11) and a full re-handshake with messages after it;
+             path, K9-K11), then to HQC-128 (unfused, K1), each with a full
+             re-handshake and messages after it;
              the gateway's /healthz, /readyz and /metrics answering; no
              queue of any engine served by its fallback, every breaker
              closed, every engine ready; the largest device dispatch a
              queue against degrade_after_ms and dispatch_timeout_ms;
 17. profile  torch.profiler over the KEM flagship, one sign batch, five
              verify batches, one 4096 x 4 KiB seal batch, one
-             FrodoKEM-640-SHAKE encaps batch of 1024 keys, one 128f sign
-             batch of 1024 and one 128s verify batch of 2048: device time
-             per kernel (K1's, K7's, K2's, K3's, K4's, K5's, K6's, K12's
-             and K13's apart, K12's and K13's few-row path also alone),
-             launches, and
-             the device busy share of each window from its trace (after
-             the counts are read).
+             FrodoKEM-640-SHAKE encaps batch of 1024 keys, one HQC-128
+             encaps batch of 1024 keys, one 128f sign batch of 1024 and
+             one 128s verify batch of 2048: device time per kernel (K1's,
+             K7's, K2's, K3's, K4's, K5's, K6's, K12's and K13's apart,
+             K12's and K13's few-row path also alone), launches, K1's
+             wrapper launches beside the trace's, and the device busy
+             share of each window from its trace (after the counts are
+             read).
 
-Every kernel wrapper counts its launches.  The counts are set to 0 just
-before each of phases 4-16 and read just after it: every ML-KEM kernel
-must have run in phase 4, every kernel that encaps runs in phase 5, every
-ML-DSA kernel and K1 in phase 6, K1 and K7 in phase 7, every kernel but
-K8 (K1 with per-row lengths included) in phase 8, K8 in phase 9, K1 and
-K9-K11 in phase 10, K1, K10 and K11 in phase 11, K12 in phase 12 and in
-each set of phase 13, and K13 in phase 13's 192f run and in its memory
-check; K12's few-row path in phase 12 and 13's 128f run, K13's in 13's
-192f run; every kernel of phase 8 and K8 in phases 14, 15 and 16, and K1
-and K9-K11 in phase 16 after its FrodoKEM swap.  The last three lines of
+Every kernel wrapper counts its launches. The counts are set to 0 just
+before each of phases 4-16 (11b included) and read just after it: every
+ML-KEM kernel must have run in phase 4, every kernel that encaps runs in
+phase 5, every ML-DSA kernel and K1 in phase 6, K1 and K7 in phase 7,
+every kernel but K8 (K1 with per-row lengths included) in phase 8, K8 in
+phase 9, K1 and K9-K11 in phase 10, K1, K10 and K11 in phase 11, K1 in
+phase 11b, K12 in phase 12 and in each set of phase 13, and K13 in phase
+13's 192f run and in its memory check; K12's few-row path in phase 12
+and 13's 128f run, K13's in 13's 192f run; every kernel of phase 8 and
+K8 in phases 14, 15 and 16, K1 and K9-K11 in phase 16's re-handshake after
+its FrodoKEM swap, and K1 from HQC's own SHAKE256 calls (counted on their
+calling threads, the handshake's signatures apart) in its re-handshake
+after the HQC swap.  The last three lines of
 output are the card's name and power limit (nvidia-smi), one JSON object
 with key "kernels", and the result
 line {"ok": true, "device": {...}}.  Without a GPU, or without the package
@@ -393,7 +414,17 @@ SCHED_RATE_ARMS, SCHED_RATE_ROUNDS = ("plain", "scheduled", "tuned"), 5
 #: handshake may take, the longest wait of the phase's checks, and the wait for the
 #: secure messages (the gateway opens and verifies them one at a time)
 ENGINE_CLIENTS, ENGINE_MESSAGES, ENGINE_MESSAGE_BYTES = 32, 128, 256
-ENGINE_SWAP_MESSAGES, ENGINE_SWAP_KEM = 16, FRODO_SHAKE
+#: phase "hqc": the published sets run at HQC_BATCH (nothing cut), the set
+#: the serve and the gate run, the vector files and the PQCgenKAT fixture
+HQC_BATCH, HQC_BATCHES, HQC_SERVE = 1024, ("HQC-128", "HQC-256"), "HQC-128"
+HQC_VECTORS, HQC_RSP = ("128", "192", "256"), "PQCgenKAT_hqc128_fixture.rsp"
+#: uniform words through the decoders, card against CPU
+HQC_DECODE_ROWS = 64
+#: the phase 16 hot swaps, in order: FrodoKEM (the unfused path on K9-K11),
+#: then HQC (the unfused path on K1 and PyTorch)
+ENGINE_SWAP_MESSAGES, ENGINE_SWAP_KEMS = 16, (FRODO_SHAKE, HQC_SERVE)
+#: phase 16's count of the K1 launches inside HQC's own SHAKE256 calls
+HQC_OWN_K1 = "keccak_sponge[HQC's own]"
 ENGINE_BURSTS = ("tuned", "static", "static", "tuned")
 ENGINE_TRIPS_MAX, ENGINE_WAIT_S, ENGINE_MESSAGES_WAIT_S = 4, 120.0, 300.0
 ENGINE_PROCESS_TIMEOUT_S = 900.0
@@ -646,9 +677,14 @@ def k1_k7_cases(torch, np, rng, keccak, keccak_cuda, mldsa, mldsa_cuda) -> list:
     def u8(*shape):
         return torch.from_numpy(rng.integers(0, 256, size=shape, dtype=np.uint8)).to(dev)
 
+    from quantum_resistant_p2p_tpu_torch.kem.hqc_params import HQC256
+
     p = mldsa.MLDSA65
     edge = K1_ROWS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
     fp_n, fp_rows = 640, 640 // 16  # FrodoKEM-640: n, and the rows of one of 16 A chunks
+    # HQC-256's longest squeeze (h from pk_seed || 2) and longest absorb
+    # (K over m || u || v || 4), at phase "hqc"'s batch and alone
+    hqc_k = HQC256.k + HQC256.n_bytes + HQC256.n1n2_bytes + 1
     shapes = [("keccak_sponge", "H", BATCH, 1184, 136, 0x06, 32),
               ("keccak_sponge", "G", BATCH, 64, 72, 0x06, 64),
               ("keccak_sponge", "J", BATCH, 1120, 136, 0x1F, 32),
@@ -664,6 +700,14 @@ def k1_k7_cases(torch, np, rng, keccak, keccak_cuda, mldsa, mldsa_cuda) -> list:
                FRODO_BATCH * fp_rows, 18, 168, 0x1F, 2 * fp_n),
               ("keccak_sponge[1 row]", "H shape, one sponge: the split path's latency", 1,
                1184, 136, 0x06, 32),
+              ("keccak_sponge[HQC seedexpand]", f"HQC-256 seedexpand(pk_seed), B = {HQC_BATCH}",
+               HQC_BATCH, 41, 136, 0x1F, HQC256.n_bytes),
+              ("keccak_sponge[HQC seedexpand, 1 row]", "HQC-256 seedexpand(pk_seed), B = 1", 1,
+               41, 136, 0x1F, HQC256.n_bytes),
+              ("keccak_sponge[HQC K]", f"HQC-256 K(m || u || v), B = {HQC_BATCH}", HQC_BATCH,
+               hqc_k, 136, 0x1F, 64),
+              ("keccak_sponge[HQC K, 1 row]", "HQC-256 K(m || u || v), B = 1", 1, hqc_k, 136,
+               0x1F, 64),
               ("keccak_sponge[split edge - 1]", "H shape, last row count of the split path",
                edge - 1, 1184, 136, 0x06, 32),
               ("keccak_sponge[rows edge + 5]", "H shape, past the split rule", edge + 5, 1184,
@@ -706,7 +750,8 @@ def run_cases(torch, cases, library: dict, int_rate: float) -> list:
         if not torch.equal(got, want):
             raise PhaseFailed(f"{name} {shape}: kernel differs from plain (max |err| {err})")
         ms, dev_ms = cuda_ms(torch, kern, 20), device_ms(torch, kern, 20)
-        slow_plain = name.startswith(("frodo_", "sha", "keccak_sponge[Frodo"))
+        slow_plain = name.startswith(("frodo_", "sha", "keccak_sponge[Frodo",
+                                      "keccak_sponge[HQC"))
         plain_ms = cuda_ms(torch, plain, 1 if slow_plain else 3)
         library_ms = cuda_ms(torch, library[name], 20) if name in library else None
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / int_rate
@@ -1001,6 +1046,248 @@ def phase_kat_frodo(torch, frodo) -> None:
               "(keygen, encaps, decaps, implicit rejection)")
 
 
+def aes256_block(sbox, key: bytes, block: bytes) -> bytes:
+    """One AES-256 block encryption on the host (FIPS 197): the cipher of
+    the NIST KAT harness's DRBG, for phase "hqc"'s PQCgenKAT stanzas."""
+    words = [list(key[4 * i:4 * i + 4]) for i in range(8)]
+    rcon = 1
+    for i in range(8, 60):
+        t = list(words[i - 1])
+        if i % 8 == 0:
+            t = [sbox[b] for b in t[1:] + t[:1]]
+            t[0] ^= rcon
+            rcon = (rcon << 1) ^ (0x11B if rcon & 0x80 else 0)
+        elif i % 8 == 4:
+            t = [sbox[b] for b in t]
+        words.append([a ^ b for a, b in zip(words[i - 8], t)])
+
+    def xtime(b: int) -> int:
+        return ((b << 1) ^ 0x11B) if b & 0x80 else b << 1
+
+    state = [b ^ k for b, k in zip(block, sum(words[:4], []))]
+    for rnd in range(1, 15):
+        state = [sbox[b] for b in state]
+        state = [state[(i + 4 * (i % 4)) % 16] for i in range(16)]  # ShiftRows
+        if rnd < 14:
+            mixed = []
+            for c in range(4):
+                a = state[4 * c:4 * c + 4]
+                t = a[0] ^ a[1] ^ a[2] ^ a[3]
+                mixed += [a[i] ^ t ^ xtime(a[i] ^ a[(i + 1) % 4]) for i in range(4)]
+            state = mixed
+        state = [b ^ k for b, k in zip(state, sum(words[4 * rnd:4 * rnd + 4], []))]
+    return bytes(state)
+
+
+class KatDrbg:
+    """The NIST PQC KAT harness's randombytes: AES-256 CTR-DRBG without a
+    derivation function, seeded by a stanza's 48-byte seed."""
+
+    def __init__(self, sbox, seed: bytes):
+        self.sbox, self.key, self.v = sbox, bytes(32), bytearray(16)
+        self._update(seed)
+
+    def _block(self) -> bytes:
+        for i in range(15, -1, -1):
+            self.v[i] = (self.v[i] + 1) & 0xFF
+            if self.v[i]:
+                break
+        return aes256_block(self.sbox, self.key, bytes(self.v))
+
+    def _update(self, provided: bytes | None) -> None:
+        temp = b"".join(self._block() for _ in range(3))
+        if provided is not None:
+            temp = bytes(a ^ b for a, b in zip(temp, provided))
+        self.key, self.v = temp[:32], bytearray(temp[32:])
+
+    def random_bytes(self, n: int) -> bytes:
+        out = b""
+        while len(out) < n:
+            out += self._block()
+        self._update(None)
+        return out[:n]
+
+
+def rsp_stanzas(text: str) -> list[dict]:
+    """The ``key = value`` stanzas of a PQCgenKAT .rsp file."""
+    recs, rec = [], {}
+    for line in text.splitlines() + [""]:
+        line = line.strip()
+        if not line or line.startswith("#"):
+            if rec:
+                recs.append(rec)
+            rec = {}
+            continue
+        key, _, value = line.partition("=")
+        rec[key.strip()] = value.strip()
+    return recs
+
+
+def phase_kat_hqc(torch, hqc, sbox) -> None:
+    """The three HQC vector files and the PQCgenKAT fixture's stanzas through
+    keygen/encaps/decaps on the GPU, byte-exact: pk, sk and ct by their
+    sha256 (the files) or bytes (the stanzas, whose seeds the KAT harness's
+    DRBG rebuilds), ss by value; a tampered ciphertext gives the rejection
+    secret K(sigma || u || v), computed on the host."""
+    for tag in HQC_VECTORS:
+        data = json.loads((ROOT / "tests" / "vectors" / f"hqc_{tag}.json").read_text())
+        p = hqc.PARAMS[data["algorithm"]]
+        recs = data["tests"]
+
+        def col(key):
+            return torch.tensor([list(bytes.fromhex(r[key])) for r in recs], dtype=torch.uint8,
+                                device="cuda")
+
+        kg, enc, dec = hqc.get(p.name)
+        pk, sk = kg(col("sk_seed"), col("sigma"), col("pk_seed"))
+        ct, ss = enc(pk, col("m"), col("salt"))
+        bad = ct.clone()
+        bad[:, 0] ^= 1
+        ss2, rej = dec(sk.repeat(2, 1), torch.cat([ct, bad])).split(len(recs))
+        for i, rec in enumerate(recs):
+            for name, t in (("pk", pk), ("sk", sk), ("ct", ct)):
+                if hashlib.sha256(bytes(t[i].cpu().numpy())).hexdigest() != rec[name + "_sha256"]:
+                    raise PhaseFailed(f"KAT {p.name} count {rec['count']}: {name} differs")
+            for name, t in (("ss", ss), ("ss after decaps", ss2)):
+                if bytes(t[i].cpu().numpy()).hex() != rec["ss"]:
+                    raise PhaseFailed(f"KAT {p.name} count {rec['count']}: {name} differs")
+            want = hashlib.shake_256(bytes.fromhex(rec["sigma"])
+                                     + bytes(bad[i, :-16].cpu().numpy()) + b"").digest(64)
+            if bytes(rej[i].cpu().numpy()) != want:
+                raise PhaseFailed(f"KAT {p.name} count {rec['count']}: a tampered ciphertext "
+                                  "did not give the rejection secret")
+        print(f"[kat] {p.name}: {len(recs)} vectors byte-exact on the GPU "
+              "(keygen, encaps, decaps, implicit rejection)")
+    p = hqc.PARAMS["HQC-128"]
+    recs = rsp_stanzas((ROOT / "tests" / "vectors" / HQC_RSP).read_text())
+    draws = []
+    for rec in recs:
+        drbg = KatDrbg(sbox, bytes.fromhex(rec["seed"]))
+        draws.append([drbg.random_bytes(n) for n in (40, p.k, 40, p.k, 16)])
+
+    def drawn(j):
+        return torch.tensor([list(d[j]) for d in draws], dtype=torch.uint8, device="cuda")
+
+    kg, enc, dec = hqc.get(p.name)
+    pk, sk = kg(drawn(0), drawn(1), drawn(2))
+    ct, ss = enc(pk, drawn(3), drawn(4))
+    ss2 = dec(sk, ct)
+    for i, rec in enumerate(recs):
+        for name, t in (("pk", pk), ("sk", sk), ("ct", ct), ("ss", ss), ("ss", ss2)):
+            if bytes(t[i].cpu().numpy()).hex() != rec[name].lower():
+                raise PhaseFailed(f"{HQC_RSP} count {rec['count']}: {name} differs")
+    print(f"[kat] {HQC_RSP}: {len(recs)} stanzas byte-exact on the GPU (seeds by the KAT "
+          "harness's AES-256 CTR-DRBG; keygen, encaps, decaps)")
+
+
+def hqc_batch_inputs(torch, np, hqc, name: str):
+    """HQC_BATCH seeded rows of each input (sk_seed, sigma, pk_seed, m,
+    salt) of one set, on the GPU."""
+    p = hqc.PARAMS[name]
+    rng = np.random.default_rng(p.n)
+    return p, [torch.from_numpy(rng.integers(0, 256, size=(HQC_BATCH, n), dtype=np.uint8))
+               .to("cuda") for n in (40, p.k, 40, p.k, 16)]
+
+
+def kernel_launches(torch, fn) -> tuple[int, float]:
+    """(kernels the card ran for one call of fn, PyTorch's and the port's;
+    K1's device ms among them), from a torch.profiler trace of its own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1_us = sum(e["dur"] for e in kernels
+                if "::sponge_rows_kernel<" in e["name"] or "::sponge_split_kernel<" in e["name"])
+    return len(kernels), k1_us / 1e3
+
+
+def phase_hqc_batch(torch, np, hqc, keccak_cuda, inputs) -> tuple[dict, tuple]:
+    """keygen, encaps and decaps at HQC_BATCH of one set: the first rows
+    held to the CPU path, the odd rows' tampered ciphertexts to their
+    rejection secret and the even rows' to the secret, the RM and RS decoders
+    to the CPU path on tie-heavy words; each op timed with
+    CUDA events and the host clock, with its kernel launches and K1's device
+    ms (profiler), K1's launches and its peak device memory a row."""
+    p, (sk_seed, sigma, pk_seed, m, salt) = inputs
+    kg, enc, dec = hqc.get(p.name)
+    pk, sk = kg(sk_seed, sigma, pk_seed)
+    ct, ss = enc(pk, m, salt)
+    bad = ct.clone()
+    bad[1::2, 3] ^= 0x20
+    got = dec(sk, bad)
+    torch.cuda.synchronize()
+    if (pk.shape, sk.shape, ct.shape, ss.shape) != (
+            (HQC_BATCH, p.pk_len), (HQC_BATCH, p.sk_len), (HQC_BATCH, p.ct_len), (HQC_BATCH, 64)):
+        raise PhaseFailed(f"{p.name}: shapes {pk.shape} {sk.shape} {ct.shape} {ss.shape}")
+    rows = 2
+    cpu = [x[:rows].cpu() for x in (sk_seed, sigma, pk_seed, m, salt)]
+    cpk, csk = kg(*cpu[:3])
+    cct, css = enc(cpk, *cpu[3:])
+    cgot = dec(csk, bad[:rows].cpu())
+    for name, dev_t, cpu_t in (("pk", pk, cpk), ("sk", sk, csk), ("ct", ct, cct), ("ss", ss, css),
+                               ("decaps", got, cgot)):
+        if not torch.equal(dev_t[:rows].cpu(), cpu_t):
+            raise PhaseFailed(f"{p.name}: GPU {name} differs from the CPU path")
+    if not torch.equal(got[0::2], ss[0::2]):
+        raise PhaseFailed(f"{p.name}: GPU decaps of honest ciphertexts differs from encaps")
+    sig_h, bad_h = sk[1::2, 40:40 + p.k].cpu().numpy(), bad[1::2, :-16].cpu().numpy()
+    want = [hashlib.shake_256(bytes(a) + bytes(b) + b"").digest(64)
+            for a, b in zip(sig_h, bad_h)]
+    if [bytes(r) for r in got[1::2].cpu().numpy()] != want:
+        raise PhaseFailed(f"{p.name}: a tampered ciphertext did not give K(sigma || u || v)")
+    # a rejected row's m' never reaches the secret, so the decoders are held
+    # to the CPU path directly, on uniform words: most RM(1,7) blocks then
+    # have several largest |F| (the first must win) and the RS words carry
+    # more than delta errors
+    words = torch.from_numpy(np.random.default_rng(p.n1).integers(
+        0, 2, size=(HQC_DECODE_ROWS, p.n1 * p.n2), dtype=np.uint8))
+    rm = hqc._rm_decode(p, words.to("cuda"))
+    rs = hqc._rs_decode(p, rm)
+    if not (torch.equal(rm.cpu(), hqc._rm_decode(p, words))
+            and torch.equal(rs.cpu(), hqc._rs_decode(p, rm.cpu()))):
+        raise PhaseFailed(f"{p.name}: the GPU RM/RS decoders differ from the CPU path")
+    f = (p.dup - 2 * words.reshape(-1, p.n1, p.dup, 128).sum(-2)).to(torch.float32)
+    mag = (f @ hqc._device_consts("cpu")["hadamard"]).abs()
+    tied = float(((mag == mag.amax(-1, keepdim=True)).sum(-1) > 1).float().mean())
+    if tied == 0:
+        raise PhaseFailed(f"{p.name}: the decoder check held no tied RM block")
+    print(f"[hqc] {p.name}: RM and RS decoders equal to the CPU path on {HQC_DECODE_ROWS} uniform "
+          f"words, {tied:.1%} of their RM blocks tied")
+    out = {"name": p.name, "batch": HQC_BATCH, "decode_tied_share": tied}
+    for op, fn in (("keygen", lambda: kg(sk_seed, sigma, pk_seed)),
+                   ("encaps", lambda: enc(pk, m, salt)), ("decaps", lambda: dec(sk, ct))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        k1 = keccak_cuda.sponge.launches
+        fn()
+        torch.cuda.synchronize()
+        k1 = keccak_cuda.sponge.launches - k1
+        peak = torch.cuda.max_memory_allocated() - base
+        reps = 5
+        ms = cuda_ms(torch, fn, reps)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+        launched, k1_ms = kernel_launches(torch, fn)
+        out[op] = {"ms_per_batch_cuda_events": ms, "ms_per_batch_wall": wall_ms,
+                   "ops_per_s": HQC_BATCH / (ms / 1e3), "kernel_launches": launched,
+                   "k1_launches": k1, "k1_device_ms": k1_ms, "peak_bytes_a_row": peak / HQC_BATCH}
+        print(f"[hqc] {p.name} {op} B={HQC_BATCH}: {ms:.3f} ms/batch (CUDA events), "
+              f"{out[op]['ops_per_s']:.0f} ops/s; host wall {wall_ms:.3f} ms/batch; "
+              f"{launched} kernel launches ({k1} of K1, {k1_ms:.4f} ms on the device); peak "
+              f"device memory {peak / HQC_BATCH / 1024:.1f} KiB a row")
+    return out, (pk, m, salt)
+
+
 def slh_host_digests(p, slhdsa_params, sks, msgs) -> tuple[list, list]:
     """The provider's host half of a deterministic sign: PRF_msg with
     opt_rand = pk_seed, then H_msg, for each (secret key, message)."""
@@ -1136,6 +1423,19 @@ def phase_health_frodo(provider, health) -> list:
                 verdicts += health.gate_facades(bk, cpu_kem=provider.get_kem(name, backend="cpu"))
             except RuntimeError as exc:
                 raise PhaseFailed(f"health: {exc}") from exc
+    for v in verdicts:
+        print(f"[health] {v.family}: ok={v.ok} ({v.detail})")
+    return [v.as_dict() for v in verdicts]
+
+
+def phase_health_hqc(provider, health) -> list:
+    """The health gate on the GPU provider of HQC-128: its pinned vector
+    (record 0 of tests/vectors/hqc_128.json) through the device."""
+    with provider.BatchedKEM(provider.get_kem(HQC_SERVE)) as bk:
+        try:
+            verdicts = health.gate_facades(bk, cpu_kem=provider.get_kem(HQC_SERVE, backend="cpu"))
+        except RuntimeError as exc:
+            raise PhaseFailed(f"health: {exc}") from exc
     for v in verdicts:
         print(f"[health] {v.family}: ok={v.ok} ({v.detail})")
     return [v.as_dict() for v in verdicts]
@@ -2057,8 +2357,8 @@ async def engine_run(np, provider, app, p2p, obs_http, counts, backend: str) -> 
     (and a second, static gateway for the bursts), client 0 with queues of
     its own, ENGINE_CLIENTS - 1 clients sharing one engine's queues, one
     handshake alone, the bursts, the secure messages, a ticket resume, a
-    forged frame, a typed rejection, the FrodoKEM hot swap, the telemetry
-    endpoints; every check raises PhaseFailed."""
+    forged frame, a typed rejection, the FrodoKEM and HQC hot swaps, the
+    telemetry endpoints; every check raises PhaseFailed."""
     import urllib.request
 
     out: dict = {"ready_s": {}}
@@ -2304,36 +2604,40 @@ async def engine_run(np, provider, app, p2p, obs_http, counts, backend: str) -> 
             raise PhaseFailed(f"engine: the ML-KEM-1024 client got {status}, rejects {rejects}")
         print("[engine] an ML-KEM-1024 client was refused with a typed algorithm_mismatch")
 
-        # the FrodoKEM-640-SHAKE hot swap: the unfused path, then messages
-        swap_counts = counts()
-        note_queues()
-        t0 = time.perf_counter()
-        await gw.set_key_exchange_algorithm(ENGINE_SWAP_KEM)
-        await engine_until(lambda: c0.peer_settings.get(gw.node_id, {}).get("kem")
-                           == ENGINE_SWAP_KEM, "the gateway's new settings")
-        await c0.set_key_exchange_algorithm(ENGINE_SWAP_KEM)
-        if c0._bfused is not None or gw._bfused is not None:
-            raise PhaseFailed("engine: a FrodoKEM engine kept a fused facade")
-        await engine_until(lambda: c0.verify_key_exchange_state(gw.node_id)
-                           and gw.verify_key_exchange_state(c0.node_id)
-                           and c0.shared_keys[gw.node_id] == gw.shared_keys[c0.node_id],
-                           "the FrodoKEM re-handshake")
-        out["swap_s"] = time.perf_counter() - t0
-        kem_ops = {op: queue_ops(e, "_bkem", op) for e, op in ((c0, "keygen"), (gw, "encaps"),
-                                                              (c0, "decaps"))}
-        if min(kem_ops.values()) < 1 or c0.kem.name != ENGINE_SWAP_KEM:
-            raise PhaseFailed(f"engine: the FrodoKEM handshake's KEM ops {kem_ops}")
-        got.clear()
-        swap_msgs = [b"frodo %d" % i for i in range(ENGINE_SWAP_MESSAGES)]
-        for m in swap_msgs:
-            await c0.send_message(gw.node_id, m)
-        await engine_until(lambda: len(got) >= len(swap_msgs), "the messages after the swap")
-        if got != swap_msgs:
-            raise PhaseFailed("engine: the messages after the swap differ")
-        out["swap_counts"] = swap_counts
-        print(f"[engine] hot swap to {ENGINE_SWAP_KEM} on both sides and a full re-handshake "
-              f"in {out['swap_s']:.2f} s (KEM queue ops {kem_ops}); {len(swap_msgs)} messages "
-              f"after it")
+        # the hot swaps (FrodoKEM-640-SHAKE, then HQC-128): the unfused
+        # path, a full re-handshake, then messages under the new key
+        out["swap_s"], out["swap_counts"] = {}, {}
+        for swap_kem in ENGINE_SWAP_KEMS:
+            start = counts()
+            note_queues()
+            t0 = time.perf_counter()
+            await gw.set_key_exchange_algorithm(swap_kem)
+            await engine_until(lambda: c0.peer_settings.get(gw.node_id, {}).get("kem")
+                               == swap_kem, "the gateway's new settings")
+            await c0.set_key_exchange_algorithm(swap_kem)
+            if c0._bfused is not None or gw._bfused is not None:
+                raise PhaseFailed(f"engine: a {swap_kem} engine kept a fused facade")
+            await engine_until(lambda: c0.verify_key_exchange_state(gw.node_id)
+                               and gw.verify_key_exchange_state(c0.node_id)
+                               and c0.shared_keys[gw.node_id] == gw.shared_keys[c0.node_id],
+                               f"the {swap_kem} re-handshake")
+            out["swap_s"][swap_kem] = time.perf_counter() - t0
+            out["swap_counts"][swap_kem] = (start, counts())  # the re-handshake alone
+            kem_ops = {op: queue_ops(e, "_bkem", op) for e, op in ((c0, "keygen"), (gw, "encaps"),
+                                                                  (c0, "decaps"))}
+            if min(kem_ops.values()) < 1 or c0.kem.name != swap_kem or gw.kem.name != swap_kem:
+                raise PhaseFailed(f"engine: the {swap_kem} handshake's KEM ops {kem_ops}")
+            got.clear()
+            swap_msgs = [b"%s %d" % (swap_kem.encode(), i) for i in range(ENGINE_SWAP_MESSAGES)]
+            for m in swap_msgs:
+                await c0.send_message(gw.node_id, m)
+            await engine_until(lambda: len(got) >= len(swap_msgs),
+                               f"the messages after the {swap_kem} swap")
+            if got != swap_msgs:
+                raise PhaseFailed(f"engine: the messages after the {swap_kem} swap differ")
+            print(f"[engine] hot swap to {swap_kem} on both sides and a full re-handshake in "
+                  f"{out['swap_s'][swap_kem]:.2f} s (KEM queue ops {kem_ops}); "
+                  f"{len(swap_msgs)} messages after it")
 
         # the telemetry endpoints of the gateway
         srv = obs_http.TelemetryServer.for_engine(gw, port=0)
@@ -2379,7 +2683,7 @@ async def engine_run(np, provider, app, p2p, obs_http, counts, backend: str) -> 
             raise PhaseFailed(f"engine: fallbacks armed or served {fallback}, breakers "
                               f"(state, trips) {states}, (fallback_trips, "
                               f"device_served_fraction) {off_card}, not ready {unready}")
-        q0 = engine_queues(gw)[f"{ENGINE_SWAP_KEM}.enc"]
+        q0 = engine_queues(gw)[f"{gw.kem.name}.enc"]
         out["largest_dispatch_ms"] = worst
         print(f"[engine] {len(seen)} queues over {len(served)} batched engines: no CPU fallback "
               f"armed, no fallback op, no breaker trip, device_served_fraction 1.0 on each")
@@ -2423,7 +2727,11 @@ def print_served(tag: str, name: str, served: dict) -> None:
         print(f"[{tag}] {op} queue: {st}")
 
 
-async def serve(BatchedKEM, kem) -> dict:
+async def serve(BatchedKEM, kem, expect_cache: bool = True) -> dict:
+    """SERVE_CLIENTS asyncio clients through one queue over ``kem``, then
+    SERVE_CLIENTS encaps to one server key, twice.  With ``expect_cache``
+    the second round must hit the KEM's operand cache; without it the KEM
+    must have none (HQC, as the reference's)."""
     lat = {"keygen": [], "encaps": [], "decaps": []}
 
     async def timed(op, coro):
@@ -2455,9 +2763,14 @@ async def serve(BatchedKEM, kem) -> dict:
         if await bk.decapsulate(server_sk, tampered) == ss:  # implicit rejection
             raise PhaseFailed("serve: a tampered ciphertext gave the secret")
         stats = bk.stats()
-    cache = kem.opcache.stats()
-    if cache["hits"] < 1:
-        raise PhaseFailed(f"serve: the single-key encaps path never hit the cache {cache}")
+    if expect_cache:
+        cache = kem.opcache.stats()
+        if cache["hits"] < 1:
+            raise PhaseFailed(f"serve: the single-key encaps path never hit the cache {cache}")
+    elif getattr(kem, "opcache", None) is not None:
+        raise PhaseFailed(f"serve: {kem.name} has an operand cache")
+    else:
+        cache = None
     out = {"clients": SERVE_CLIENTS, "handshake_wall_s": wall,
            "handshakes_per_s": SERVE_CLIENTS / wall, "opcache": cache,
            "queues": stats,
@@ -2822,9 +3135,13 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
     """Where a batch of ``fn`` spends device time: torch.profiler over
     ``reps`` warm batches; device time per kernel (ours and PyTorch's), and
     the device busy share of that window from its trace.  The same window
-    is also timed without the profiler, which slows the host."""
+    is also timed without the profiler, which slows the host.  K1's wrapper
+    counts its launches in the window too: a trace that holds fewer lost
+    events (late in a run, the first few of a window)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
+
+    from quantum_resistant_p2p_tpu_torch.core import keccak_cuda
 
     fn()
     torch.cuda.synchronize()
@@ -2834,12 +3151,14 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
     torch.cuda.synchronize()
     plain_wall_us = 1e6 * (time.perf_counter() - t0)
     window = f"{label}_window"
+    k1_counted = keccak_cuda.sponge.launches
     with tempfile.TemporaryDirectory() as tmp:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             with record_function(window):
                 for _ in range(reps):
                     fn()
                 torch.cuda.synchronize()
+        k1_counted = keccak_cuda.sponge.launches - k1_counted
         trace = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(trace))
         events = json.loads(trace.read_text())["traceEvents"]
@@ -2879,7 +3198,8 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
            "device_ms_per_batch": total_us / reps / 1e3,
            "port_kernels_ms_per_batch": ours_us / reps / 1e3, "device_kinds": len(device_us),
            "kernel_launches_per_batch": launches / reps,
-           "top_device_ms_per_batch": [[k, v / reps / 1e3] for k, v in top]}
+           "top_device_ms_per_batch": [[k, v / reps / 1e3] for k, v in top],
+           "k1_wrapper_launches_per_batch": k1_counted / reps}
     for name, keys in mine.items():
         out[f"{name}_device_ms_per_batch"] = sum(device_us[k] for k in keys) / reps / 1e3
         out[f"{name}_launches_per_batch"] = sum(calls[k] for k in keys) / reps
@@ -2892,7 +3212,8 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
           f"{len(device_us)} kinds, {out['kernel_launches_per_batch']:.0f} launches")
     print(f"[profile] {label}: " + ", ".join(
         f"{name.upper()} {out[f'{name}_device_ms_per_batch']:.4f} ms in "
-        f"{out[f'{name}_launches_per_batch']:.0f} launches" for name in redesigned) + " per batch")
+        f"{out[f'{name}_launches_per_batch']:.0f} launches" for name in redesigned) + " per batch"
+          f" (K1's wrapper: {out['k1_wrapper_launches_per_batch']:.0f} launches a batch)")
     for name, ms in out["top_device_ms_per_batch"]:
         print(f"[profile]   {ms:.4f} ms  {name[:110]}")
     return out
@@ -2925,6 +3246,31 @@ def launch_counts(wrappers: dict) -> dict:
     return counts
 
 
+def count_hqc_k1():
+    """Count the K1 launches made inside HQC's own SHAKE256 calls, on the
+    thread that makes each call (the serving pool's other thread may launch
+    K1 for a signature meanwhile), and return the count's reader."""
+    import threading
+    import types
+
+    from quantum_resistant_p2p_tpu_torch.core import keccak, keccak_cuda
+    from quantum_resistant_p2p_tpu_torch.kem import hqc
+    from quantum_resistant_p2p_tpu_torch.utils import cuda
+
+    total, lock = [0], threading.Lock()
+
+    def shake256(data, out_len):
+        before = cuda.thread_launches(keccak_cuda.sponge)
+        try:
+            return keccak.shake256(data, out_len)
+        finally:
+            with lock:
+                total[0] += cuda.thread_launches(keccak_cuda.sponge) - before
+
+    hqc.keccak = types.SimpleNamespace(shake256=shake256)
+    return lambda: total[0]
+
+
 def engine_child() -> int:
     """Phase 16 in a process of its own (``--engine-phase``, started by
     phase_engine_process): its launch counts start at 0 in it, and its
@@ -2935,8 +3281,9 @@ def engine_child() -> int:
     from quantum_resistant_p2p_tpu_torch import provider
 
     wrappers = kernel_wrappers()
+    hqc_k1 = count_hqc_k1()
     try:
-        out = phase_engine(np, provider, lambda: launch_counts(wrappers))
+        out = phase_engine(np, provider, lambda: {**launch_counts(wrappers), HQC_OWN_K1: hqc_k1()})
     except PhaseFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3030,7 +3377,8 @@ def main() -> int:
                                                           sha256, sha256_cuda, sha512,
                                                           sha512_cuda)
         from quantum_resistant_p2p_tpu_torch.entry import entry
-        from quantum_resistant_p2p_tpu_torch.kem import frodo, frodo_cuda, mlkem, mlkem_cuda
+        from quantum_resistant_p2p_tpu_torch.core import aes
+        from quantum_resistant_p2p_tpu_torch.kem import frodo, frodo_cuda, hqc, mlkem, mlkem_cuda
         from quantum_resistant_p2p_tpu_torch.obs import cost as obs_cost
         from quantum_resistant_p2p_tpu_torch.obs import trace as obs_trace
         from quantum_resistant_p2p_tpu_torch.provider import (BatchedKEM, BatchedSignature,
@@ -3079,6 +3427,7 @@ def main() -> int:
         verdicts = phase_health(provider, health, kem, dsa, fused, aead, pk_off, ct_off)
         verdicts += phase_health_frodo(provider, health)
         verdicts += phase_health_sphincs(provider, health)
+        verdicts += phase_health_hqc(provider, health)
 
         def reset():
             for w in wrappers.values():
@@ -3157,6 +3506,25 @@ def main() -> int:
                        for name, inputs in frodo_inputs.items()}
         launches["frodo_batch"] = read("frodo batch", FRODO_ENCAPS_KERNELS)
 
+        # phase "hqc": the vectors, HQC-128 served, then both published sets
+        # at B = 1024
+        hqc_inputs = {name: hqc_batch_inputs(torch, np, hqc, name) for name in HQC_BATCHES}
+        hqc_kem = get_kem(HQC_SERVE)
+        reset()
+        t_hqc = time.perf_counter()
+        phase_kat_hqc(torch, hqc, aes.SBOX)
+        hqc_kat_s = time.perf_counter() - t_hqc
+        hqc_served = asyncio.run(serve(BatchedKEM, hqc_kem, expect_cache=False))
+        print_served("hqc serve", hqc_kem.name, hqc_served)
+        hqc_batch, hqc_outputs = {}, {}
+        for name, inputs in hqc_inputs.items():
+            hqc_batch[name], hqc_outputs[name] = phase_hqc_batch(torch, np, hqc, keccak_cuda,
+                                                                 inputs)
+        hqc_batch["serve"] = hqc_served
+        hqc_batch["phase_s"] = hqc_kat_s + time.perf_counter() - t_hqc
+        launches["hqc"] = read("hqc", ("keccak_sponge",))
+        print(f"[hqc] phase took {hqc_batch['phase_s']:.1f} s (the vectors {hqc_kat_s:.1f} s)")
+
         reset()
         slh_served, slh_signed = asyncio.run(sphincs_serve(torch, provider, sphincs,
                                                            slhdsa_params))
@@ -3188,12 +3556,19 @@ def main() -> int:
         engined = phase_engine_process()
         launches["engine"] = read("engine", HANDSHAKE_KERNELS + ("chacha_blocks",),
                                   counts=engined.pop("launches"))
-        swapped = {name: launches["engine"][name] - engined["swap_counts"][name]
-                   for name in FRODO_KERNELS}
-        print(f"[launches] engine, after the {ENGINE_SWAP_KEM} swap: {swapped}")
-        if not all(swapped.values()):
-            raise PhaseFailed(f"engine: kernels not launched after the {ENGINE_SWAP_KEM} swap: "
-                              f"{[n for n, c in swapped.items() if c == 0]}")
+        # each swap's re-handshake, from set_key_exchange_algorithm until both
+        # sides' keys agree, before any message: K1 and K9-K11 in the
+        # FrodoKEM one, K1 launched by HQC's own SHAKE256 calls in the HQC
+        # one (the handshake's ML-DSA-65 signatures launch K1 too)
+        swap_launches = {}
+        for swap_kem, need in zip(ENGINE_SWAP_KEMS, (FRODO_KERNELS, (HQC_OWN_K1,))):
+            lo, hi = engined["swap_counts"][swap_kem]
+            swapped = {name: hi[name] - lo[name] for name in lo}
+            swap_launches[swap_kem] = swapped
+            print(f"[launches] engine, the {swap_kem} swap's re-handshake: {swapped}")
+            if not all(swapped[name] for name in need):
+                raise PhaseFailed(f"engine: kernels not launched in the {swap_kem} re-handshake: "
+                                  f"{[n for n in need if swapped[n] == 0]}")
 
         # launches of one batched call of each op (after the counted window)
         def count(call):
@@ -3237,6 +3612,9 @@ def main() -> int:
         fp, fpk, _, _, fmu = frodo_inputs[FRODO_SHAKE]
         profiled["frodo_encaps"] = phase_profile(torch, "frodo_encaps",
                                                  lambda: frodo.encaps(fp, fpk, fmu), 1)
+        hp, hpk, hm, hsalt = hqc.PARAMS[HQC_SERVE], *hqc_outputs[HQC_SERVE]
+        profiled["hqc_encaps"] = phase_profile(torch, "hqc_encaps",
+                                               lambda: hqc.encaps(hp, hpk, hm, hsalt), 1)
         profiled["sphincs_sign_128f"] = phase_profile(torch, "sphincs_sign_128f",
                                                       lambda: ssign(ssk, sr, sdigest), 1)
         vp = slhdsa_params.PARAMS[SLH_SERVE]
@@ -3289,10 +3667,12 @@ def main() -> int:
                                  "sig_serve": sig_served, "sig_flagship": sig_flagship,
                                  "health": verdicts, "handshake": shaken, "data_plane": plane,
                                  "frodo_serve": frodo_served, "frodo_batch": frodo_batch,
+                                 "hqc": hqc_batch,
                                  "sphincs_serve": slh_served, "sphincs_batch": slh_batch,
                                  "sphincs_memory": slh_memory, "obs_faults": observed,
                                  "transport": carried, "engine": engined,
                                  "launches": launches, "launches_per_op": per_op,
+                                 "engine_swap_launches": swap_launches,
                                  "profile": profiled}}))
     print(card)
     print(json.dumps({"kernels": kernels}))

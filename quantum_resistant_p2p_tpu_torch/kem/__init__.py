@@ -1,1 +1,1 @@
-"""Key-encapsulation mechanisms: batched ML-KEM (FIPS 203)."""
+"""Key-encapsulation mechanisms: batched ML-KEM (FIPS 203), FrodoKEM and HQC."""

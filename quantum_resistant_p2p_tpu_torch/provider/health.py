@@ -9,6 +9,9 @@ Counterpart of the reference's ``provider/health.py``.  The probes:
   the device (K9, K10 and K11 with K1); the 976 and 1344 sets then also run
   the round trip below with their own CPU twin, since their K9 and K10 are
   template instances of their own;
+* **HQC**: the pinned HQC-128 vector through the device (its SHAKE256
+  streams on K1, the rest PyTorch on the GPU); HQC-192 and HQC-256 then also
+  run the round trip below with their own CPU twin;
 * **other KEMs** (the FrodoKEM AES sets, ML-KEM-512/1024): a round trip on
   the device provider, and its ciphertext decapsulated by the CPU twin;
 * **signatures** (ML-DSA, SPHINCS+-SHA2): a round trip on the device
@@ -55,7 +58,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..kem import frodo, mlkem
+from ..kem import frodo, hqc, mlkem
 from ..obs import flight as obs_flight
 from ..utils import cuda as cuda_build
 from ..utils.wipe import wipe
@@ -95,6 +98,23 @@ _FRODO640SHAKE_KAT = {
     "pk_sha256": "e1933f44de4f6410af9155c4baa3b7454c6e93ec7701971daee3c7d2be3e03f3",
     "ct_sha256": "eefd2976cb8656e208526b33babf14eccd8f9a123db06e6032a30c449c1fc211",
     "ss_hex": "c2cb61ee5b4f5f6679259f09fc6b253b",
+}
+
+#: pinned HQC-128 vector: record 0 of tests/vectors/hqc_128.json (keygen
+#: seeds sk_seed, sigma, pk_seed; encaps m, salt)
+_HQC128_KAT = {
+    "sk_seed": bytes.fromhex("061550234d158c5ec95595fe04ef7a25767f2e24cc2bc479"
+                             "d09d86dc9abcfde7056a8c266f9ef97e"),
+    "sigma": bytes.fromhex("64335bf29e5de62842c941766ba129b0"),
+    "pk_seed": bytes.fromhex("d81c4d8d734fcbfbeade3d3f8a039faa2a2c9957e835ad55"
+                             "b22e75bf57bb556ac81adde6aeeb4a5a"),
+    "m": bytes.fromhex("83a914ecd51f80f3d557d1192a7b4110"),
+    "salt": bytes.fromhex("82e3dd542f4916ddd80ed0c2cf0caf4c"),
+    "pk_sha256": "2d1cb55f70ff0a089b492f3933d66de963eabeec087f45d6f3e16a9336b1e981",
+    "sk_sha256": "6c04d55a6d71db65f8b13f65db5ff77dd2ddea9d8bc96bff253d2618cf6141fd",
+    "ct_sha256": "21cb6854e9f783f34f4645471bb038b8e171e5c8d1caab6a0d61bd4a5eae1e64",
+    "ss_hex": ("59fd06931fd419a2257791c99b410eafe12bec62a7bda56cfcf8e056d8027b10"
+               "f997291a38393f82b656da4414887a7feaabf7790e5814c03f3bbf08327bf5a3"),
 }
 
 #: pinned RFC 8439 §2.8.2 AEAD vector (sha256 of ciphertext || tag)
@@ -236,6 +256,33 @@ def _check_frodo_kat(algo) -> HealthVerdict:
     return HealthVerdict(algo.name, True, "FrodoKEM-640-SHAKE KAT ok (keygen/encaps/decaps)")
 
 
+def _check_hqc_kat(algo) -> HealthVerdict:
+    """The pinned HQC-128 vector through ``algo``'s device, batch 1.  The
+    three sets share every function (only the sizes differ), so one set
+    stands for the code; the others add their own round trip."""
+    kat = _HQC128_KAT
+    kg, enc, dec = hqc.get("HQC-128")
+
+    def row(b: bytes) -> torch.Tensor:
+        return torch.tensor(list(b), dtype=torch.uint8, device=algo.device)[None]
+
+    def digest(t: torch.Tensor) -> str:
+        return hashlib.sha256(bytes(t[0].cpu().numpy())).hexdigest()
+
+    pk, sk = kg(row(kat["sk_seed"]), row(kat["sigma"]), row(kat["pk_seed"]))
+    if digest(pk) != kat["pk_sha256"] or digest(sk) != kat["sk_sha256"]:
+        return HealthVerdict(algo.name, False, "keygen KAT mismatch (pk/sk)")
+    ct, ss = enc(pk, row(kat["m"]), row(kat["salt"]))
+    ss_b = bytes(ss[0].cpu().numpy())
+    if digest(ct) != kat["ct_sha256"]:
+        return HealthVerdict(algo.name, False, "encaps KAT mismatch (ct)")
+    if ss_b.hex() != kat["ss_hex"]:
+        return HealthVerdict(algo.name, False, "encaps KAT mismatch (ss)")
+    if bytes(dec(sk, ct)[0].cpu().numpy()) != ss_b:
+        return HealthVerdict(algo.name, False, "decaps KAT mismatch")
+    return HealthVerdict(algo.name, True, "HQC-128 KAT ok (keygen/encaps/decaps)")
+
+
 def _check_kem_roundtrip(algo, cpu_twin) -> HealthVerdict:
     """Device keygen/encaps/decaps round trip, and the device ciphertext
     decapsulated to the same secret by the CPU twin."""
@@ -335,6 +382,12 @@ def _probe(algo, cpu_twin) -> HealthVerdict:
         if not verdict.ok or algo.name == "FrodoKEM-640-SHAKE":
             return verdict
         # the pinned vector ran the 640 kernels; this set's own run here
+        trip = _check_kem_roundtrip(algo, cpu_twin)
+        return HealthVerdict(algo.name, trip.ok, f"{verdict.detail}; {algo.name} {trip.detail}")
+    if algo.name.startswith("HQC-"):
+        verdict = _check_hqc_kat(algo)
+        if not verdict.ok or algo.name == "HQC-128":
+            return verdict
         trip = _check_kem_roundtrip(algo, cpu_twin)
         return HealthVerdict(algo.name, trip.ok, f"{verdict.detail}; {algo.name} {trip.detail}")
     if isinstance(algo, KeyExchangeAlgorithm):

@@ -1,21 +1,22 @@
-"""ML-KEM and FrodoKEM providers on the port's two backends.
+"""ML-KEM, FrodoKEM and HQC providers on the port's two backends.
 
-``backend="cuda"`` (the default) runs ``kem.mlkem`` / ``kem.frodo`` on the
-GPU, where every sampling, NTT, matrix and hash step that was a TPU kernel
-is one of the port's CUDA kernels; ``backend="cpu"`` runs the same
+``backend="cuda"`` (the default) runs ``kem.mlkem`` / ``kem.frodo`` /
+``kem.hqc`` on the GPU, where every sampling, NTT, matrix and hash step that
+was a TPU kernel is one of the port's CUDA kernels (HQC's hashes run on K1,
+the rest of HQC is PyTorch on the GPU); ``backend="cpu"`` runs the same
 functions on CPU tensors, which take the kernels' plain PyTorch versions.
 Asking for "cuda" without a GPU raises: nothing falls back to the CPU.
 
-Randomness: seeds (ML-KEM's d, z, m; FrodoKEM's s, seedSE, z, mu) are drawn
-host-side from ``os.urandom`` and fed to the deterministic keygen/encaps
-cores, the seam KATs use too.
+Randomness: seeds (ML-KEM's d, z, m; FrodoKEM's s, seedSE, z, mu; HQC's
+sk_seed, sigma, pk_seed, m, salt) are drawn host-side from ``os.urandom``
+and fed to the deterministic keygen/encaps cores, the seam KATs use too.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..kem import frodo, mlkem
+from ..kem import frodo, hqc, mlkem
 from ..utils.cuda import require_device
 from ..utils.wipe import wipe
 from .base import BACKENDS, DeviceIO, KeyExchangeAlgorithm, expect_cols, random_rows
@@ -149,6 +150,57 @@ class FrodoKEMKeyExchange(DeviceIO, KeyExchangeAlgorithm):
             ct, ss = self._enc(self._to_device(pks), mu)
         out = self._to_host(ct), self._to_host(ss)
         wipe(mu_host, mu, ss)
+        return out
+
+    def decapsulate_batch(self, secret_keys: np.ndarray, ciphertexts: np.ndarray) -> np.ndarray:
+        expect_cols(secret_keys, self.secret_key_len, "secret keys", self.name)
+        expect_cols(ciphertexts, self.ciphertext_len, "ciphertexts", self.name)
+        sk = self._to_device(secret_keys)
+        ss = self._dec(sk, self._to_device(ciphertexts))
+        out = self._to_host(ss)
+        wipe(sk, ss)
+        return out
+
+
+_LEVEL_TO_HQC = {1: hqc.PARAMS["HQC-128"], 3: hqc.PARAMS["HQC-192"], 5: hqc.PARAMS["HQC-256"]}
+
+
+class HQCKeyExchange(DeviceIO, KeyExchangeAlgorithm):
+    """HQC (round-4 shape) at NIST level 1, 3 or 5: 64-byte secrets.  No
+    operand cache: an encaps re-expands h from the key's 40-byte seed."""
+
+    def __init__(self, security_level: int = 1, backend: str = "cuda"):
+        if security_level not in _LEVEL_TO_HQC:
+            raise ValueError(f"HQC level must be 1/3/5, got {security_level}")
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r} not supported (have {BACKENDS})")
+        self.device = require_device(backend)
+        self.params = _LEVEL_TO_HQC[security_level]
+        self.security_level = security_level
+        self.backend = backend
+        self.name = self.params.name
+        self.public_key_len = self.params.pk_len
+        self.secret_key_len = self.params.sk_len
+        self.ciphertext_len = self.params.ct_len
+        self.shared_secret_len = self.params.ss_len
+        self._kg, self._enc, self._dec = hqc.get(self.params.name)
+
+    def generate_keypair_batch(self, n: int) -> tuple[np.ndarray, np.ndarray]:
+        seeds = (random_rows(n, 40), random_rows(n, self.params.k), random_rows(n, 40))
+        dev = [self._to_device(x) for x in seeds]  # sk_seed, sigma, pk_seed
+        pk, sk = self._kg(*dev)
+        out = self._to_host(pk), self._to_host(sk)
+        wipe(*seeds, *dev, sk)
+        return out
+
+    def encapsulate_batch(self, public_keys: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        expect_cols(public_keys, self.public_key_len, "public keys", self.name)
+        n = np.asarray(public_keys).shape[0]
+        m_host, salt = random_rows(n, self.params.k), random_rows(n, 16)
+        m = self._to_device(m_host)
+        ct, ss = self._enc(self._to_device(public_keys), m, self._to_device(salt))
+        out = self._to_host(ct), self._to_host(ss)
+        wipe(m_host, m, ss)
         return out
 
     def decapsulate_batch(self, secret_keys: np.ndarray, ciphertexts: np.ndarray) -> np.ndarray:

@@ -16,7 +16,7 @@ from .aead_device import ChaChaPolyDevice
 from .base import (BACKENDS, BatchedAEADOps, FusedHandshakeOps, KeyExchangeAlgorithm,
                    SignatureAlgorithm, SymmetricAlgorithm)
 from .fused_providers import FusedMLKEMMLDSA
-from .kem_providers import FrodoKEMKeyExchange, MLKEMKeyExchange
+from .kem_providers import FrodoKEMKeyExchange, HQCKeyExchange, MLKEMKeyExchange
 from .sig_providers import MLDSASignature, SPHINCSSignature
 from .symmetric import AES256GCM, ChaCha20Poly1305
 
@@ -121,6 +121,8 @@ for _level, _size in ((1, 640), (3, 976), (5, 1344)):
         register_kem(f"FrodoKEM-{_size}-{'AES' if _aes else 'SHAKE'}",
                      lambda backend, _level=_level, _aes=_aes: FrodoKEMKeyExchange(
                          _level, backend, use_aes=_aes))
+for _level, _size in ((1, 128), (3, 192), (5, 256)):
+    register_kem(f"HQC-{_size}", lambda backend, _level=_level: HQCKeyExchange(_level, backend))
 for _level, _name in ((2, "ML-DSA-44"), (3, "ML-DSA-65"), (5, "ML-DSA-87")):
     register_signature(_name, lambda backend, _level=_level: MLDSASignature(_level, backend))
 for _level, _size in ((1, 128), (3, 192), (5, 256)):

@@ -39,15 +39,26 @@ _initialised: set[tuple[str, int]] = set()  # (library, device index)
 
 
 _count_lock = threading.Lock()
+_thread = threading.local()
 
 
 def count_launch(wrapper, attr: str = "launches", n: int = 1) -> None:
     """Add ``n`` to a kernel wrapper's launch counter.  Locked: the
     serving queues launch from a pool of device threads, and ``+=`` on an
     attribute is a read, an add and a write that another thread may
-    interleave."""
+    interleave.  Each thread also keeps its own tally
+    (:func:`thread_launches`)."""
     with _count_lock:
         setattr(wrapper, attr, getattr(wrapper, attr) + n)
+    tally = _thread.__dict__.setdefault("tally", {})
+    key = (id(wrapper), attr)
+    tally[key] = tally.get(key, 0) + n
+
+
+def thread_launches(wrapper, attr: str = "launches") -> int:
+    """The launches of ``wrapper`` counted on the calling thread: what one
+    caller launched while other threads launch the same kernel."""
+    return _thread.__dict__.get("tally", {}).get((id(wrapper), attr), 0)
 
 
 def require_device(device) -> torch.device:

@@ -9,8 +9,9 @@ without them:
 Each kernel is held bitwise to its plain PyTorch version on the same
 device, and the GPU paths of ML-KEM, ML-DSA, the fused handshake programs
 and the ChaCha20-Poly1305 core to the CPU paths; FrodoKEM's GPU path to
-the vectors in tests/vectors/frodo_*.json, and SPHINCS+-SHA2's to
-tests/vectors/slhdsa_*.json.
+the vectors in tests/vectors/frodo_*.json, HQC's to
+tests/vectors/hqc_*.json and its CPU path (K1 at HQC's long squeezes and
+absorbs), and SPHINCS+-SHA2's to tests/vectors/slhdsa_*.json.
 """
 
 import asyncio
@@ -25,7 +26,7 @@ import torch
 from quantum_resistant_p2p_tpu_torch.core import (chacha, chacha_cuda, keccak, keccak_cuda,
                                                   sha256, sha256_cuda, sha512, sha512_cuda)
 from quantum_resistant_p2p_tpu_torch.fused import mlkem_mldsa as fused
-from quantum_resistant_p2p_tpu_torch.kem import frodo, frodo_cuda, mlkem, mlkem_cuda
+from quantum_resistant_p2p_tpu_torch.kem import frodo, frodo_cuda, hqc, mlkem, mlkem_cuda
 from quantum_resistant_p2p_tpu_torch.provider import (BatchedAEAD, BatchedKEM, BatchedSignature,
                                                       get_batched_aead, get_kem, get_signature,
                                                       get_symmetric, init_pk_offset,
@@ -491,6 +492,86 @@ def test_batched_frodo_on_the_default_backend(gpu):
 
     assert all(asyncio.run(run()))
     assert kem.opcache.stats()["hits"] >= 1
+
+
+@pytest.mark.parametrize("rows", [1, 70, 1024])
+def test_sponge_kernel_at_hqc_shapes(gpu, rows):
+    """K1 at HQC-256's seedexpand of pk_seed (41 B -> 7,205 B: 53 squeezed
+    blocks) and its K(m || u || v) (14,437 B -> 64: 107 absorbed blocks),
+    on both of K1's paths (few rows and many)."""
+    p = hqc.PARAMS["HQC-256"]
+    for length, out_len in ((41, p.n_bytes), (p.k + p.n_bytes + p.n1n2_bytes + 1, 64)):
+        x = _u8(length + rows, rows, length).to(gpu)
+        before = keccak_cuda.sponge.launches
+        got = keccak.shake256(x, out_len)
+        torch.cuda.synchronize()
+        assert keccak_cuda.sponge.launches == before + 1
+        assert torch.equal(got, keccak.sponge_plain(x, 136, 0x1F, out_len))
+
+
+@pytest.mark.parametrize("tag", ["128", "192", "256"])
+def test_hqc_gpu_path_matches_vectors_and_cpu(gpu, tag):
+    """The vector file byte for byte on the card, and 64 random rows of
+    keygen, encaps and decaps (a tampered half included) equal to the CPU
+    path."""
+    data = json.loads((VECTOR_DIR / f"hqc_{tag}.json").read_text())
+    p = hqc.PARAMS[data["algorithm"]]
+    recs = data["tests"]
+
+    def col(key):
+        return torch.tensor([list(bytes.fromhex(r[key])) for r in recs], dtype=torch.uint8,
+                            device=gpu)
+
+    pk, sk = hqc.keygen(p, col("sk_seed"), col("sigma"), col("pk_seed"))
+    ct, ss = hqc.encaps(p, pk, col("m"), col("salt"))
+    ss2 = hqc.decaps(p, sk, ct)
+    for i, rec in enumerate(recs):
+        for key, t in (("pk", pk), ("sk", sk), ("ct", ct)):
+            assert hashlib.sha256(bytes(t[i].cpu().numpy())).hexdigest() == rec[key + "_sha256"]
+        assert bytes(ss[i].cpu().numpy()).hex() == rec["ss"] == bytes(ss2[i].cpu().numpy()).hex()
+    ins = [_u8(90 + j, 64, n) for j, n in enumerate((40, p.k, 40, p.k, 16))]
+    outs = {}
+    for dev in ("cpu", gpu):
+        sk_seed, sigma, pk_seed, m, salt = (t.to(dev) for t in ins)
+        pk, sk = hqc.keygen(p, sk_seed, sigma, pk_seed)
+        ct, ss = hqc.encaps(p, pk, m, salt)
+        bad = ct.clone()
+        bad[32:, 5] ^= 0x10
+        outs[str(dev)] = [t.cpu() for t in (pk, sk, ct, ss, hqc.decaps(p, sk, bad))]
+    for want, got in zip(outs["cpu"], outs[str(gpu)]):
+        assert torch.equal(got, want)
+    assert torch.equal(outs["cpu"][4][:32], outs["cpu"][3][:32])
+    assert not (outs["cpu"][4][32:] == outs["cpu"][3][32:]).all(-1).any()
+
+
+@pytest.mark.parametrize("name", ["HQC-128", "HQC-256"])
+def test_hqc_decoders_on_tie_heavy_words_match_cpu(gpu, name):
+    """The RM(1,7) and RS decoders on uniform words (a fifth or more of the
+    RM blocks have several largest |F|, and the RS words carry more than
+    delta errors), the card against the CPU path."""
+    p = hqc.PARAMS[name]
+    words = _u8(95, 64, p.n1 * p.n2) & 1
+    rm = hqc._rm_decode(p, words.to(gpu))
+    assert torch.equal(rm.cpu(), hqc._rm_decode(p, words))
+    assert torch.equal(hqc._rs_decode(p, rm).cpu(), hqc._rs_decode(p, rm.cpu()))
+
+
+def test_batched_hqc_on_the_default_backend(gpu):
+    kem = get_kem("HQC-128")
+    assert kem.backend == "cuda"
+
+    async def run():
+        with BatchedKEM(kem, max_wait_ms=5.0) as bk:
+            async def client():
+                pk, sk = await bk.generate_keypair()
+                ct, ss = await bk.encapsulate(pk)
+                return ss == await bk.decapsulate(sk, ct)
+
+            return await asyncio.gather(*(client() for _ in range(32)))
+
+    before = keccak_cuda.sponge.launches
+    assert all(asyncio.run(run()))
+    assert keccak_cuda.sponge.launches > before
 
 
 @pytest.mark.parametrize("rows", [1000, 70000])

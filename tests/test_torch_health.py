@@ -226,3 +226,34 @@ def test_explicit_twins_still_win_and_a_fused_facade_needs_them():
             health.gate_facades(bf)
         (verdict,) = health.gate_facades(bf, cpu_kem=kem768, cpu_sig=dsa65)
         assert verdict.ok and verdict.family == f"fused:ML-KEM-768+ML-DSA-65@{pk_off}"
+
+
+def test_hqc_gate_caches_and_a_failed_vector_quarantines(monkeypatch, cache_dir):
+    """HQC facades through the gate: HQC-128 on its pinned vector, HQC-192
+    on the vector and its round trip with the twin taken from the facade's
+    fallback, both cached and read back on a GPU; a pinned vector that no
+    longer matches fails HQC-128's verdict and quarantines its breaker (a
+    fallback is armed), while the cached HQC-192 verdict is read back."""
+    monkeypatch.setattr(health, "_cacheable", lambda device: True)
+    kem128, kem192 = get_kem("HQC-128", backend="cpu"), get_kem("HQC-192", backend="cpu")
+    made = [BatchedKEM(kem, fallback=get_kem(kem.name, backend="cpu"))
+            for kem in (kem128, kem192)]
+    try:
+        _as_device(made)
+        first = health.gate_facades(*made)
+        assert [(v.family, v.ok, v.cached) for v in first] == [
+            ("HQC-128", True, False), ("HQC-192", True, False)]
+        assert first[1].detail.endswith("HQC-192 device roundtrip ok + cpu agreement")
+        assert [v.cached for v in health.gate_facades(*made)] == [True, True]
+        for marker in cache_dir.iterdir():
+            if '"HQC-128"' in marker.read_text():
+                marker.unlink()
+        bad = dict(health._HQC128_KAT, ss_hex="00" * 64)
+        monkeypatch.setattr(health, "_HQC128_KAT", bad)
+        verdicts = health.gate_facades(*made)
+        assert [(v.ok, v.cached) for v in verdicts] == [(False, False), (True, True)]
+        assert verdicts[0].detail == "encaps KAT mismatch (ss)"
+        assert made[0].breaker.state == "quarantined" and made[1].breaker.state == "closed"
+    finally:
+        for f in made:
+            f.close()

@@ -10,7 +10,10 @@ against the JAX package's ``app/messaging.py``, on the CPU.
   sides swap, under ChaCha20-Poly1305 (the port on its batched AEAD), a
   ticket minted by one side resumes on the other, and ``algorithm_mismatch``
   comes back typed either way.  The bytes on the wire are the same whether
-  or not the port fuses (the reference's "cpu" engine never does).
+  or not the port fuses (the reference's "cpu" engine never does).  With
+  HQC-128 as the KEM (no fused pair) the port side handshakes through its
+  BatchedKEM, against the reference both ways, and two port engines
+  hot-swap to it.
 * Mirrors of the reference's engine tests that need no JAX program:
   ``tests/test_messaging_e2e.py`` (real providers, the reference's
   ``KeyStorage`` as the vault), the fault and healing cases of
@@ -352,6 +355,44 @@ def test_algorithm_mismatch_is_typed_both_ways(initiator):
     _run(main())
 
 
+@pytest.mark.parametrize("binary", [True, False], ids=["bin1", "json"])
+@pytest.mark.parametrize("initiator", ["port", "ref"])
+def test_hqc_engines_interoperate(initiator, binary):
+    """HQC-128 as the KEM (with ML-DSA-65): no fused capability exists for
+    the pair, so the port side's handshake runs unfused through its
+    BatchedKEM; the keys agree with the reference engine's and messages
+    arrive both ways."""
+
+    async def main():
+        nodes = {"port": net.P2PNode("port-eng", "127.0.0.1", 0, binary_wire=binary),
+                 "ref": ref_net.P2PNode(node_id="ref-eng", host="127.0.0.1", port=0,
+                                        binary_wire=binary)}
+        for n in nodes.values():
+            await n.start()
+        engines = {
+            "port": _port_engine(nodes["port"], use_batching=True, max_batch=64,
+                                 kem=msg.get_kem("HQC-128", "cpu")),
+            "ref": _ref_engine(nodes["ref"], kem=ref_msg.get_kem("HQC-128", "cpu"))}
+        port = engines["port"]
+        await port.wait_ready()
+        assert port._bfused is None and port._bkem is not None
+        responder = "ref" if initiator == "port" else "port"
+        a, b = engines[initiator], engines[responder]
+        await _connect(a.node, b.node)
+        assert a.node.peer_wire_format(b.node_id) == ("bin1" if binary else "json")
+        assert await asyncio.wait_for(a.initiate_key_exchange(b.node_id), 60)
+        await _until(lambda: b.verify_key_exchange_state(a.node_id), "the responder's confirm")
+        assert a.shared_keys[b.node_id] == b.shared_keys[a.node_id]
+        assert len(a.raw_secrets[b.node_id]) == 64
+        kem_ops = port._bkem.stats()
+        steps = ("keygen", "decaps") if port is a else ("encaps",)
+        assert all(kem_ops[s]["ops"] == 1 for s in steps)
+        await _exchange(a, b, b"hqc")
+        await _stop(a, b)
+
+    _run(main())
+
+
 # -- mirrors of tests/test_messaging_e2e.py --------------------------------------
 
 
@@ -460,6 +501,40 @@ def test_settings_gossip_and_mismatch_block(tmp_path):
         assert a.messaging.settings_match("bob") is True
         assert await a.messaging.initiate_key_exchange("bob")
         assert await a.messaging.send_message("bob", b"after swap") is not None
+        await a.stop()
+        await b.stop()
+
+    _run(main())
+
+
+def test_hot_swap_to_hqc_rehandshakes_unfused(tmp_path):
+    """Both batched engines swap from the fused ML-KEM-768 pair to HQC-128:
+    the fused facade goes, the re-handshake runs keygen, encaps and decaps
+    through the fresh BatchedKEM queues, and messages flow under the new
+    64-byte secret's key."""
+
+    async def main():
+        kw = dict(use_batching=True, max_batch=64, max_wait_ms=2.0)
+        a, b = await _connected_pair(tmp_path, **kw)
+        await a.messaging.wait_ready()
+        await b.messaging.wait_ready()
+        assert await a.messaging.initiate_key_exchange("bob")
+        await b.messaging.set_key_exchange_algorithm("HQC-128")
+        await _until(lambda: a.messaging.peer_settings.get("bob", {}).get("kem") == "HQC-128",
+                     "the gateway's new settings")
+        await a.messaging.set_key_exchange_algorithm("HQC-128")
+        assert a.messaging._bfused is None and b.messaging._bfused is None
+        await _until(lambda: a.messaging.verify_key_exchange_state("bob")
+                     and b.messaging.verify_key_exchange_state("alice")
+                     and a.messaging.shared_keys["bob"] == b.messaging.shared_keys["alice"],
+                     "the HQC re-handshake", timeout=60)
+        assert len(a.messaging.raw_secrets["bob"]) == 64
+        ops = {op: q._bkem.stats()[op]["ops"] for q, op in
+               ((a.messaging, "keygen"), (b.messaging, "encaps"), (a.messaging, "decaps"))}
+        assert min(ops.values()) >= 1, ops
+        assert await a.messaging.send_message("bob", b"after the hqc swap") is not None
+        await _until(lambda: any(m.content == b"after the hqc swap" for _, m in b.inbox),
+                     "the message under the HQC key")
         await a.stop()
         await b.stop()
 

@@ -88,6 +88,7 @@ def test_cuda_backend_raises_without_gpu():
 def test_registry_names_and_backends():
     assert list_kems() == ["FrodoKEM-1344-AES", "FrodoKEM-1344-SHAKE", "FrodoKEM-640-AES",
                            "FrodoKEM-640-SHAKE", "FrodoKEM-976-AES", "FrodoKEM-976-SHAKE",
+                           "HQC-128", "HQC-192", "HQC-256",
                            "ML-KEM-1024", "ML-KEM-512", "ML-KEM-768"]
     with pytest.raises(KeyError):
         get_kem("Kyber768", backend="cpu")

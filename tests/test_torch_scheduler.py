@@ -331,6 +331,35 @@ def test_launch_counts_survive_the_device_pool():
     assert wrapper.launches == 16 * 2000
 
 
+def test_thread_launch_tallies_split_by_thread():
+    """``cuda.thread_launches`` reads what the calling thread counted, while
+    other threads count the same wrapper: the global counter holds them all."""
+    import threading
+
+    from quantum_resistant_p2p_tpu_torch.utils import cuda as cuda_build
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    seen = {}
+
+    def count(k):
+        before = cuda_build.thread_launches(wrapper)
+        for _ in range(100 * k):
+            cuda_build.count_launch(wrapper)
+        seen[k] = cuda_build.thread_launches(wrapper) - before
+
+    threads = [threading.Thread(target=count, args=(k,)) for k in range(1, 9)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert seen == {k: 100 * k for k in range(1, 9)}
+    assert wrapper.launches == 100 * sum(range(1, 9))
+    assert cuda_build.thread_launches(wrapper) == 0  # this thread counted none
+
+
 def test_queue_without_a_fallback_never_touches_the_breaker():
     """No fallback: a raised dispatch fails its futures and the breaker
     stays closed with no trip (the port's rule: no twin serves unless the
