@@ -207,7 +207,35 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              K12's and K13's few-row path also alone), launches, K1's
              wrapper launches beside the trace's, and the device busy
              share of each window from its trace (after the counts are
-             read).
+             read);
+18. fleet    in a fresh process of its own (``--fleet-phase``; the parent
+             reaps its gateways whatever happens), the port's GatewayFleet
+             of 3 gateway processes (``python -m
+             quantum_resistant_p2p_tpu_torch.fleet.gateway``) on "cuda",
+             each serving ML-KEM-768 x ML-DSA-65 (fused) and
+             ChaCha20-Poly1305 with its facades pre-warmed to 32 rows,
+             behind the router in the phase's process; 24 client engines
+             sharing one engine's queues each ask the router for their
+             gateway, handshake at once and send two messages, the second
+             round sent once the gateways have opened every first one (the
+             heartbeats' message counts); a FaultPlan process rule
+             SIGKILLs the gateway the seed picks among those holding
+             sessions: its fleet breaker opens within hb_miss_limit x
+             hb_interval + 1 s, its clients re-route with it excluded and
+             resume with their tickets on their ring successors (no KEM
+             or signature op there), every client sends one more message
+             that arrives, and no other client re-handshakes;
+             restart_member brings the gateway back, its clients return
+             to it by ticket and each sends a message; stop() collects
+             every gateway's bye (device_served_fraction 1.0, no fallback
+             op or trip, the breaker closed, ops > 0, K1-K8 launched) and
+             slo_report.json (merged by obs.slo.merge_reports), and no
+             gateway process is left; printed: each gateway's seconds from
+             spawn to hello, the burst's handshakes/s beside phase 16's,
+             the seconds from kill to breaker open, the resumes' p50 and
+             max, the device memory a gateway process takes (the card's
+             free memory before and after the spawns) and the phase's
+             seconds.
 
 Every kernel wrapper counts its launches. The counts are set to 0 just
 before each of phases 4-16 (11b included) and read just after it: every
@@ -221,7 +249,11 @@ and 13's 128f run, K13's in 13's 192f run; every kernel of phase 8 and
 K8 in phases 14, 15 and 16, K1 and K9-K11 in phase 16's re-handshake after
 its FrodoKEM swap, and K1 from HQC's own SHAKE256 calls (counted on their
 calling threads, the handshake's signatures apart) in its re-handshake
-after the HQC swap.  The last three lines of
+after the HQC swap.  Phase 18's counts are its gateways', from their
+bye frames (each gateway process counts from 0): every kernel of phase 8
+and K8, and each gateway that ran full handshakes must have launched the
+responder's kernels (K1, K1 with per-row lengths, K2, K3, K4's inverse,
+K5, K7 and K8) after it registered.  The last three lines of
 output are the card's name and power limit (nvidia-smi), one JSON object
 with key "kernels", and the result
 line {"ok": true, "device": {...}}.  Without a GPU, or without the package
@@ -235,6 +267,7 @@ import contextlib
 import hashlib
 import json
 import re
+import shutil
 import statistics
 import hmac
 import os
@@ -431,6 +464,24 @@ ENGINE_PROCESS_TIMEOUT_S = 900.0
 #: host threads of the phase's process, each signing ENGINE_THREAD_SIGNS
 #: ML-DSA-65 messages at B = 1, after the phase (PERF.md §7 item 8)
 ENGINE_THREADS, ENGINE_THREAD_SIGNS = (1, 4, 8), 4
+#: phase 18, the fleet: gateway processes, the client engines (all sharing
+#: one engine's queues in the phase's process), the seed of the fleet's
+#: ring and of the kill's pick, the facades' pre-warm cap (the clients'
+#: count rounded up to a power of two), the margin over hb_miss_limit x
+#: hb_interval within which the killed gateway's breaker must open, the
+#: longest wait of the phase's checks, and the phase process's limit
+FLEET_GATEWAYS, FLEET_CLIENTS, FLEET_SEED = 3, 24, 18
+FLEET_PREWARM = 1 << (FLEET_CLIENTS - 1).bit_length()
+FLEET_OPEN_MARGIN_S, FLEET_WAIT_S, FLEET_PROCESS_TIMEOUT_S = 1.0, 120.0, 600.0
+#: how long the fleet waits for its gateways' hello: the manager's 60 s
+#: default, raised because three gateway processes start at once on one
+#: card, each importing the port, loading the kernel libraries, running its
+#: health gate and warming buckets 1-FLEET_PREWARM of three facades (29.2-
+#: 29.5 s on the H100, PERF.md §6 PR 16: 60 s would leave 2x of it)
+FLEET_REGISTER_TIMEOUT_S = 90.0
+#: the environment variable naming the file in which the phase's process
+#: keeps its gateways' pids, for the parent to reap
+FLEET_PID_FILE = "QRP2P_FLEET_PID_FILE"
 
 
 class PhaseFailed(RuntimeError):
@@ -2333,11 +2384,12 @@ def queue_ops(engine, facade: str, op: str) -> int:
     return 0 if f is None else f.stats()[op]["ops"]
 
 
-async def engine_until(cond, what: str, wait_s: float = ENGINE_WAIT_S, detail=None) -> None:
+async def engine_until(cond, what: str, wait_s: float = ENGINE_WAIT_S, detail=None,
+                       phase: str = "engine") -> None:
     t0 = time.perf_counter()
     while not cond():
         if time.perf_counter() - t0 > wait_s:
-            raise PhaseFailed(f"engine: timed out waiting for {what}"
+            raise PhaseFailed(f"{phase}: timed out waiting for {what}"
                               + (f": {detail()}" if detail is not None else ""))
         await asyncio.sleep(0.002)
 
@@ -3222,21 +3274,9 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
 def kernel_wrappers() -> dict:
     """Every kernel wrapper by name (each counts its launches); the port must
     be importable."""
-    from quantum_resistant_p2p_tpu_torch.core import (chacha_cuda, keccak_cuda, sha256_cuda,
-                                                      sha512_cuda)
-    from quantum_resistant_p2p_tpu_torch.kem import frodo_cuda, mlkem_cuda
-    from quantum_resistant_p2p_tpu_torch.sig import mldsa_cuda
+    from quantum_resistant_p2p_tpu_torch.fleet.gateway import kernel_wrappers
 
-    return {"keccak_sponge": keccak_cuda.sponge, "mlkem_sample_ntt": mlkem_cuda.sample_ntt,
-            "mlkem_prf_cbd": mlkem_cuda.prf_cbd, "mlkem_prf_cbd_ntt": mlkem_cuda.prf_cbd_ntt,
-            "mlkem_ntt": mlkem_cuda.ntt, "mlkem_ntt_inv": mlkem_cuda.ntt_inv,
-            "mldsa_rej_ntt": mldsa_cuda.rej_ntt, "mldsa_rej_bounded": mldsa_cuda.rej_bounded,
-            "mldsa_ntt": mldsa_cuda.ntt, "mldsa_ntt_inv": mldsa_cuda.ntt_inv,
-            "keccak_sponge_varlen": keccak_cuda.sponge_varlen,
-            "chacha_blocks": chacha_cuda.chacha_blocks,
-            "frodo_a_times_s": frodo_cuda.a_times_s, "frodo_s_times_a": frodo_cuda.s_times_a,
-            "frodo_cdf_sample": frodo_cuda.cdf_sample,
-            "sha256_compress": sha256_cuda.compress, "sha512_compress": sha512_cuda.compress}
+    return kernel_wrappers()
 
 
 def launch_counts(wrappers: dict) -> dict:
@@ -3357,6 +3397,472 @@ def phase_engine_process() -> dict:
         raise PhaseFailed(f"engine: the phase's process exited {proc.returncode}: "
                           f"{proc.stderr[-3000:]}")
     return json.loads(lines[-1])["engine_phase"]
+
+
+async def fleet_until(cond, what: str, wait_s: float = FLEET_WAIT_S, detail=None) -> None:
+    await engine_until(cond, what, wait_s, detail, phase="fleet")
+
+
+def device_free_bytes(backend: str):
+    """The card's free memory (None off the card)."""
+    if backend != "cuda":
+        return None
+    import torch
+
+    return torch.cuda.mem_get_info()[0]
+
+
+def mib_taken(free0, processes: int):
+    """MiB of the card's memory each of ``processes`` new processes took
+    since ``free0`` was read (None off the card).  The card's machine shows
+    no per-process figure: nvidia-smi's compute-apps query reports every
+    process at the card's whole use."""
+    if free0 is None:
+        return None
+    import torch
+
+    return round((free0 - torch.cuda.mem_get_info()[0]) / processes / 2**20, 1)
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
+#: the kernels a gateway launches while it serves (the responder's fused
+#: encaps_verify_sign, its verify of the confirm and of each message, the
+#: ChaCha20-Poly1305 opens): every kernel of the handshake but ML-KEM's
+#: forward NTT and ML-DSA's RejBoundedPoly, which only key generation runs
+FLEET_SERVING_KERNELS = ENCAPS_KERNELS + ("keccak_sponge_varlen", "mldsa_rej_ntt", "mldsa_ntt",
+                                          "mldsa_ntt_inv", "chacha_blocks")
+
+
+async def fleet_run(provider, app, p2p, fleet_mod, control, faults, slo, backend: str) -> dict:
+    """Phase 18: FLEET_GATEWAYS gateway processes behind the port's router
+    on 127.0.0.1, FLEET_CLIENTS client engines, a seeded SIGKILL of a
+    gateway holding sessions, the resumes on the ring successor, the
+    restart and the stop; every check raises PhaseFailed, and a finally
+    kills every gateway process."""
+    out: dict = {}
+    report_dir = Path(tempfile.mkdtemp(prefix="qrp2p-fleet-"))
+    fleet = fleet_mod.GatewayFleet(
+        FLEET_GATEWAYS, spawn="process", providers="real", seed=FLEET_SEED,
+        report_dir=report_dir, register_timeout=FLEET_REGISTER_TIMEOUT_S,
+        gateway_kw={"backend": backend, "prewarm_cap": FLEET_PREWARM})
+    spawned, registered, dead_at, killed_at = {}, {}, {}, {}
+    spawn_member, kill_member = fleet._spawn_member, fleet.kill
+
+    async def timed_spawn(member):
+        await spawn_member(member)
+        spawned[member.gateway_id] = time.perf_counter()
+        note_pids([member.pid])
+
+    def timed_kill(gid):
+        killed_at[gid] = time.perf_counter()
+        kill_member(gid)
+
+    def on_event(event, gid):
+        if event == "registered":
+            registered[gid] = time.perf_counter()
+        elif event == "gateway_dead":
+            dead_at.setdefault(gid, time.perf_counter())
+
+    fleet._spawn_member, fleet.kill = timed_spawn, timed_kill
+    fleet.on_event(on_event)
+    pids, nodes, clients, proto = set(), [], [], None
+    pid_file = os.environ.get(FLEET_PID_FILE)
+
+    def note_pids(new) -> None:
+        """Keep each gateway pid, here and in the file the parent reaps."""
+        pids.update(new)
+        if pid_file:
+            Path(pid_file).write_text(" ".join(str(p) for p in sorted(pids)))
+
+    stopped = False
+
+    def logs() -> str:
+        return " | ".join(f"{p.name}: {p.read_text(errors='replace')[-1500:]}"
+                          for p in sorted(report_dir.glob("*.log")))
+
+    def counts_of(gid) -> int:
+        return fleet.members[gid].stats.get("msgs_received") or 0
+
+    async def fresh_heartbeats(gids) -> None:
+        marks = {g: fleet.members[g].hb_count for g in gids}
+        await fleet_until(lambda: all(fleet.members[g].hb_count >= marks[g] + 2 for g in gids),
+                          f"two fresh heartbeats from {sorted(gids)}")
+
+    try:
+        print(f"[fleet] register_timeout {FLEET_REGISTER_TIMEOUT_S:.0f} s, not the manager's "
+              f"60 s: {FLEET_GATEWAYS} gateway processes start at once on one card, each "
+              f"importing the port, loading the kernel libraries, gating its facades and "
+              f"warming buckets 1-{FLEET_PREWARM} of three of them, ~30 s on the H100")
+        free0 = device_free_bytes(backend)
+        t0 = time.perf_counter()
+        start = asyncio.ensure_future(fleet.start())
+        while not start.done():
+            gone = [m.gateway_id for m in fleet.members.values()
+                    if m.proc is not None and m.proc.returncode is not None]
+            if gone:
+                start.cancel()
+                await asyncio.gather(start, return_exceptions=True)
+                raise PhaseFailed(f"fleet: gateway {gone} exited before registering; "
+                                  f"logs: {logs()}")
+            await asyncio.sleep(0.05)
+        if start.exception() is not None:
+            raise PhaseFailed(f"fleet: {start.exception()}; logs: {logs()}")
+        out["start_s"] = time.perf_counter() - t0
+        first_pids = {g: m.pid for g, m in fleet.members.items()}
+        out["register_s"] = {g: round(registered[g] - spawned[g], 3) for g in sorted(fleet.members)}
+        print(f"[fleet] {FLEET_GATEWAYS} gateway processes ({backend}, ML-KEM-768 x ML-DSA-65 "
+              f"fused, {AEAD}, prewarm_cap {FLEET_PREWARM}) registered in {out['start_s']:.1f} s; "
+              f"seconds from spawn to hello: {out['register_s']}")
+        out["gateway_mib"] = {"each_of_three": mib_taken(free0, FLEET_GATEWAYS)}
+        print(f"[fleet] device memory a gateway process, warm (the card's free memory before "
+              f"the spawn less after the hellos, over {FLEET_GATEWAYS}): "
+              f"{out['gateway_mib']['each_of_three']} MiB; gateway pids {first_pids}")
+
+        # the client engines: FLEET_CLIENTS sharing one engine's queues
+        node = p2p.P2PNode("fleet-clients-shared", "127.0.0.1", 0)
+        await node.start()
+        nodes.append(node)
+        proto = app.SecureMessaging(node, backend=backend, use_batching=True,
+                                    symmetric=provider.get_symmetric(AEAD))
+        await proto.wait_ready()
+        pks, sks = proto.signature.generate_keypair_batch(FLEET_CLIENTS)
+        for i in range(FLEET_CLIENTS):
+            node = p2p.P2PNode(f"fleet-client-{i:03d}", "127.0.0.1", 0)
+            await node.start()
+            nodes.append(node)
+            c = app.SecureMessaging(node, backend=backend, kem=proto.kem,
+                                    symmetric=proto.symmetric, signature=proto.signature,
+                                    sig_keypair=(bytes(pks[i]), bytes(sks[i])), auto_heal=False)
+            c._bkem, c._bsig, c._bfused, c._baead = (proto._bkem, proto._bsig, proto._bfused,
+                                                    proto._baead)
+            c.use_batching = True
+            clients.append(c)
+        await fresh_heartbeats(list(fleet.members))
+        base_launches = {g: dict(m.stats["kernel_launches"]) for g, m in fleet.members.items()}
+
+        # each client asks the router for its gateway, connects, handshakes
+        home = {}
+        for c in clients:
+            reply = await control.route_query("127.0.0.1", fleet.ctrl_port, c.node_id)
+            if reply.get("type") != control.ROUTE_OK or \
+                    reply["gateway"] != fleet.ring.assign(c.node_id):
+                raise PhaseFailed(f"fleet: {c.node_id} was routed {reply}, ring owner "
+                                  f"{fleet.ring.assign(c.node_id)}")
+            home[c.node_id] = reply["gateway"]
+            if await c.node.connect_to_peer(reply["host"], reply["port"], timeout=10.0) \
+                    != reply["gateway"]:
+                raise PhaseFailed(f"fleet: {c.node_id} could not reach {reply['gateway']}")
+        await fleet_until(lambda: all(c.peer_settings.get(home[c.node_id]) for c in clients),
+                          "the settings gossip")
+        out["clients_by_gateway"] = {g: sum(1 for h in home.values() if h == g)
+                                     for g in sorted(fleet.members)}
+        t0 = time.perf_counter()
+        oks = await asyncio.gather(*(c.initiate_key_exchange(home[c.node_id]) for c in clients))
+        wall = time.perf_counter() - t0
+        bad = [c.node_id for c, ok in zip(clients, oks) if not ok]
+        if bad:
+            raise PhaseFailed(f"fleet: {len(bad)} handshakes failed, first {bad[:4]}")
+        lat = [c._handshake_latency.last for c in clients]
+        out["burst"] = {"clients": FLEET_CLIENTS, "wall_s": wall,
+                        "handshakes_per_s": FLEET_CLIENTS / wall,
+                        "latency_ms": {"p50": pct(lat, 50), "max": 1e3 * max(lat)},
+                        "trips": sorted({c.metrics()["handshake_trips"]["last"]
+                                         for c in clients})}
+        print(f"[fleet] {FLEET_CLIENTS} clients at once (one engine's queues in this process) -> "
+              f"{FLEET_GATEWAYS} gateway processes {out['clients_by_gateway']}: "
+              f"{out['burst']['handshakes_per_s']:.1f} handshakes/s ({wall:.3f} s); latency ms "
+              f"p50 {out['burst']['latency_ms']['p50']:.1f} max "
+              f"{out['burst']['latency_ms']['max']:.1f}; trips {out['burst']['trips']}")
+
+        expected = {g: 0 for g in fleet.members}
+
+        async def message_round(label: str, group, route_of) -> float:
+            t0 = time.perf_counter()
+            sent = await asyncio.gather(*(c.send_message(route_of[c.node_id],
+                                                         b"%s from %s" % (label.encode(),
+                                                                          c.node_id.encode()))
+                                          for c in group))
+            if any(m is None for m in sent):
+                raise PhaseFailed(f"fleet: a {label} message was not sent")
+            for c in group:
+                expected[route_of[c.node_id]] += 1
+            await fleet_until(lambda: all(counts_of(g) >= n for g, n in expected.items()),
+                              f"the {label} messages at the gateways",
+                              detail=lambda: {g: (counts_of(g), n) for g, n in expected.items()})
+            if any(counts_of(g) != n for g, n in expected.items()):
+                raise PhaseFailed(f"fleet: the gateways opened "
+                                  f"{ {g: counts_of(g) for g in expected} } messages, sent "
+                                  f"{expected}")
+            return time.perf_counter() - t0
+
+        # two messages each, the second sent once every first one had arrived
+        out["message_s"] = [await message_round("first", clients, home),
+                            await message_round("second", clients, home)]
+        print(f"[fleet] two messages a client, each round sent at once and opened by the "
+              f"gateways before the next ({[round(x, 3) for x in out['message_s']]} s): every "
+              f"key agrees, messages in order")
+
+        # the seeded SIGKILL of a gateway holding sessions
+        await fresh_heartbeats(list(fleet.members))
+        before = {g: dict(m.stats) for g, m in fleet.members.items()}
+        handshakes_before = {c.node_id: c._handshake_latency.count for c in clients}
+        keys_before = {c.node_id: c.shared_keys[home[c.node_id]] for c in clients}
+        victim = random.Random(FLEET_SEED).choice(sorted(set(home.values())))
+        vm = fleet.members[victim]
+        plan = faults.FaultPlan(FLEET_SEED, [faults.FaultRule(
+            "process", "kill_gateway", match={"gateway": victim})])
+        with plan.activate():
+            await fleet_until(lambda: victim in killed_at, "the plan's kill")
+        if plan.injected != [{"scope": "process", "action": "kill_gateway", "n": 1,
+                              "gateway": victim}]:
+            raise PhaseFailed(f"fleet: the plan injected {plan.injected}")
+        limit = fleet.hb_miss_limit * fleet.hb_interval + FLEET_OPEN_MARGIN_S
+        await fleet_until(lambda: vm.breaker.state != "closed", "the victim's breaker to open",
+                          limit + 10.0)
+        out["kill"] = {"gateway": victim, "pid": first_pids[victim],
+                       "open_s": dead_at[victim] - killed_at[victim], "limit_s": limit}
+        if out["kill"]["open_s"] > limit:
+            raise PhaseFailed(f"fleet: the breaker opened {out['kill']['open_s']:.3f} s after "
+                              f"the kill (limit {limit:.2f} s)")
+        print(f"[fleet] seeded SIGKILL of {victim} (pid {first_pids[victim]}, "
+              f"{out['clients_by_gateway'][victim]} sessions) through a FaultPlan process "
+              f"rule: its fleet breaker opened {out['kill']['open_s']:.3f} s after the kill "
+              f"(limit hb_miss_limit x hb_interval + {FLEET_OPEN_MARGIN_S} = {limit:.2f} s)")
+
+        # its clients re-route with it excluded and resume on the ring successor
+        moved = [c for c in clients if home[c.node_id] == victim]
+        stayed = [c for c in clients if home[c.node_id] != victim]
+        await fleet_until(lambda: not any(c.node.is_connected(victim) for c in moved),
+                          "the victim's clients to see the drop")
+
+        async def resume(c, exclude, expect, holder):
+            reply = await control.route_query("127.0.0.1", fleet.ctrl_port, c.node_id,
+                                              exclude=exclude)
+            if reply.get("type") != control.ROUTE_OK or reply["gateway"] != expect:
+                raise PhaseFailed(f"fleet: {c.node_id} was routed {reply}, expected {expect}")
+            if await c.node.connect_to_peer(reply["host"], reply["port"], timeout=10.0) \
+                    != expect:
+                raise PhaseFailed(f"fleet: {c.node_id} could not reach {expect}")
+            c.adopt_ticket(expect, c.take_ticket(holder))
+            used = c._ctr_resumes_used.value
+            t0 = time.perf_counter()
+            if not await c.initiate_key_exchange(expect):
+                raise PhaseFailed(f"fleet: {c.node_id} could not re-establish on {expect}")
+            return time.perf_counter() - t0, c._ctr_resumes_used.value > used
+
+        successor = {c.node_id: next(g for g in fleet.ring.successors(c.node_id) if g != victim)
+                     for c in moved}
+        resumed = await asyncio.gather(*(resume(c, [victim], successor[c.node_id], victim)
+                                         for c in moved))
+        rehandshakes = [c.node_id for c, (_, ok) in zip(moved, resumed) if not ok]
+        resume_s = [dt for dt, ok in resumed if ok]
+        out["resume"] = {"clients": len(moved), "resumed": len(resume_s),
+                         "rehandshakes": rehandshakes,
+                         "successors": sorted(set(successor.values())),
+                         "p50_ms": round(pct(resume_s, 50), 3) if resume_s else None,
+                         "max_ms": round(1e3 * max(resume_s), 3) if resume_s else None}
+        print(f"[fleet] {len(moved)} clients of {victim} re-routed with it excluded to their "
+              f"ring successors {out['resume']['successors']}: {len(resume_s)} resumed with "
+              f"their tickets (p50 {out['resume']['p50_ms']} ms, max "
+              f"{out['resume']['max_ms']} ms), {len(rehandshakes)} had to re-handshake "
+              f"{rehandshakes}")
+        if not moved:
+            raise PhaseFailed(f"fleet: the victim {victim} held no session")
+        live = [g for g in fleet.members if g != victim]
+        await fresh_heartbeats(live)
+        ops = {g: (before[g]["ops"], fleet.members[g].stats["ops"]) for g in live}
+        if not rehandshakes and any(a != b for a, b in ops.values()):
+            raise PhaseFailed(f"fleet: the resumes ran KEM or signature ops on the "
+                              f"successors (before, after): {ops}")
+        taken = {g: fleet.members[g].stats["resumes_ok"] - before[g]["resumes_ok"] for g in live}
+        if sum(taken.values()) != len(resume_s):
+            raise PhaseFailed(f"fleet: the successors accepted {taken} resumes for "
+                              f"{len(resume_s)}")
+
+        # one more message from every client: 0 lost established sessions
+        route3 = {**home, **successor}
+        out["message_s"].append(await message_round("third", clients, route3))
+        changed = [c.node_id for c in stayed
+                   if c._handshake_latency.count != handshakes_before[c.node_id]
+                   or c.shared_keys.get(home[c.node_id]) != keys_before[c.node_id]]
+        if changed:
+            raise PhaseFailed(f"fleet: clients of the live gateways re-handshook: {changed}")
+        out["lost_established_sessions"] = 0
+        print(f"[fleet] every client sent one more message, which arrived "
+              f"({out['message_s'][-1]:.3f} s): 0 lost established sessions; the "
+              f"{len(stayed)} clients of the live gateways did not re-handshake; no KEM or "
+              f"signature op on the successors during the resumes (ops {ops})")
+
+        # the dead gateway comes back, re-registers, and its clients return
+        free0 = device_free_bytes(backend)
+        restart = await fleet.restart_member(victim)
+        out["gateway_mib"]["restarted"] = mib_taken(free0, 1)
+        if not restart["registered"]:
+            raise PhaseFailed(f"fleet: {victim} did not re-register: {restart}; {logs()}")
+        restart["register_s"] = round(registered[victim] - spawned[victim], 3)
+        out["restart"] = restart
+        expected[victim] = 0
+        await fresh_heartbeats([victim])
+        serving_base = {**base_launches, victim: dict(vm.stats["kernel_launches"])}
+        back = await asyncio.gather(*(resume(c, [], victim, successor[c.node_id])
+                                      for c in moved))
+        out["restart"]["returned_resumed"] = sum(ok for _, ok in back)
+        out["message_s"].append(await message_round("fourth", moved,
+                                                    {c.node_id: victim for c in moved}))
+        print(f"[fleet] restart_member({victim}): re-registered {restart['register_s']} s after "
+              f"its spawn ({restart['took_s']} s in all, pid {vm.pid}); its {len(moved)} "
+              f"clients routed back to it, {out['restart']['returned_resumed']} resumed with "
+              f"their tickets, and each sent a message that arrived; its device memory, warm: "
+              f"{out['gateway_mib']['restarted']} MiB")
+
+        # stop: every gateway's bye and slo report
+        await fleet.stop()
+        stopped = True
+        byes = {g: m.final_stats for g, m in fleet.members.items()}
+        if any(b is None for b in byes.values()):
+            raise PhaseFailed(f"fleet: no bye from {[g for g, b in byes.items() if b is None]}; "
+                              f"logs: {logs()}")
+        need = HANDSHAKE_KERNELS + ("chacha_blocks",)
+        problems = {}
+        for g, b in byes.items():
+            idle = [n for n in need if not b["kernel_launches"].get(n)]
+            served = {n: b["kernel_launches"][n] - serving_base[g][n] for n in need}
+            # the gateways that ran full handshakes in this incarnation
+            full = g != victim and out["clients_by_gateway"][g]
+            idle_serving = [n for n in FLEET_SERVING_KERNELS if full and not served[n]]
+            got = (b["device_served_fraction"], b["fallback_ops"], b["fallback_trips"],
+                   b["breaker_state"])
+            if got != (1.0, 0, 0, "closed") or not b["ops"] or idle or idle_serving:
+                problems[g] = {"served_fraction, fallback ops, trips, breaker": got,
+                               "ops": b["ops"], "never launched": idle,
+                               "not launched serving": idle_serving}
+        if problems:
+            raise PhaseFailed(f"fleet: gateway byes {problems}")
+        out["byes"] = {g: {k: b[k] for k in ("ops", "msgs_received", "resumes_ok",
+                                             "tickets_minted", "device_served_fraction",
+                                             "fallback_ops", "fallback_trips", "breaker_state",
+                                             "kernel_launches")} for g, b in byes.items()}
+        out["serving_launches"] = {g: {n: b["kernel_launches"][n] - serving_base[g][n]
+                                       for n in need} for g, b in byes.items()}
+        for g, b in sorted(out["byes"].items()):
+            print(f"[fleet] {g} bye: ops {b['ops']}, messages {b['msgs_received']}, resumes "
+                  f"{b['resumes_ok']}, device_served_fraction {b['device_served_fraction']}, "
+                  f"fallback ops {b['fallback_ops']} trips {b['fallback_trips']}, breaker "
+                  f"{b['breaker_state']}; launches in the process {b['kernel_launches']}; "
+                  f"while serving {out['serving_launches'][g]}")
+        reports = fleet.collect_reports()
+        merged = slo.merge_reports(reports)
+        if merged.get("nodes") != sorted(fleet.members):
+            raise PhaseFailed(f"fleet: slo reports of {merged.get('nodes')}, gateways "
+                              f"{sorted(fleet.members)}")
+        out["slo_merged"] = {"nodes": merged["nodes"], "worst_node": merged.get("worst_node"),
+                             "alerting": merged.get("alerting")}
+        alive = sorted(p for p in pids if pid_alive(p))
+        if alive:
+            raise PhaseFailed(f"fleet: gateway processes still alive after stop(): {alive}")
+        print(f"[fleet] stop(): {len(byes)} byes, slo reports of {merged['nodes']} merged "
+              f"(worst node {merged.get('worst_node')}); no gateway pid of {sorted(pids)} alive")
+        return out
+    finally:
+        for c in clients:
+            c.close()
+        for node in nodes:
+            await node.stop()
+        if proto is not None:
+            proto.close()
+        if not stopped:
+            try:
+                await asyncio.wait_for(fleet.stop(), 60.0)
+            except Exception as exc:  # the kill below still runs
+                print(f"[fleet] stop() after a failure raised {exc!r}", file=sys.stderr)
+        for m in fleet.members.values():
+            if m.proc is not None and m.proc.returncode is None:
+                m.proc.kill()
+                await m.proc.wait()
+        for p in pids:
+            if pid_alive(p):
+                try:
+                    os.kill(p, 9)
+                except OSError:
+                    pass
+        shutil.rmtree(report_dir, ignore_errors=True)
+
+
+def phase_fleet(provider, backend: str = "cuda") -> dict:
+    """Phase 18: the port's gateway fleet on the card."""
+    from quantum_resistant_p2p_tpu_torch import app, faults
+    from quantum_resistant_p2p_tpu_torch import fleet as fleet_mod
+    from quantum_resistant_p2p_tpu_torch.fleet import control
+    from quantum_resistant_p2p_tpu_torch.net import p2p_node
+    from quantum_resistant_p2p_tpu_torch.obs import slo
+
+    t0 = time.perf_counter()
+    out = asyncio.run(asyncio.wait_for(fleet_run(provider, app, p2p_node, fleet_mod, control,
+                                                 faults, slo, backend),
+                                       FLEET_PROCESS_TIMEOUT_S - 60.0))
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[fleet] phase took {out['phase_s']:.1f} s")
+    return out
+
+
+def fleet_child() -> int:
+    """Phase 18 in a process of its own (``--fleet-phase``, started by
+    phase_fleet_process); the gateways are its children, and its result,
+    their bye counts included, is its last line of output."""
+    sys.path.insert(0, str(ROOT))
+    # the gateway processes run ``python -m quantum_resistant_p2p_tpu_torch...``
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    from quantum_resistant_p2p_tpu_torch import provider
+
+    try:
+        out = phase_fleet(provider)
+    except PhaseFailed as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        return 1
+    print(json.dumps({"fleet_phase": out}, default=str))
+    return 0
+
+
+def phase_fleet_process() -> dict:
+    """Phase 18 in a fresh process on the same card, as phase 16 runs; it
+    starts the gateway processes.  The kernel libraries of phase 1 and the
+    verdict cache (QRP2P_HEALTH_CACHE) are shared."""
+    with tempfile.TemporaryDirectory(prefix="qrp2p-fleet-pids-") as tmp:
+        pid_file = Path(tmp) / "pids"
+        try:
+            proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                                   "--fleet-phase"], capture_output=True, text=True,
+                                  timeout=FLEET_PROCESS_TIMEOUT_S,
+                                  env={**os.environ, FLEET_PID_FILE: str(pid_file)})
+        except subprocess.TimeoutExpired as exc:
+            raise PhaseFailed(f"fleet: the phase's process ran past {exc.timeout} s") from None
+        finally:
+            # the gateways run in sessions of their own: none outlives the phase
+            for pid in (pid_file.read_text().split() if pid_file.exists() else ()):
+                if pid_alive(int(pid)):
+                    print(f"[fleet] killing gateway process {pid}, left by the phase",
+                          file=sys.stderr)
+                    try:
+                        os.kill(int(pid), 9)
+                    except OSError:
+                        pass
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        print(line)
+    if proc.returncode != 0 or not lines or not lines[-1].startswith('{"fleet_phase"'):
+        raise PhaseFailed(f"fleet: the phase's process exited {proc.returncode}: "
+                          f"{proc.stderr[-3000:]}")
+    return json.loads(lines[-1])["fleet_phase"]
 
 
 def main() -> int:
@@ -3630,6 +4136,21 @@ def main() -> int:
             raise PhaseFailed("profile: the 128s verify batch rejects a signature")
         profiled["sphincs_verify_128s"] = phase_profile(torch, "sphincs_verify_128s",
                                                         lambda: vverify(*vargs), 1)
+        # phase 18: the launches are the gateways', read from their byes (each
+        # process counts from 0); SHA-2 runs in no gateway
+        fleeted = phase_fleet_process()
+        gateway_counts = {name: sum(b["kernel_launches"][name] for b in fleeted["byes"].values())
+                          for name in wrappers}
+        gateway_counts.update({f"{name}[few-row]": 0 for name in SHA2_KERNELS})
+        launches["fleet"] = read("fleet", HANDSHAKE_KERNELS + ("chacha_blocks",),
+                                 counts=gateway_counts)
+        lone = [b["handshakes_per_s"] for b in engined["bursts"]]
+        print(f"[fleet] beside phase 16 in this run: {FLEET_CLIENTS} clients -> "
+              f"{FLEET_GATEWAYS} gateway processes at {fleeted['burst']['handshakes_per_s']:.1f} "
+              f"handshakes/s, {ENGINE_CLIENTS} clients -> one in-process gateway at "
+              f"{[round(x, 1) for x in lone]} handshakes/s; a resume on the successor p50 "
+              f"{fleeted['resume']['p50_ms']} ms max {fleeted['resume']['max_ms']} ms, phase "
+              f"16's resume {1e3 * engined['resume_s']:.1f} ms")
     except PhaseFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3654,6 +4175,7 @@ def main() -> int:
             "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "fleet_launches": launches["fleet"][name],
             "library_ms": (None if any(r["library_ms"] is None for r in mine)
                            else sum(r["library_ms"] for r in mine)),
             "shapes": [r["shape"] for r in mine]})
@@ -3670,7 +4192,7 @@ def main() -> int:
                                  "hqc": hqc_batch,
                                  "sphincs_serve": slh_served, "sphincs_batch": slh_batch,
                                  "sphincs_memory": slh_memory, "obs_faults": observed,
-                                 "transport": carried, "engine": engined,
+                                 "transport": carried, "engine": engined, "fleet": fleeted,
                                  "launches": launches, "launches_per_op": per_op,
                                  "engine_swap_launches": swap_launches,
                                  "profile": profiled}}))
@@ -3685,6 +4207,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--engine-phase"]:
         sys.exit(engine_child())
+    if sys.argv[1:] == ["--fleet-phase"]:
+        sys.exit(fleet_child())
     # this run's health verdicts go to a fresh cache, so every gate of the
     # earlier phases probes the card (phase 15 checks the cache itself)
     with tempfile.TemporaryDirectory(prefix="qrp2p-health-") as _cache:

@@ -923,3 +923,57 @@ def test_two_engines_handshake_and_message_on_the_card(gpu, tmp_path, monkeypatc
         assert m["breaker_state"] == "closed" and m["breaker_trips"] == 0
         assert all(q.fallback_fn is None for f in (e._bkem, e._bsig, e._bfused, e._baead)
                    for q in facade_queues(f))
+
+
+def test_task_fleet_of_real_gateways_serves_on_the_card(gpu, tmp_path, monkeypatch):
+    """A task-mode ``GatewayFleet`` of two gateways with the real providers
+    on "cuda" (ML-KEM-768 x ML-DSA-65 fused, ChaCha20-Poly1305): one client
+    routes, handshakes and sends a message; the gateway's stats show every
+    dispatch on the device, no fallback op or trip, and K1-K8 launched in
+    this process."""
+    from quantum_resistant_p2p_tpu_torch.app import SecureMessaging
+    from quantum_resistant_p2p_tpu_torch.fleet import GatewayFleet, control
+    from quantum_resistant_p2p_tpu_torch.net.p2p_node import P2PNode
+
+    monkeypatch.setenv("QRP2P_HEALTH_CACHE", str(tmp_path))
+
+    async def run():
+        fleet = GatewayFleet(2, spawn="task", providers="real", hb_interval=0.1,
+                             register_timeout=300.0, gateway_kw={"prewarm_cap": 2})
+        await fleet.start()
+        node = P2PNode("fleet-client", "127.0.0.1", 0)
+        client = None
+        try:
+            await node.start()
+            client = SecureMessaging(node, use_batching=True,
+                                     symmetric=get_symmetric("ChaCha20-Poly1305"))
+            await asyncio.wait_for(client.wait_ready(), 300)
+            reply = await control.route_query("127.0.0.1", fleet.ctrl_port, node.node_id)
+            gid = reply["gateway"]
+            assert await asyncio.wait_for(node.connect_to_peer(reply["host"], reply["port"]),
+                                          8) == gid
+            assert await asyncio.wait_for(client.initiate_key_exchange(gid), 60)
+            assert await client.send_message(gid, b"through the fleet") is not None
+            member = fleet.members[gid]
+            for _ in range(600):
+                if (member.stats.get("msgs_received") or 0) >= 1:
+                    break
+                await asyncio.sleep(0.05)
+            return member.stats, client.metrics()
+        finally:
+            await node.stop()
+            if client is not None:
+                client.close()
+            await fleet.stop()
+
+    stats, client_metrics = asyncio.run(run())
+    assert stats["msgs_received"] == 1 and stats["ops"] > 0
+    assert stats["device_served_fraction"] == 1.0
+    assert stats["fallback_ops"] == 0 and stats["fallback_trips"] == 0
+    assert stats["breaker_state"] == "closed"
+    assert client_metrics["fallback_trips"] == 0
+    launched = stats["kernel_launches"]
+    for name in ("keccak_sponge", "keccak_sponge_varlen", "mlkem_sample_ntt", "mlkem_prf_cbd",
+                 "mlkem_prf_cbd_ntt", "mlkem_ntt", "mlkem_ntt_inv", "mldsa_rej_ntt",
+                 "mldsa_rej_bounded", "mldsa_ntt", "mldsa_ntt_inv", "chacha_blocks"):
+        assert launched[name] > 0, name

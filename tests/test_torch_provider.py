@@ -288,6 +288,15 @@ def test_port_imports_no_jax():
         "assert bytes(sha256.sha256(msg)[0].tolist()) == hashlib.sha256(b'abc').digest()\n"
         "assert bytes(sha512.sha512(msg)[0].tolist()) == hashlib.sha512(b'abc').digest()\n"
         "assert get_signature('SPHINCS+-SHA2-128s-simple', backend='cpu').signature_len == 7856\n"
+        "import quantum_resistant_p2p_tpu_torch.fleet\n"
+        "from quantum_resistant_p2p_tpu_torch.fleet import (control, gateway, lease, manager,\n"
+        "                                                   ring, stormlib)\n"
+        "assert ring.HashRing(['a', 'b']).assign('k') in ('a', 'b')\n"
+        "assert lease.LeaderLease('r', 0).role == lease.FOLLOWER\n"
+        "assert manager.GatewayFleet(2, spawn='task').providers == 'real'\n"
+        "assert gateway.DEFAULTS['backend'] == 'cuda' and control.GW_HELLO\n"
+        "stormlib.register_storm_providers()\n"
+        "assert get_kem('STORM-KEM', backend='cuda').backend == 'cuda'\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'quantum_resistant_p2p_tpu'\n"
         "             or m.startswith('quantum_resistant_p2p_tpu.'))\n"
@@ -298,3 +307,20 @@ def test_port_imports_no_jax():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout
+
+
+def test_gateway_entry_point_refuses_bad_arguments_without_jax():
+    """``python -m quantum_resistant_p2p_tpu_torch.fleet.gateway`` with bad
+    arguments prints its usage and exits 2, having imported neither jax
+    nor any module of the JAX package (the interpreter's import log)."""
+    out = subprocess.run([sys.executable, "-X", "importtime", "-m",
+                          "quantum_resistant_p2p_tpu_torch.fleet.gateway", "{}", "extra"],
+                         cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 2, out.stderr[-2000:]
+    assert "usage: python -m quantum_resistant_p2p_tpu_torch.fleet.gateway" in out.stderr
+    imported = [line.rsplit("|", 1)[1].strip() for line in out.stderr.splitlines()
+                if line.startswith("import time:") and line.count("|") == 2]
+    assert "quantum_resistant_p2p_tpu_torch.fleet" in imported
+    bad = [m for m in imported if m == "jax" or m.startswith("jax.")
+           or m == "quantum_resistant_p2p_tpu" or m.startswith("quantum_resistant_p2p_tpu.")]
+    assert bad == []
