@@ -235,7 +235,34 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              the seconds from kill to breaker open, the resumes' p50 and
              max, the device memory a gateway process takes (the card's
              free memory before and after the spawns) and the phase's
-             seconds.
+             seconds;
+19. storm    in a fresh process of its own (``--storm-phase``; the parent
+             reaps its routers and gateways whatever happens), the port's
+             run_router_storm with spawn="process": 2 router processes
+             (``python -m quantum_resistant_p2p_tpu_torch.fleet.router``,
+             no crypto) and 2 gateway processes on "cuda" serving
+             ML-KEM-768 x ML-DSA-65 (fused) and ChaCha20-Poly1305, warmed to
+             32 rows, register_timeout 90 s; 32 sessions arriving over ~2 s
+             from a client plane in the phase's process (one engine's queues,
+             ChaCha20-Poly1305 as the gateways' AEAD), each routed through
+             the router ring, handshaking and sending 4 messages with a
+             forced drop and a ticket reconnect halfway; a FaultPlan process
+             rule SIGKILLs the initial leader rt0 on chaos tick STORM_TICK,
+             and a rolling restart of both routers follows; every session
+             completes, none lost, no plaintext, at least one router kill
+             and one client failover across the router ring, a post-failover
+             resume rate of at least 0.9, device_served_fraction 1.0, every
+             gateway with no fallback op or trip and K1-K8 launched (its
+             stats from its last heartbeat after the sessions, at the
+             leader), the client plane with no fallback armed or served, the
+             two routers together under 64 MiB of device memory (the card's
+             free memory before their spawn less once they listen), and no
+             router or gateway process left; printed: each process's
+             seconds from spawn to ready, sessions/s and the first
+             handshake's p50 and p99 beside phase 18's burst, when the kill
+             landed and the seconds to a new leader, the roll's restarts,
+             resumes before and after the failover, full reconnects,
+             handshake_failures, route_busy and the phase's seconds.
 
 Every kernel wrapper counts its launches. The counts are set to 0 just
 before each of phases 4-16 (11b included) and read just after it: every
@@ -253,8 +280,12 @@ after the HQC swap.  Phase 18's counts are its gateways', from their
 bye frames (each gateway process counts from 0): every kernel of phase 8
 and K8, and each gateway that ran full handshakes must have launched the
 responder's kernels (K1, K1 with per-row lengths, K2, K3, K4's inverse,
-K5, K7 and K8) after it registered.  The last three lines of
-output are the card's name and power limit (nvidia-smi), one JSON object
+K5, K7 and K8) after it registered.  Phase 19's counts are its
+gateways' (from their stats after the storm; each process counts from 0)
+plus its client plane's (the phase's process, its counts set to 0 just
+before the storm and read just after): every kernel of phase 8 and K8 must
+have run, and each gateway must have launched every one of them.  The last
+three lines of output are the card's name and power limit (nvidia-smi), one JSON object
 with key "kernels", and the result
 line {"ok": true, "device": {...}}.  Without a GPU, or without the package
 beside this file, the script prints no result and exits non-zero.
@@ -480,8 +511,37 @@ FLEET_OPEN_MARGIN_S, FLEET_WAIT_S, FLEET_PROCESS_TIMEOUT_S = 1.0, 120.0, 600.0
 #: 29.5 s on the H100, PERF.md §6 PR 16: 60 s would leave 2x of it)
 FLEET_REGISTER_TIMEOUT_S = 90.0
 #: the environment variable naming the file in which the phase's process
-#: keeps its gateways' pids, for the parent to reap
+#: keeps its gateways' pids (phase 19: its routers' and gateways'), for the
+#: parent to reap
 FLEET_PID_FILE = "QRP2P_FLEET_PID_FILE"
+#: phase 19, the router storm: router and gateway processes, the sessions
+#: (each sending STORM_MSGS messages, with a forced drop and a reconnect
+#: halfway), the seed of the storm and its rings, and the chaos tick on
+#: which the plan SIGKILLs the initial leader rt0.  The router fleet's
+#: chaos loop ticks every hb_interval (0.25 s) once its gateways have
+#: registered, but the plan counts ticks only from its activation, just
+#: before the sessions begin: tick 4 lands 1 s into them, mid-handshake,
+#: before the router roll starts 3 s in (a kill landing in the roll hits
+#: the replica the roll is respawning)
+STORM_ROUTERS, STORM_GATEWAYS, STORM_SESSIONS, STORM_MSGS, STORM_SEED = 2, 2, 32, 4, 19
+STORM_TICK = 4
+#: sessions arrive at this rate (the 32 over ~1.9 s), so about a third of
+#: them ask for their first route after the kill: 25 of the 32 peer ids
+#: have rt0 first on the seed's router ring, and a client walking past the
+#: dead replica is the failover the phase checks (with every session
+#: starting at once, only reconnects that fall in a router's downtime walk
+#: past one: 2 in a run on the H100, PERF.md §6)
+STORM_ARRIVAL_RATE = 16.0
+#: the router fleet's register_timeout, for the reason of
+#: FLEET_REGISTER_TIMEOUT_S (RouterFleet's default is also 60 s)
+STORM_REGISTER_TIMEOUT_S = FLEET_REGISTER_TIMEOUT_S
+#: the most device memory both router processes may take together: a router
+#: runs no crypto and must create no CUDA context (a gateway's took 647.6 MiB
+#: in phase 18)
+STORM_ROUTER_MIB_MAX = 64.0
+STORM_PROCESS_TIMEOUT_S = 600.0
+#: the least post-failover resume rate (the reference storm's acceptance)
+STORM_RESUME_RATE_MIN = 0.9
 
 
 class PhaseFailed(RuntimeError):
@@ -3833,25 +3893,26 @@ def fleet_child() -> int:
     return 0
 
 
-def phase_fleet_process() -> dict:
-    """Phase 18 in a fresh process on the same card, as phase 16 runs; it
-    starts the gateway processes.  The kernel libraries of phase 1 and the
-    verdict cache (QRP2P_HEALTH_CACHE) are shared."""
-    with tempfile.TemporaryDirectory(prefix="qrp2p-fleet-pids-") as tmp:
+def phase_process(flag: str, phase: str, timeout: float) -> dict:
+    """Run ``chip_smoke.py <flag>`` (phase 18 or 19) in a fresh process on the
+    same card, as phase 16 runs; it starts router and gateway processes in
+    sessions of their own and keeps their pids in a file, and every one still
+    alive when it ends is killed here.  The kernel libraries of phase 1 and
+    the verdict cache (QRP2P_HEALTH_CACHE) are shared.  Its result is its last
+    line of output, ``{"<phase>_phase": {...}}``."""
+    with tempfile.TemporaryDirectory(prefix=f"qrp2p-{phase}-pids-") as tmp:
         pid_file = Path(tmp) / "pids"
         try:
-            proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                                   "--fleet-phase"], capture_output=True, text=True,
-                                  timeout=FLEET_PROCESS_TIMEOUT_S,
+            proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), flag],
+                                  capture_output=True, text=True, timeout=timeout,
                                   env={**os.environ, FLEET_PID_FILE: str(pid_file)})
         except subprocess.TimeoutExpired as exc:
-            raise PhaseFailed(f"fleet: the phase's process ran past {exc.timeout} s") from None
+            raise PhaseFailed(f"{phase}: the phase's process ran past {exc.timeout} s") from None
         finally:
-            # the gateways run in sessions of their own: none outlives the phase
+            # the children run in sessions of their own: none outlives the phase
             for pid in (pid_file.read_text().split() if pid_file.exists() else ()):
                 if pid_alive(int(pid)):
-                    print(f"[fleet] killing gateway process {pid}, left by the phase",
-                          file=sys.stderr)
+                    print(f"[{phase}] killing process {pid}, left by the phase", file=sys.stderr)
                     try:
                         os.kill(int(pid), 9)
                     except OSError:
@@ -3859,10 +3920,369 @@ def phase_fleet_process() -> dict:
     lines = proc.stdout.splitlines()
     for line in lines[:-1]:
         print(line)
-    if proc.returncode != 0 or not lines or not lines[-1].startswith('{"fleet_phase"'):
-        raise PhaseFailed(f"fleet: the phase's process exited {proc.returncode}: "
+    key = f'{{"{phase}_phase"'
+    if proc.returncode != 0 or not lines or not lines[-1].startswith(key):
+        raise PhaseFailed(f"{phase}: the phase's process exited {proc.returncode}: "
                           f"{proc.stderr[-3000:]}")
-    return json.loads(lines[-1])["fleet_phase"]
+    return json.loads(lines[-1])[f"{phase}_phase"]
+
+
+def phase_fleet_process() -> dict:
+    """Phase 18 in a fresh process on the same card; it starts the gateway
+    processes."""
+    return phase_process("--fleet-phase", "fleet", FLEET_PROCESS_TIMEOUT_S)
+
+
+def traced_router_fleet(router_mod, backend: str):
+    """The port's RouterFleet, as run_router_storm builds it, with a record
+    of what the phase prints and checks: every router and gateway pid (here
+    and in the pid file the parent reaps), each process's seconds from spawn
+    to ready (a router listening, a gateway registered with every router),
+    the card's free memory before the routers' spawns and once they listen,
+    the seconds from a router's kill to a new leader, and the gateways' stats
+    from their last heartbeats once the storm's sessions are done (each
+    gateway's bye goes to the router processes; it serves nothing after its
+    last heartbeat).  Its register_timeout is STORM_REGISTER_TIMEOUT_S."""
+    pid_file = os.environ.get(FLEET_PID_FILE)
+
+    class Traced(router_mod.RouterFleet):
+        last = None
+
+        def __init__(self, *args, **kw):
+            kw["register_timeout"] = STORM_REGISTER_TIMEOUT_S
+            super().__init__(*args, **kw)
+            self.pids, self.spawned, self.ready, self.free = set(), {}, {}, {}
+            self.kills, self.t_up, self.t_stop = [], None, None
+            self.final_stats = self.exit_codes = None
+            self._watchers = []
+            Traced.last = self
+
+        def _note(self, proc) -> None:
+            if proc is not None:
+                self.pids.add(proc.pid)
+                if pid_file:
+                    Path(pid_file).write_text(" ".join(str(p) for p in sorted(self.pids)))
+
+        async def _spawn_router(self, member) -> None:
+            self.free.setdefault("before_routers", device_free_bytes(backend))
+            await super()._spawn_router(member)
+            self.spawned.setdefault(member.router_id, time.perf_counter())
+            self._note(member.proc)
+
+        async def _spawn_gateway(self, gid: str) -> None:
+            await super()._spawn_gateway(gid)
+            self.spawned[gid] = time.perf_counter()
+            self._note(self._gw_procs.get(gid))
+
+        def _exited(self) -> list:
+            procs = {**{r: m.proc for r, m in self.routers.items()}, **self._gw_procs}
+            return [(n, p.returncode) for n, p in sorted(procs.items())
+                    if p is not None and p.returncode is not None]
+
+        async def _await_routers_reachable(self, timeout: float) -> None:
+            deadline = time.monotonic() + timeout
+            pending = set(self.routers)
+            while pending and time.monotonic() < deadline:
+                if self._exited():
+                    raise PhaseFailed(f"storm: exited before listening: {self._exited()}")
+                for rid in sorted(pending):
+                    m = self.routers[rid]
+                    try:
+                        _r, w = await asyncio.open_connection(m.host, m.ctrl_port)
+                        w.close()
+                        self.ready[rid] = time.perf_counter()
+                        pending.discard(rid)
+                    except OSError:
+                        pass
+                await asyncio.sleep(0.05)
+            await super()._await_routers_reachable(max(1.0, deadline - time.monotonic()))
+            self.free["routers_up"] = device_free_bytes(backend)
+
+        async def _await_gateways_registered(self, timeout: float) -> None:
+            deadline = time.monotonic() + timeout
+            pending = set(self.gateway_ids)
+            while pending and time.monotonic() < deadline:
+                if self._exited():
+                    raise PhaseFailed(f"storm: exited before registering: {self._exited()}")
+                views = [await self.router_view(rid) for rid in sorted(self.routers)]
+                for gid in sorted(pending):
+                    if all(any(m.get("gateway") == gid and m.get("port")
+                               for m in (v or {}).get("members") or []) for v in views):
+                        self.ready[gid] = time.perf_counter()
+                        pending.discard(gid)
+                await asyncio.sleep(0.1)
+            await super()._await_gateways_registered(max(1.0, deadline - time.monotonic()))
+
+        async def start(self) -> None:
+            await super().start()
+            self.t_up = time.perf_counter()
+
+        async def kill_router(self, rid: str) -> None:
+            was_leader = await self.leader_id() == rid
+            t_kill = time.perf_counter()
+            await super().kill_router(rid)
+            kill = {"router": rid, "t": t_kill, "was_leader": was_leader, "new_leader": None,
+                    "s": None}
+            self.kills.append(kill)
+
+            async def watch() -> None:
+                while True:
+                    leader = await self.leader_id()
+                    if leader is not None and leader != rid:
+                        kill["new_leader"], kill["s"] = leader, time.perf_counter() - t_kill
+                        return
+                    await asyncio.sleep(0.05)
+
+            self._watchers.append(asyncio.ensure_future(watch()))
+
+        async def _fresh_stats(self) -> dict:
+            """Each gateway's stats from a heartbeat sent after this call
+            began, as the current leader saw it."""
+            leader = await self.await_leader(10.0)
+            view = await self.router_view(leader)
+            marks = {m["gateway"]: m["heartbeats"] for m in (view or {}).get("members") or []}
+            deadline = time.monotonic() + 10.0
+            while time.monotonic() < deadline:
+                view = await self.router_view(leader)
+                rows = {m["gateway"]: m for m in (view or {}).get("members") or []}
+                if set(rows) >= set(self.gateway_ids) and all(
+                        rows[g]["heartbeats"] >= marks.get(g, 0) + 2 for g in self.gateway_ids):
+                    return {g: rows[g]["stats"] for g in self.gateway_ids}
+                await asyncio.sleep(0.05)
+            raise PhaseFailed(f"storm: no fresh heartbeats at the leader {leader}: {view}")
+
+        async def stop(self) -> None:
+            self.t_stop = time.perf_counter()
+            for w in self._watchers:
+                w.cancel()
+            try:
+                self.final_stats = await self._fresh_stats()
+            except Exception as exc:  # reported by the phase; the stop still runs
+                self.final_stats = {"error": repr(exc)}
+            await super().stop()
+            self.exit_codes = {gid: p.returncode for gid, p in sorted(self._gw_procs.items())}
+
+    return Traced
+
+
+async def storm_run(provider, storm_mod, router_mod, messaging_mod, backend: str) -> dict:
+    """Phase 19: run_router_storm over STORM_ROUTERS router processes and
+    STORM_GATEWAYS gateway processes on ``backend``, the real providers on
+    both sides, a seeded SIGKILL of the initial leader and a rolling restart
+    of the routers; every check raises PhaseFailed, and a finally kills every
+    router and gateway process still alive."""
+    traced = traced_router_fleet(router_mod, backend)
+    engines = []
+
+    class Recorded(messaging_mod.SecureMessaging):
+        def __init__(self, node, *a, **kw):
+            super().__init__(node, *a, **kw)
+            engines.append(self)
+
+    report_dir = Path(tempfile.mkdtemp(prefix="qrp2p-storm-"))
+    saved = router_mod.RouterFleet, messaging_mod.SecureMessaging
+    router_mod.RouterFleet, messaging_mod.SecureMessaging = traced, Recorded
+    # this process's own CUDA context first, so the memory read around the
+    # routers' start is theirs alone
+    device_free_bytes(backend)
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+
+    def logs() -> str:
+        return " | ".join(f"{p.name}: {p.read_text(errors='replace')[-1500:]}"
+                          for p in sorted(report_dir.glob("*.log")))
+
+    out: dict = {}
+    try:
+        print(f"[storm] register_timeout {STORM_REGISTER_TIMEOUT_S:.0f} s, not RouterFleet's "
+              f"60 s: {STORM_GATEWAYS} gateway processes start at once on one card, each "
+              f"importing the port, loading the kernel libraries, gating its facades and "
+              f"warming buckets 1-{STORM_SESSIONS} of three of them (phase 18's took "
+              f"21.8-32.2 s to register, PERF.md §6)")
+        print(f"[storm] the leader kill: FaultPlan process rule kill_router rt0 on chaos tick "
+              f"{STORM_TICK} (x hb_interval 0.25 s = {STORM_TICK * 0.25:.1f} s after the "
+              f"sessions begin: the storm activates the plan just before them, after every "
+              f"gateway has registered and a leader holds the lease; the router roll starts "
+              f"3 s into them)")
+        t0 = time.perf_counter()
+        try:
+            report = await storm_mod.run_router_storm(
+                sessions=STORM_SESSIONS, gateways=STORM_GATEWAYS, routers=STORM_ROUTERS,
+                providers="real", backend=backend, seed=STORM_SEED,
+                arrival_rate=STORM_ARRIVAL_RATE, concurrency=STORM_SESSIONS,
+                prewarm_cap=STORM_SESSIONS,
+                msgs_per_session=STORM_MSGS, spawn="process", roll=True,
+                fault_rules=storm_mod.default_router_kill_rules("rt0", STORM_TICK),
+                report_dir=report_dir)
+        except Exception as exc:
+            raise PhaseFailed(f"storm: run_router_storm raised {exc!r}; logs: {logs()}") from None
+        out["storm_s"] = time.perf_counter() - t0
+        rf = traced.last
+        out["client_launches"] = {name: w.launches for name, w in wrappers.items()}
+        # the report but its nested fleet, SLO and cost views
+        out["report"] = {k: v for k, v in report.items()
+                         if k not in ("router_fleet", "fleet_slo_merged", "client_cost")}
+        out["routers"] = [{k: r[k] for k in ("router", "alive", "killed", "restarts", "lease",
+                                             "routes_ok", "stek_epoch")}
+                          for r in report["router_fleet"]["routers"]]
+        out["spawn_to_ready_s"] = {n: round(rf.ready[n] - rf.spawned[n], 3)
+                                   for n in sorted(rf.ready)}
+        sessions_t0 = rf.t_stop - report["elapsed_s"]
+        out["kills"] = [{"router": k["router"], "was_leader": k["was_leader"],
+                         "new_leader": k["new_leader"],
+                         "to_new_leader_s": k["s"], "after_fleet_up_s": k["t"] - rf.t_up,
+                         "after_sessions_began_s": k["t"] - sessions_t0} for k in rf.kills]
+        free0, free1 = rf.free.get("before_routers"), rf.free.get("routers_up")
+        out["routers_mib"] = (None if free0 is None
+                              else round((free0 - free1) / 2**20, 1))
+        r = out["report"]
+        print(f"[storm] {STORM_ROUTERS} router processes and {STORM_GATEWAYS} gateway processes "
+              f"({backend}, {r['providers']} fused, {AEAD}); seconds from spawn to ready "
+              f"(a router listening, a gateway registered with every router): "
+              f"{out['spawn_to_ready_s']}")
+        print(f"[storm] device memory of both router processes (the card's free memory before "
+              f"their spawn less once they listen): {out['routers_mib']} MiB (limit "
+              f"{STORM_ROUTER_MIB_MAX}; a gateway process took 647.6 MiB in phase 18)")
+        print(f"[storm] {STORM_SESSIONS} sessions, {STORM_MSGS} messages each with a forced "
+              f"drop and reconnect halfway: {r['completed_sessions']} completed, "
+              f"{r['lost_established_sessions']} lost, {r['plaintext_sends']} plaintext; "
+              f"{r['handshakes_per_s']} sessions/s established over {r['elapsed_s']} s; first "
+              f"handshake p50 {r['p50_handshake_s']} s p99 {r['p99_handshake_s']} s; "
+              f"{r['msgs_delivered']} messages delivered")
+        for k in out["kills"]:
+            print(f"[storm] SIGKILL of {k['router']} (the leader: {k['was_leader']}) "
+                  f"{k['after_fleet_up_s']:.2f} s after the fleet was up "
+                  f"({k['after_sessions_began_s']:.2f} s after the sessions began): "
+                  f"{k['new_leader']} led "
+                  + (f"{k['to_new_leader_s']:.3f} s later" if k["to_new_leader_s"] is not None
+                     else "never (not seen before the stop)"))
+        roll = r["roll"] or {}
+        print(f"[storm] router roll: ok {roll.get('ok')}, "
+              + ", ".join(f"{x['router']} back in {x['took_s']} s"
+                          for x in roll.get("restarted") or []))
+        print(f"[storm] reconnects: {r['resumed_reconnects']} resumed by ticket "
+              f"({r['resumed_reconnects'] - r['post_failover_resumed']} before the failover, "
+              f"{r['post_failover_resumed']} after), {r['full_handshake_reconnects']} full "
+              f"({r['post_failover_full']} after); post-failover resume rate "
+              f"{r['post_failover_resume_rate']}; handshake_failures {r['handshake_failures']}, "
+              f"route_busy {r['route_busy']}, router_failovers {r['router_failovers']}, "
+              f"handoffs {r['handoffs']}")
+
+        # the report's hard checks
+        problems = []
+        if r["completed_sessions"] != STORM_SESSIONS or r["lost_established_sessions"] \
+                or r["plaintext_sends"]:
+            problems.append("sessions: completed, lost, plaintext "
+                            f"{r['completed_sessions'], r['lost_established_sessions'], r['plaintext_sends']}")
+        if r["router_kills"] < 1 or r["router_failovers"] < 1 or r["initial_leader"] != "rt0" \
+                or not out["kills"][0]["was_leader"]:
+            problems.append(f"failover: kills {r['router_kills']}, failovers "
+                            f"{r['router_failovers']}, initial leader {r['initial_leader']}, "
+                            f"the kills {out['kills']}")
+        if (r["post_failover_resume_rate"] or 0.0) < STORM_RESUME_RATE_MIN:
+            problems.append(f"post-failover resume rate {r['post_failover_resume_rate']} < "
+                            f"{STORM_RESUME_RATE_MIN}")
+        if r["device_served_fraction"] != 1.0:
+            problems.append(f"device_served_fraction {r['device_served_fraction']}")
+        if not roll.get("ok"):
+            problems.append(f"the router roll: {roll}")
+        if out["routers_mib"] is not None and out["routers_mib"] > STORM_ROUTER_MIB_MAX:
+            problems.append(f"the routers took {out['routers_mib']} MiB of device memory")
+        # the client plane arms no fallback and served none
+        plane = [e for e in engines if e.node.node_id == "proto"]
+        if len(plane) != 1:
+            problems.append(f"client planes: {len(plane)}")
+        for e in plane:
+            queues = [q for f in (e._bkem, e._bsig, e._bfused, e._baead) if f is not None
+                      for q in provider.facade_queues(f)]
+            armed = [q.label for q in queues if q.fallback_fn is not None or q.stats.fallback_ops]
+            if e._baead is None or armed:
+                problems.append(f"the client plane: batched AEAD {e._baead}, queues with a "
+                                f"fallback armed or served {armed}")
+        # every gateway served all on the device, its kernels launched
+        need = HANDSHAKE_KERNELS + ("chacha_blocks",)
+        stats = rf.final_stats or {}
+        if "error" in stats or set(stats) != set(rf.gateway_ids):
+            problems.append(f"gateway stats: {stats}")
+        else:
+            for g, b in sorted(stats.items()):
+                got = (b["device_served_fraction"], b["fallback_ops"], b["fallback_trips"])
+                idle = [n for n in need if not b["kernel_launches"].get(n)]
+                if got != (1.0, 0, 0) or not b["ops"] or idle:
+                    problems.append(f"{g}: served fraction, fallback ops, trips {got}, ops "
+                                    f"{b['ops']}, never launched {idle}")
+        out["gateway_stats"] = {g: {k: b.get(k) for k in (
+            "ops", "msgs_received", "resumes_ok", "tickets_minted", "device_served_fraction",
+            "fallback_ops", "fallback_trips", "breaker_state", "lease_epoch",
+            "stale_authority_rejects", "kernel_launches")} for g, b in stats.items()
+            if isinstance(b, dict)}
+        out["gateway_exit_codes"] = rf.exit_codes
+        for g, b in sorted(out["gateway_stats"].items()):
+            print(f"[storm] {g} after the storm (its last heartbeat at the leader; exit code "
+                  f"{rf.exit_codes.get(g)}): ops {b['ops']}, messages {b['msgs_received']}, "
+                  f"resumes {b['resumes_ok']}, device_served_fraction "
+                  f"{b['device_served_fraction']}, fallback ops {b['fallback_ops']} trips "
+                  f"{b['fallback_trips']}, lease epoch {b['lease_epoch']}, stale authority "
+                  f"rejects {b['stale_authority_rejects']}; launches {b['kernel_launches']}")
+        print(f"[storm] the client plane in this process: launches {out['client_launches']}")
+        alive = sorted(p for p in rf.pids if pid_alive(p))
+        if alive:
+            problems.append(f"processes still alive after stop(): {alive}")
+        print(f"[storm] no router or gateway pid of {sorted(rf.pids)} alive"
+              if not alive else f"[storm] still alive: {alive}")
+        if problems:
+            raise PhaseFailed(f"storm: {problems}; logs: {logs()}")
+        return out
+    finally:
+        router_mod.RouterFleet, messaging_mod.SecureMessaging = saved
+        rf = traced.last
+        for p in sorted(rf.pids if rf is not None else ()):
+            if pid_alive(p):
+                try:
+                    os.kill(p, 9)
+                except OSError:
+                    pass
+        shutil.rmtree(report_dir, ignore_errors=True)
+
+
+def phase_storm(provider, backend: str = "cuda") -> dict:
+    """Phase 19: the port's router storm on the card."""
+    from quantum_resistant_p2p_tpu_torch.app import messaging
+    from quantum_resistant_p2p_tpu_torch.fleet import router, storm
+
+    t0 = time.perf_counter()
+    out = asyncio.run(asyncio.wait_for(storm_run(provider, storm, router, messaging, backend),
+                                       STORM_PROCESS_TIMEOUT_S - 60.0))
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[storm] phase took {out['phase_s']:.1f} s")
+    return out
+
+
+def storm_child() -> int:
+    """Phase 19 in a process of its own (``--storm-phase``, started by
+    phase_storm_process); the routers and gateways are its children, and its
+    result, their launch counts and the client plane's included, is its last
+    line of output."""
+    sys.path.insert(0, str(ROOT))
+    # the router and gateway processes run ``python -m quantum_resistant_p2p_tpu_torch...``
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    from quantum_resistant_p2p_tpu_torch import provider
+
+    try:
+        out = phase_storm(provider)
+    except PhaseFailed as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        return 1
+    print(json.dumps({"storm_phase": out}, default=str))
+    return 0
+
+
+def phase_storm_process() -> dict:
+    """Phase 19 in a fresh process on the same card; it starts the router
+    and gateway processes."""
+    return phase_process("--storm-phase", "storm", STORM_PROCESS_TIMEOUT_S)
 
 
 def main() -> int:
@@ -4151,6 +4571,27 @@ def main() -> int:
               f"{[round(x, 1) for x in lone]} handshakes/s; a resume on the successor p50 "
               f"{fleeted['resume']['p50_ms']} ms max {fleeted['resume']['max_ms']} ms, phase "
               f"16's resume {1e3 * engined['resume_s']:.1f} ms")
+        # phase 19: the gateways' launches, from their stats after the storm
+        # (each process counts from 0), and the client plane's, counted in
+        # the phase's process from 0 just before the storm
+        stormed = phase_storm_process()
+        storm_gateways = {name: sum(b["kernel_launches"][name]
+                                    for b in stormed["gateway_stats"].values())
+                          for name in wrappers}
+        storm_counts = {name: storm_gateways[name] + stormed["client_launches"][name]
+                        for name in wrappers}
+        storm_counts.update({f"{name}[few-row]": 0 for name in SHA2_KERNELS})
+        launches["storm"] = read("storm", HANDSHAKE_KERNELS + ("chacha_blocks",),
+                                 counts=storm_counts)
+        sr = stormed["report"]
+        print(f"[storm] beside phase 18 in this run: {STORM_SESSIONS} storm sessions through "
+              f"{STORM_ROUTERS} routers -> {STORM_GATEWAYS} gateway processes at "
+              f"{sr['handshakes_per_s']} sessions/s, first handshake p50 "
+              f"{sr['p50_handshake_s']} s p99 {sr['p99_handshake_s']} s; phase 18's burst of "
+              f"{FLEET_CLIENTS} -> {FLEET_GATEWAYS} at "
+              f"{fleeted['burst']['handshakes_per_s']:.1f} handshakes/s, p50 "
+              f"{fleeted['burst']['latency_ms']['p50'] / 1e3:.3f} s max "
+              f"{fleeted['burst']['latency_ms']['max'] / 1e3:.3f} s")
     except PhaseFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -4176,6 +4617,8 @@ def main() -> int:
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "fleet_launches": launches["fleet"][name],
+            "storm_launches": storm_gateways[name],
+            "storm_client_launches": stormed["client_launches"][name],
             "library_ms": (None if any(r["library_ms"] is None for r in mine)
                            else sum(r["library_ms"] for r in mine)),
             "shapes": [r["shape"] for r in mine]})
@@ -4193,6 +4636,7 @@ def main() -> int:
                                  "sphincs_serve": slh_served, "sphincs_batch": slh_batch,
                                  "sphincs_memory": slh_memory, "obs_faults": observed,
                                  "transport": carried, "engine": engined, "fleet": fleeted,
+                                 "storm": stormed,
                                  "launches": launches, "launches_per_op": per_op,
                                  "engine_swap_launches": swap_launches,
                                  "profile": profiled}}))
@@ -4209,6 +4653,8 @@ if __name__ == "__main__":
         sys.exit(engine_child())
     if sys.argv[1:] == ["--fleet-phase"]:
         sys.exit(fleet_child())
+    if sys.argv[1:] == ["--storm-phase"]:
+        sys.exit(storm_child())
     # this run's health verdicts go to a fresh cache, so every gate of the
     # earlier phases probes the card (phase 15 checks the cache itself)
     with tempfile.TemporaryDirectory(prefix="qrp2p-health-") as _cache:

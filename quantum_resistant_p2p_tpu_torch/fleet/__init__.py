@@ -1,9 +1,9 @@
 """Gateway-pod fleet: the multi-process serving tier.
 
-Counterpart of the JAX package's ``fleet/`` (the router and the storm
-driver excepted, which are still to port): N gateway PROCESSES, each one
-P2PNode + SecureMessaging engine on the GPU, behind a peer-routing tier,
-with gateway death as the first-class case:
+Counterpart of the JAX package's ``fleet/``: N gateway PROCESSES, each
+one P2PNode + SecureMessaging engine on the GPU, behind a peer-routing
+tier of one router or of replicated router processes, with gateway and
+router death as the first-class cases:
 
 * :mod:`.ring`     — seeded consistent-hash peer→gateway assignment
                      (bounded virtual nodes; adding/removing one gateway
@@ -24,12 +24,23 @@ with gateway death as the first-class case:
                      provider/batched.py ``Breaker`` reused at the second
                      placement level), serves route queries, aggregates
                      cross-process SLO totals into one burn-rate engine.
+* :mod:`.router`   — the router replica worker
+                     (``python -m quantum_resistant_p2p_tpu_torch.fleet.router``:
+                     a manager in attach mode holding or following the
+                     leader lease) and :class:`RouterFleet`, the driver of
+                     N router processes and G gateway processes, their
+                     seeded chaos and their rolling restart; it runs no
+                     crypto and never touches the GPU.
+* :mod:`.storm`    — ``run_fleet_storm`` and ``run_router_storm``: the
+                     seeded chaos storms over a gateway fleet and over a
+                     router fleet.
 * :mod:`.stormlib` — the storm workload environment every gateway
                      subprocess applies (``storm_env()``, the stdlib toy
                      providers, facade pre-warming).
 
-None of these modules holds a kernel: the gateways' engines reach the
-port's kernels through the provider layer.
+None of these modules holds a kernel: the gateways' engines, and a
+storm's client plane, reach the port's kernels through the provider layer.
+:mod:`.router` and :mod:`.storm` are imported lazily, by name.
 """
 
 from .manager import FleetBusy, GatewayFleet, GatewayMember  # noqa: F401

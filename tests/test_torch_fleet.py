@@ -2,9 +2,8 @@
 the JAX package's ``fleet/``, on the CPU.
 
 * Mirrors of ``tests/test_fleet.py`` over the port's modules: 23 of its 25
-  tests.  ``test_fleet_storm_survives_seeded_gateway_kill`` and
-  ``test_roll_storm_sessions_survive_and_resume`` drive ``fleet.storm``,
-  which is not ported yet (ROADMAP item 16b); the report-directory merge is
+  tests; its two storm tests are mirrored in
+  ``tests/test_torch_fleet_storm.py``.  The report-directory merge is
   mirrored on ``obs.slo.merge_reports`` alone (its CLI is item 17b's).  The
   live cases run task-mode fleets of stdlib toy providers over real
   localhost TCP, as the reference's do.

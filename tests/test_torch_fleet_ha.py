@@ -6,10 +6,10 @@ modules: lease failover on injected clocks, the tied claim, sticky
 demotion, stale lease and sync frames fenced with a typed reject, a stale
 leader demoting on the reject reply (live TCP), a ticket minted under a
 dead leader redeeming after failover, and a second hello superseding a
-stale control link.  ``test_router_storm_survives_seeded_leader_kill``
-drives ``fleet.storm``, which is not ported yet (ROADMAP item 16b).  One
-more test holds the gateway's half of the fencing: STEK pushes and drains
-below the lease epoch it honors are dropped.
+stale control link; its eighth, the router storm's leader kill, is
+mirrored in ``tests/test_torch_fleet_storm.py``.  One more test holds the
+gateway's half of the fencing: STEK pushes and drains below the lease epoch
+it honors are dropped.
 
 Everything runs on stdlib toy crypto, fake clocks and task-mode fleets.
 PyTorch runs on one thread; the module imports nothing of the JAX

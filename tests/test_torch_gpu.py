@@ -977,3 +977,50 @@ def test_task_fleet_of_real_gateways_serves_on_the_card(gpu, tmp_path, monkeypat
                  "mlkem_prf_cbd_ntt", "mlkem_ntt", "mlkem_ntt_inv", "mldsa_rej_ntt",
                  "mldsa_rej_bounded", "mldsa_ntt", "mldsa_ntt_inv", "chacha_blocks"):
         assert launched[name] > 0, name
+
+
+def test_task_fleet_storm_with_a_roll_serves_on_the_card(gpu, tmp_path, monkeypatch):
+    """The port's ``run_fleet_storm`` in task mode with the real providers
+    on "cuda" (ML-KEM-768 x ML-DSA-65 fused, ChaCha20-Poly1305 on both
+    sides) and a rolling restart of both gateways: every session completes,
+    none is lost, every op of the gateways and the client plane runs on the
+    device, and no engine arms a fallback.  A restarted task gateway gates
+    and warms its engine beside the serving engines of the same process,
+    whose launches from several threads run several times slower (PERF.md
+    §7 item 9), so the fleet waits up to 300 s for its re-registration, not
+    the manager's 60 s."""
+    from quantum_resistant_p2p_tpu_torch.app import messaging
+    from quantum_resistant_p2p_tpu_torch.fleet import storm
+    from quantum_resistant_p2p_tpu_torch.provider import facade_queues
+
+    monkeypatch.setenv("QRP2P_HEALTH_CACHE", str(tmp_path))
+    engines = []
+
+    class Recorded(messaging.SecureMessaging):
+        def __init__(self, node, *a, **kw):
+            super().__init__(node, *a, **kw)
+            engines.append(self)
+
+    class PatientFleet(storm.GatewayFleet):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, register_timeout=300.0, **kw)
+
+    monkeypatch.setattr(messaging, "SecureMessaging", Recorded)
+    monkeypatch.setattr(storm, "GatewayFleet", PatientFleet)
+    out = asyncio.run(asyncio.wait_for(storm.run_fleet_storm(
+        sessions=4, gateways=2, spawn="task", providers="real", backend="cuda", concurrency=4,
+        msgs_per_session=4, prewarm_cap=4, roll=True, roll_delay_s=1.0, drain_timeout=30.0,
+        msg_interval_s=0.2, session_attempts=8, seed=11), 900))
+    assert out["providers"] == "ML-KEM-768+ML-DSA-65"
+    assert out["completed_sessions"] == 4 and out["lost_established_sessions"] == 0
+    assert out["plaintext_sends"] == 0
+    assert out["roll"] and out["roll"]["ok"], out["roll"]
+    assert out["device_served_fraction"] == 1.0
+    for stats in out["per_gateway"].values():
+        assert stats.get("fallback_ops", 0) == 0 and stats.get("fallback_trips", 0) == 0
+    served = [e for e in engines if e.node.node_id == "proto" or e.node.node_id.startswith("gw")]
+    assert len(served) >= 3  # the client plane and every gateway incarnation
+    for e in served:
+        assert (e.symmetric.name, e.backend) == ("ChaCha20-Poly1305", "cuda")
+        assert all(q.fallback_fn is None for f in (e._bkem, e._bsig, e._bfused, e._baead)
+                   for q in facade_queues(f))

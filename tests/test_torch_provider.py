@@ -297,6 +297,12 @@ def test_port_imports_no_jax():
         "assert gateway.DEFAULTS['backend'] == 'cuda' and control.GW_HELLO\n"
         "stormlib.register_storm_providers()\n"
         "assert get_kem('STORM-KEM', backend='cuda').backend == 'cuda'\n"
+        "import inspect\n"
+        "from quantum_resistant_p2p_tpu_torch.fleet import router, storm\n"
+        "assert router.RouterFleet(2, 1, spawn='task').providers == 'real'\n"
+        "for fn in (storm.run_fleet_storm, storm.run_router_storm):\n"
+        "    ps = inspect.signature(fn).parameters\n"
+        "    assert (ps['providers'].default, ps['backend'].default) == ('real', 'cuda')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'quantum_resistant_p2p_tpu'\n"
         "             or m.startswith('quantum_resistant_p2p_tpu.'))\n"
@@ -324,3 +330,46 @@ def test_gateway_entry_point_refuses_bad_arguments_without_jax():
     bad = [m for m in imported if m == "jax" or m.startswith("jax.")
            or m == "quantum_resistant_p2p_tpu" or m.startswith("quantum_resistant_p2p_tpu.")]
     assert bad == []
+
+
+def test_router_entry_point_refuses_no_argument_without_jax():
+    """``python -m quantum_resistant_p2p_tpu_torch.fleet.router`` with no
+    argument prints its usage and exits 2, having imported neither jax nor
+    any module of the JAX package (the interpreter's import log)."""
+    out = subprocess.run([sys.executable, "-X", "importtime", "-m",
+                          "quantum_resistant_p2p_tpu_torch.fleet.router"],
+                         cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 2, out.stderr[-2000:]
+    assert "usage: python -m quantum_resistant_p2p_tpu_torch.fleet.router" in out.stderr
+    imported = [line.rsplit("|", 1)[1].strip() for line in out.stderr.splitlines()
+                if line.startswith("import time:") and line.count("|") == 2]
+    assert "quantum_resistant_p2p_tpu_torch.fleet.manager" in imported
+    bad = [m for m in imported if m == "jax" or m.startswith("jax.")
+           or m == "quantum_resistant_p2p_tpu" or m.startswith("quantum_resistant_p2p_tpu.")]
+    assert bad == []
+
+
+def test_router_replica_creates_no_cuda_context():
+    """A router replica runs no crypto: importing ``fleet.router`` and
+    running one replica (``run_router`` until it listens, then cancelled)
+    leaves ``torch.cuda.is_initialized()`` false (a fresh interpreter)."""
+    code = (
+        "import asyncio, torch\n"
+        "from quantum_resistant_p2p_tpu_torch.fleet import router\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "async def main():\n"
+        "    up = asyncio.Event()\n"
+        "    cfg = {'router_id': 'rt0', 'rank': 0, 'ctrl_port': router._free_port(),\n"
+        "           'telemetry_port': router._free_port(), 'hb_interval': 0.05}\n"
+        "    task = asyncio.create_task(router.run_router(cfg, ready_cb=lambda f: up.set()))\n"
+        "    await asyncio.wait_for(up.wait(), 60)\n"
+        "    await asyncio.sleep(0.3)\n"
+        "    task.cancel()\n"
+        "    await asyncio.gather(task, return_exceptions=True)\n"
+        "asyncio.run(main())\n"
+        "print('INITIALIZED', torch.cuda.is_initialized())\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "INITIALIZED False" in out.stdout
