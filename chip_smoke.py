@@ -262,7 +262,31 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              handshake's p50 and p99 beside phase 18's burst, when the kill
              landed and the seconds to a new leader, the roll's restarts,
              resumes before and after the failover, full reconnects,
-             handshake_failures, route_busy and the phase's seconds.
+             handshake_failures, route_busy and the phase's seconds;
+20. cli      in a fresh process of its own (``--cli-phase``; the parent
+             reaps its children whatever happens), the port's entry point:
+             CLI A, a ``CLI`` on "cuda" with batching in the phase's
+             process, sealing AES-256-GCM with whatever this machine has
+             (OpenSSL where the ``cryptography`` wheel is installed), and
+             CLI B, a ``python -m quantum_resistant_p2p_tpu_torch --port 0
+             --backend cuda --batch --no-discovery`` process with the wheel
+             hidden (HIDE_WHEEL: the port's own AES-256-GCM and a scrypt
+             vault), driven over stdin, each with a QRP2P_TPU_HOME of its
+             own; A dials B and runs /key, CLI_MESSAGES messages go each way
+             back to back under AES-256-GCM and then, after both run /set
+             aead, under ChaCha20-Poly1305, each arriving in order, with a
+             timed round A -> B -> A under each; A's /logs shows the
+             key_exchange and its /keyhistory B; B quits, restarts on its
+             vault with the same node id and A in its key history, and is
+             refused three wrong passwords (exit 1); both banners name the
+             card and their AES-256-GCM, A's engine has no fallback armed
+             or served, B's vault is scrypt and holds its node id, the
+             port's host AES-256-GCM equals OpenSSL's where the wheel is
+             installed, and no process is left; printed: B's seconds from
+             spawn to banner, the first /key's seconds, each round's
+             seconds, the vaults' unlock seconds, the host AES-256-GCM's
+             seal and open microseconds at 256 B and 4 KiB (OpenSSL's seal
+             beside) and the phase's seconds.
 
 Every kernel wrapper counts its launches. The counts are set to 0 just
 before each of phases 4-16 (11b included) and read just after it: every
@@ -284,7 +308,10 @@ K5, K7 and K8) after it registered.  Phase 19's counts are its
 gateways' (from their stats after the storm; each process counts from 0)
 plus its client plane's (the phase's process, its counts set to 0 just
 before the storm and read just after): every kernel of phase 8 and K8 must
-have run, and each gateway must have launched every one of them.  The last
+have run, and each gateway must have launched every one of them.  Phase
+20's are CLI A's (the phase's process), set to 0 just before its /connect
+and read just after its first /key: K1, K2, K3 (prf_cbd_ntt), K4's inverse
+and K7 must have run.  The last
 three lines of output are the card's name and power limit (nvidia-smi), one JSON object
 with key "kernels", and the result
 line {"ok": true, "device": {...}}.  Without a GPU, or without the package
@@ -296,6 +323,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import hashlib
+import io
 import json
 import re
 import shutil
@@ -542,6 +570,18 @@ STORM_ROUTER_MIB_MAX = 64.0
 STORM_PROCESS_TIMEOUT_S = 600.0
 #: the least post-failover resume rate (the reference storm's acceptance)
 STORM_RESUME_RATE_MIN = 0.9
+#: phase 20, the CLI: messages each way under each AEAD (sent back to back,
+#: their order checked), the kernels of CLI A's first handshake (K1, K2, K3,
+#: K4 and K7: the initiator's ML-KEM-768 keygen and decaps, its ML-DSA-65
+#: sign and the responder's signature verified), the longest wait of one
+#: step, the phase process's limit, and the reps of the host AES-256-GCM
+#: timings a message size
+CLI_MESSAGES = 4
+CLI_AEADS = ("AES-256-GCM", "ChaCha20-Poly1305")
+CLI_KERNELS = ("keccak_sponge", "mlkem_sample_ntt", "mlkem_prf_cbd_ntt", "mlkem_ntt_inv",
+               "mldsa_ntt")
+CLI_WAIT_S, CLI_PROCESS_TIMEOUT_S = 90.0, 300.0
+CLI_AES_REPS = {256: 200, 4096: 40}
 
 
 class PhaseFailed(RuntimeError):
@@ -4285,6 +4325,364 @@ def phase_storm_process() -> dict:
     return phase_process("--storm-phase", "storm", STORM_PROCESS_TIMEOUT_S)
 
 
+def aesgcm_times() -> dict:
+    """The port's host AES-256-GCM (``core.aesgcm``) on this machine's CPU:
+    the key setup's, and each message size's seal and open microseconds (the
+    mean of CLI_AES_REPS calls), each open checked; where the wheel is
+    installed, each seal equals OpenSSL's, whose seal is timed beside."""
+    from quantum_resistant_p2p_tpu_torch.core import aesgcm
+
+    try:
+        from cryptography.hazmat.primitives.ciphers.aead import AESGCM as OpenSSL
+    except ImportError:
+        OpenSSL = None
+    key, nonce, aad = os.urandom(32), os.urandom(12), os.urandom(32)
+    t = time.perf_counter()
+    for _ in range(50):
+        box = aesgcm.AESGCM(key)
+    out = {"key_setup_us": 1e6 * (time.perf_counter() - t) / 50}
+    for n, reps in CLI_AES_REPS.items():
+        pt = os.urandom(n)
+        sealed = box.encrypt(nonce, pt, aad)
+        t = time.perf_counter()
+        for _ in range(reps):
+            sealed = box.encrypt(nonce, pt, aad)
+        seal_us = 1e6 * (time.perf_counter() - t) / reps
+        t = time.perf_counter()
+        for _ in range(reps):
+            opened = box.decrypt(nonce, sealed, aad)
+        open_us = 1e6 * (time.perf_counter() - t) / reps
+        if opened != pt:
+            raise PhaseFailed(f"cli: the host AES-256-GCM does not open its own {n} B seal")
+        out[f"{n}B"] = {"seal_us": seal_us, "open_us": open_us, "openssl_seal_us": None}
+        if OpenSSL is not None:
+            if OpenSSL(key).encrypt(nonce, pt, aad) != sealed:
+                raise PhaseFailed(f"cli: the host AES-256-GCM's {n} B seal is not OpenSSL's")
+            t = time.perf_counter()
+            for _ in range(reps):
+                OpenSSL(key).encrypt(nonce, pt, aad)
+            out[f"{n}B"]["openssl_seal_us"] = 1e6 * (time.perf_counter() - t) / reps
+    return out
+
+
+#: CLI B's ``sitecustomize``: every ``cryptography`` import fails in it, as
+#: on a machine without the wheel, so B seals with the port's own
+#: AES-256-GCM and its vault derives with scrypt whatever this machine has
+HIDE_WHEEL = """import sys
+
+
+class _NoWheel:
+    def find_spec(self, name, path=None, target=None):
+        if name == "cryptography" or name.startswith("cryptography."):
+            raise ImportError("the cryptography wheel is hidden from this process")
+        return None
+
+
+sys.meta_path.insert(0, _NoWheel())
+"""
+
+
+class CliProcess:
+    """``python -m quantum_resistant_p2p_tpu_torch`` (CLI B) driven over
+    stdin: the password first, then commands once its banner is out (getpass
+    reads the password through Python's stdin buffer, which would swallow
+    commands sent with it).  Its output is gathered line by line; it runs in
+    a session of its own (no controlling terminal, so getpass reads stdin),
+    without the ``cryptography`` wheel (``HIDE_WHEEL``, first on its
+    PYTHONPATH), and its pid goes to the file the parent reaps."""
+
+    def __init__(self, home: Path, args: tuple, pid_note, hide_dir: Path):
+        self.home, self.args, self.pid_note = home, args, pid_note
+        self.pythonpath = os.pathsep.join([str(hide_dir), os.environ["PYTHONPATH"]])
+        self.lines: list[str] = []
+        self.proc = None
+
+    async def spawn(self, password_lines: str) -> None:
+        self.home.mkdir(parents=True, exist_ok=True)
+        self.t0 = time.perf_counter()
+        with open(self.home / "stderr.log", "ab") as err:
+            self.proc = await asyncio.create_subprocess_exec(
+                sys.executable, "-m", "quantum_resistant_p2p_tpu_torch", *self.args,
+                stdin=asyncio.subprocess.PIPE, stdout=asyncio.subprocess.PIPE,
+                stderr=err, cwd=str(ROOT),
+                start_new_session=True,
+                env={**os.environ, "QRP2P_TPU_HOME": str(self.home), "PYTHONUNBUFFERED": "1",
+                     "PYTHONPATH": self.pythonpath})
+        self.pid_note(self.proc.pid)
+        self._reader = asyncio.ensure_future(self._read())
+        self.write(password_lines)
+
+    async def _read(self) -> None:
+        while line := await self.proc.stdout.readline():
+            self.lines.append(line.decode(errors="replace").rstrip("\n"))
+
+    def write(self, text: str) -> None:
+        self.proc.stdin.write(text.encode())
+
+    def seen(self, text: str) -> list[str]:
+        return [ln for ln in self.lines if text in ln]
+
+    async def until(self, text: str, what: str, count: int = 1) -> list[str]:
+        t0 = time.perf_counter()
+        while len(self.seen(text)) < count:
+            if time.perf_counter() - t0 > CLI_WAIT_S or self.proc.returncode is not None:
+                raise PhaseFailed(f"cli: no {what} from CLI B ({text!r}); its output "
+                                  f"{self.lines[-12:]}; {self.stderr()}")
+            await asyncio.sleep(0.01)
+        return self.seen(text)
+
+    def stderr(self) -> str:
+        return f"stderr {(self.home / 'stderr.log').read_text(errors='replace')[-1500:]!r}"
+
+    async def wait(self) -> int:
+        try:
+            code = await asyncio.wait_for(self.proc.wait(), CLI_WAIT_S)
+        except asyncio.TimeoutError:
+            raise PhaseFailed("cli: CLI B did not exit") from None
+        await self._reader
+        return code
+
+    def kill(self) -> None:
+        if self.proc is not None and self.proc.returncode is None:
+            self.proc.kill()
+
+
+async def cli_run(torch, backend: str = "cuda") -> dict:
+    """Phase 20 proper: CLI A in this process, sealing with whichever
+    AES-256-GCM this machine has (OpenSSL where the ``cryptography`` wheel
+    is installed), and CLI B a ``python -m`` process without the wheel (the
+    port's own AES-256-GCM, a scrypt vault), each with a data directory
+    (QRP2P_TPU_HOME) of its own.  Both banners name the device ("cpu" in a
+    rehearsal)."""
+    from quantum_resistant_p2p_tpu_torch.cli import CLI
+    from quantum_resistant_p2p_tpu_torch.provider.symmetric import AES256GCM_IMPL
+    from quantum_resistant_p2p_tpu_torch.storage import KeyStorage
+
+    wrappers = kernel_wrappers()
+    card = torch.cuda.get_device_name(0) if backend == "cuda" else "cpu"
+    out = {"aes256gcm": AES256GCM_IMPL, "aesgcm_us": aesgcm_times()}
+    home = Path(tempfile.mkdtemp(prefix="qrp2p-cli-"))
+    (home / "a").mkdir()
+    os.environ["QRP2P_TPU_HOME"] = str(home / "a")
+    pid_file, pids = os.environ.get(FLEET_PID_FILE), []
+
+    def note_pid(pid: int) -> None:
+        pids.append(pid)
+        if pid_file:
+            Path(pid_file).write_text(" ".join(map(str, pids)))
+
+    b_args = ("--port", "0", "--backend", backend, "--batch", "--no-discovery")
+    (home / "nowheel").mkdir()
+    (home / "nowheel" / "sitecustomize.py").write_text(HIDE_WHEEL)
+    b = CliProcess(home / "b", b_args, note_pid, home / "nowheel")
+    procs = [b]
+    a_out = io.StringIO()
+    a = CLI(vault_path=str(home / "a" / "vault.json"), port=0, backend=backend,
+            use_batching=True, enable_discovery=False, out=a_out)
+
+    def a_seen(text: str) -> list[str]:
+        return [ln for ln in a_out.getvalue().splitlines() if text in ln]
+
+    async def a_until(text: str, what: str, count: int = 1) -> None:
+        t0 = time.perf_counter()
+        while len(a_seen(text)) < count:
+            if time.perf_counter() - t0 > CLI_WAIT_S:
+                raise PhaseFailed(f"cli: no {what} at CLI A ({text!r}): "
+                                  f"{a_out.getvalue()[-1500:]}")
+            await asyncio.sleep(0.01)
+
+    def banner_ok(banner: str, who: str, impl: str) -> None:
+        if f"device: {card}, AES-256-GCM: {impl})" not in banner:
+            raise PhaseFailed(f"cli: CLI {who}'s banner does not name {card!r} and the "
+                              f"{impl} AES-256-GCM: {banner!r}")
+
+    try:
+        await b.spawn("b-password\n")
+        # CLI A: a fresh vault (scrypt without the wheel), then unlocked again
+        t = time.perf_counter()
+        if not a.login("a-password"):
+            raise PhaseFailed("cli: CLI A could not create its vault")
+        out["vault_create_s"] = time.perf_counter() - t
+        a.storage.lock()
+        t = time.perf_counter()
+        if not a.login("a-password"):
+            raise PhaseFailed("cli: CLI A could not unlock its vault")
+        out["vault_unlock_s"] = time.perf_counter() - t
+        out["kdf"] = json.loads((home / "a" / "vault.json").read_text())["kdf"]["algo"]
+        await a.start()
+        (a_banner,) = a_seen("listening on :")
+        banner_ok(a_banner, "A", AES256GCM_IMPL)
+        await a.messaging.wait_ready()
+        (b_banner,) = await b.until("listening on :", "banner")
+        out["b_spawn_to_banner_s"] = time.perf_counter() - b.t0  # an upper bound: polled
+        banner_ok(b_banner, "B", "port (host)")
+        out["banners"] = [a_banner, b_banner]
+        b_prefix = b_banner.split()[1].rstrip("…")
+        b_port = int(b_banner.split("listening on :")[1].split()[0])
+
+        # the first handshake: A dials B and runs /key, counted from 0
+        for w in wrappers.values():
+            w.launches = 0
+        t = time.perf_counter()
+        await a.handle(f"/connect 127.0.0.1 {b_port}")
+        peers = a.node.get_peers()
+        if len(peers) != 1 or not peers[0].startswith(b_prefix):
+            raise PhaseFailed(f"cli: A's peers {peers} are not B ({b_prefix}…)")
+        b_id, a_id = peers[0], a.node.node_id
+        t_key = time.perf_counter()
+        await a.handle(f"/key {b_id[:8]}")
+        out["first_key_s"] = time.perf_counter() - t_key
+        out["connect_and_key_s"] = time.perf_counter() - t
+        out["launches"] = launch_counts(wrappers)
+        if not a_seen("shared key established"):
+            raise PhaseFailed(f"cli: /key failed: {a_out.getvalue()[-1500:]}")
+
+        # messages both ways, back to back, under each AEAD; then one round
+        rounds = {}
+        for aead in CLI_AEADS:
+            if aead != CLI_AEADS[0]:
+                await a.handle(f"/set aead {aead}")
+                b.write(f"/set aead {aead}\n")
+                await b.until(f"aead -> {aead}", "AEAD swap")
+                await a.messaging.wait_ready()
+            tag = aead.split("-")[0]
+            for i in range(CLI_MESSAGES):
+                await a.handle(f"/send {b_id[:8]} a2b-{tag}-{i}")
+            got = await b.until(f"] a2b-{tag}-", f"{aead} messages", CLI_MESSAGES)
+            want = [f"[{a_id[:8]}] a2b-{tag}-{i}" for i in range(CLI_MESSAGES)]
+            if got != want:
+                raise PhaseFailed(f"cli: B got {got} under {aead}, not {want}")
+            b.write("".join(f"/send {a_id[:8]} b2a-{tag}-{i}\n" for i in range(CLI_MESSAGES)))
+            await a_until(f"] b2a-{tag}-", f"{aead} messages", CLI_MESSAGES)
+            got = a_seen(f"] b2a-{tag}-")
+            want = [f"[{b_id[:8]}] b2a-{tag}-{i}" for i in range(CLI_MESSAGES)]
+            if got != want:
+                raise PhaseFailed(f"cli: A got {got} under {aead}, not {want}")
+            t = time.perf_counter()
+            await a.handle(f"/send {b_id[:8]} ping-{tag}")
+            await b.until(f"] ping-{tag}", f"{aead} ping")
+            b.write(f"/send {a_id[:8]} pong-{tag}\n")
+            await a_until(f"] pong-{tag}", f"{aead} pong")
+            rounds[aead] = time.perf_counter() - t
+        out["round_s"] = rounds
+        if a.messaging.symmetric.name != CLI_AEADS[-1]:
+            raise PhaseFailed(f"cli: A's AEAD is {a.messaging.symmetric.name}")
+        await a.handle("/logs key_exchange")
+        if not a_seen(" key_exchange "):
+            raise PhaseFailed(f"cli: /logs shows no key_exchange: {a_out.getvalue()[-1500:]}")
+        await a.handle("/keyhistory")
+        if not a_seen(f"peer_shared_key_{b_id}_"):
+            raise PhaseFailed(f"cli: A's key history holds no entry for B")
+        fallback = sorted(q.label for q in engine_queues(a.messaging).values()
+                          if q.fallback_fn is not None or q.stats.fallback_ops)
+        if fallback:
+            raise PhaseFailed(f"cli: fallbacks armed or served in A's engine: {fallback}")
+        b.write("/quit\n")
+        if await b.wait() != 0:
+            raise PhaseFailed(f"cli: CLI B exited {b.proc.returncode} on /quit: {b.stderr()}")
+
+        # B again on the same vault: the same node id, and A in its history
+        b2 = CliProcess(home / "b", b_args, note_pid, home / "nowheel")
+        procs.append(b2)
+        await b2.spawn("b-password\n")
+        (banner2,) = await b2.until("listening on :", "banner on restart")
+        out["b_restart_to_banner_s"] = time.perf_counter() - b2.t0
+        banner_ok(banner2, "B (restarted)", "port (host)")
+        if banner2.split()[1] != b_banner.split()[1]:
+            raise PhaseFailed(f"cli: B restarted as {banner2.split()[1]}, "
+                              f"not {b_banner.split()[1]}")
+        b2.write("/keyhistory\n")
+        await b2.until(f"peer_shared_key_{a_id}_", "key history holding A")
+        b2.write("/quit\n")
+        if await b2.wait() != 0:
+            raise PhaseFailed(f"cli: restarted CLI B exited {b2.proc.returncode}: "
+                              f"{b2.stderr()}")
+
+        # and with a wrong password three times: refused, exit 1
+        b3 = CliProcess(home / "b", b_args, note_pid, home / "nowheel")
+        procs.append(b3)
+        await b3.spawn("wrong-1\nwrong-2\nwrong-3\n")
+        code = await b3.wait()
+        if code != 1 or len(b3.seen("unlock failed")) != 3 or b3.seen("listening"):
+            raise PhaseFailed(f"cli: three wrong passwords gave exit {code}: {b3.lines}")
+        out["wrong_password_exit"] = code
+        # B's vault, made without the wheel: scrypt, and its node id
+        b_vault = home / "b" / "vault.json"
+        out["b_kdf"] = json.loads(b_vault.read_text())["kdf"]["algo"]
+        b_store = KeyStorage(b_vault)
+        t = time.perf_counter()
+        if not b_store.unlock("b-password"):
+            raise PhaseFailed("cli: B's vault does not unlock here")
+        out["b_vault_unlock_s"] = time.perf_counter() - t
+        if out["b_kdf"] != "scrypt" or b_store.retrieve("system_node_id") != b_id:
+            raise PhaseFailed(f"cli: B's vault holds KDF {out['b_kdf']} and node id "
+                              f"{b_store.retrieve('system_node_id')}, not scrypt and {b_id}")
+    finally:
+        await a.stop()
+        for proc in procs:
+            proc.kill()
+        for proc in procs:
+            if proc.proc is not None:
+                await proc.proc.wait()
+                await proc._reader
+        shutil.rmtree(home, ignore_errors=True)
+    left = [pid for pid in pids if pid_alive(pid)]
+    if left:
+        raise PhaseFailed(f"cli: processes left: {left}")
+    out["processes"] = len(pids)
+    return out
+
+
+def phase_cli(torch, backend: str = "cuda") -> dict:
+    """Phase 20: the port's CLI on the card."""
+    t0 = time.perf_counter()
+    out = asyncio.run(asyncio.wait_for(cli_run(torch, backend), CLI_PROCESS_TIMEOUT_S - 30.0))
+    out["phase_s"] = time.perf_counter() - t0
+    card = smi("name,power.limit") if backend == "cuda" else "cpu"
+    us = out["aesgcm_us"]
+    print(f"[cli] {card}: CLI B (python -m, --batch) spawn to banner "
+          f"{out['b_spawn_to_banner_s']:.2f} s, restart {out['b_restart_to_banner_s']:.2f} s; "
+          f"first /key {out['first_key_s']:.3f} s (connect + key "
+          f"{out['connect_and_key_s']:.3f} s); a message round (A -> B -> A) "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in out["round_s"].items()))
+    print(f"[cli] {card}: A's vault ({out['kdf']}) created {out['vault_create_s']:.3f} s, "
+          f"unlocked {out['vault_unlock_s']:.3f} s; B's ({out['b_kdf']}) unlocked "
+          f"{out['b_vault_unlock_s']:.3f} s; A seals with {out['aes256gcm']}, B with the port's "
+          f"host AES-256-GCM: key setup {us['key_setup_us']:.1f} us, "
+          + ", ".join(f"{n} seal {v['seal_us']:.1f} us open {v['open_us']:.1f} us (OpenSSL "
+                      + ("not installed" if v["openssl_seal_us"] is None
+                         else f"seal {v['openssl_seal_us']:.1f} us") + ")"
+                      for n, v in us.items() if n != "key_setup_us"))
+    print(f"[cli] banners: {out['banners']}")
+    print(f"[cli] phase took {out['phase_s']:.1f} s")
+    return out
+
+
+def cli_child() -> int:
+    """Phase 20 in a process of its own (``--cli-phase``, started by
+    phase_cli_process): CLI A's launch counts start at 0 in it, and its
+    result, the counts included, is its last line of output."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    # CLI B runs ``python -m quantum_resistant_p2p_tpu_torch``
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    try:
+        out = phase_cli(torch)
+    except PhaseFailed as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        return 1
+    print(json.dumps({"cli_phase": out}, default=str))
+    return 0
+
+
+def phase_cli_process() -> dict:
+    """Phase 20 in a fresh process on the same card; it starts the CLI B
+    processes."""
+    return phase_process("--cli-phase", "cli", CLI_PROCESS_TIMEOUT_S)
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4592,6 +4990,10 @@ def main() -> int:
               f"{fleeted['burst']['handshakes_per_s']:.1f} handshakes/s, p50 "
               f"{fleeted['burst']['latency_ms']['p50'] / 1e3:.3f} s max "
               f"{fleeted['burst']['latency_ms']['max'] / 1e3:.3f} s")
+        # phase 20: CLI A's launches in its first handshake, counted in the
+        # phase's process from 0 just before /connect and read after /key
+        clied = phase_cli_process()
+        launches["cli"] = read("cli", CLI_KERNELS, counts=clied.pop("launches"))
     except PhaseFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -4619,6 +5021,7 @@ def main() -> int:
             "fleet_launches": launches["fleet"][name],
             "storm_launches": storm_gateways[name],
             "storm_client_launches": stormed["client_launches"][name],
+            "cli_launches": launches["cli"][name],
             "library_ms": (None if any(r["library_ms"] is None for r in mine)
                            else sum(r["library_ms"] for r in mine)),
             "shapes": [r["shape"] for r in mine]})
@@ -4636,7 +5039,7 @@ def main() -> int:
                                  "sphincs_serve": slh_served, "sphincs_batch": slh_batch,
                                  "sphincs_memory": slh_memory, "obs_faults": observed,
                                  "transport": carried, "engine": engined, "fleet": fleeted,
-                                 "storm": stormed,
+                                 "storm": stormed, "cli": clied,
                                  "launches": launches, "launches_per_op": per_op,
                                  "engine_swap_launches": swap_launches,
                                  "profile": profiled}}))
@@ -4655,6 +5058,8 @@ if __name__ == "__main__":
         sys.exit(fleet_child())
     if sys.argv[1:] == ["--storm-phase"]:
         sys.exit(storm_child())
+    if sys.argv[1:] == ["--cli-phase"]:
+        sys.exit(cli_child())
     # this run's health verdicts go to a fresh cache, so every gate of the
     # earlier phases probes the card (phase 15 checks the cache itself)
     with tempfile.TemporaryDirectory(prefix="qrp2p-health-") as _cache:

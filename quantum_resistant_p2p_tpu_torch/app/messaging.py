@@ -2728,9 +2728,13 @@ class SecureMessaging:
     # ------------------------------------------------------------- shutdown
 
     def close(self) -> None:
-        """Stop the telemetry listener and wait for the scheduler's device
-        workers (the port's addition; the engine is unusable after it).
-        The node is its owner's to stop."""
+        """Stop the telemetry listener and wait for the background gate and
+        warm-up and for the scheduler's device workers (the port's addition;
+        the engine is unusable after it): a process that exits while either
+        is inside a kernel or a PyTorch call aborts.  The node is its
+        owner's to stop."""
         self.stop_telemetry()
+        if self._warmup_thread is not None:
+            self._warmup_thread.join()
         if self._scheduler is not None:
             self._scheduler.close()

@@ -299,9 +299,9 @@ class P2PNode:
         jitter_rng: "random.Random | None" = None,
     ):
         if node_id is None:
-            # the reference reads a persistent id from its key store; the
-            # port has no key store yet, so an unnamed node is a fresh one
-            node_id = str(uuid.uuid4())
+            from .identity import load_or_generate_node_id
+
+            node_id = load_or_generate_node_id(key_storage)
         self.node_id = node_id
         self.host = host
         self.port = port

@@ -3,11 +3,13 @@ the host.
 
 Counterpart of the reference's ``provider/symmetric.py``.  Both seal with
 OpenSSL through the ``cryptography`` package where it is installed.  Where
-it is not, ChaCha20-Poly1305 seals with the port's own plain
-``core.chacha.aead_core`` on CPU tensors at batch 1 (the same core the
-batched device path runs, with its plain block function), and AES-256-GCM
-raises.  Neither is a device path: the batched one is
-``provider.aead_device.ChaChaPolyDevice``.
+it is not, each seals with the port's own code: ChaCha20-Poly1305 with the
+plain ``core.chacha.aead_core`` on CPU tensors at batch 1 (the same core the
+batched device path runs, with its plain block function), AES-256-GCM with
+``core.aesgcm`` in host integers (not constant-time, unlike OpenSSL's
+AES-NI).  Neither is a device path: the batched one is
+``provider.aead_device.ChaChaPolyDevice``.  ``aes256gcm`` applies the same
+rule for the key vault and the audit log (``storage/``).
 
 Wire format: a random 12-byte nonce before ``ciphertext || tag``; a failed
 authentication raises ValueError.
@@ -25,29 +27,33 @@ try:
     from cryptography.exceptions import InvalidTag
     from cryptography.hazmat.primitives.ciphers import aead as _aead
 except ImportError:  # a machine without the wheel: see the module docstring
-    class InvalidTag(Exception):  # never raised without the wheel
-        pass
+    from ..core.aesgcm import InvalidTag
 
     _aead = None
 
-from ..core import chacha
+from ..core import aesgcm, chacha
 from .base import SymmetricAlgorithm
+
+#: which AES-256-GCM seals on this machine, for banners and reports
+AES256GCM_IMPL = "OpenSSL" if _aead is not None else "port (host)"
+
+
+def aes256gcm(key: bytes):
+    """An AES-256-GCM under ``key`` with ``cryptography``'s ``AESGCM`` calls:
+    OpenSSL's where the wheel is installed, else ``core.aesgcm``'s."""
+    return (_aead.AESGCM if _aead is not None else aesgcm.AESGCM)(bytes(key))
 
 
 class _AEADBase(SymmetricAlgorithm):
-    _impl = ""  # name of the cryptography AEAD class
+    """Each subclass's ``_cipher(key)`` gives an AEAD with ``cryptography``'s
+    ``encrypt``/``decrypt`` calls."""
+
     key_size = 32
     nonce_size = 12
     tag_size = 16
 
     def generate_key(self) -> bytes:
         return os.urandom(self.key_size)
-
-    @property
-    def _cipher(self):
-        if _aead is None:
-            raise RuntimeError(f"{self.name} needs the 'cryptography' package for host AEAD")
-        return getattr(_aead, self._impl)
 
     def _check(self, key: bytes, nonce: bytes) -> None:
         if len(key) != self.key_size:
@@ -83,11 +89,14 @@ class _AEADBase(SymmetricAlgorithm):
 
 
 class AES256GCM(_AEADBase):
-    _impl = "AESGCM"
     name = "AES-256-GCM"
     display_name = "AES-256-GCM"
     description = "AES in Galois/Counter Mode with 256-bit keys (NIST SP 800-38D)"
     security_level = 5
+
+    @property
+    def _cipher(self):
+        return aes256gcm
 
 
 def _row(b: bytes, width: int) -> torch.Tensor:
@@ -108,11 +117,14 @@ def _plain_core(key: bytes, nonce: bytes, data: bytes, aad: bytes,
 
 
 class ChaCha20Poly1305(_AEADBase):
-    _impl = "ChaCha20Poly1305"
     name = "ChaCha20-Poly1305"
     display_name = "ChaCha20-Poly1305"
     description = "RFC 8439 ChaCha20-Poly1305 AEAD"
     security_level = 5
+
+    @property
+    def _cipher(self):
+        return _aead.ChaCha20Poly1305
 
     def seal(self, key: bytes, nonce: bytes, plaintext: bytes,
              associated_data: bytes | None = None) -> bytes:

@@ -20,6 +20,7 @@ import torch
 from quantum_resistant_p2p_tpu.core import chacha_pallas as jc
 from quantum_resistant_p2p_tpu.provider.symmetric import ChaCha20Poly1305 as RefChaCha
 from quantum_resistant_p2p_tpu.pyref import chacha_ref as ref
+from quantum_resistant_p2p_tpu_torch.core import aesgcm as port_aesgcm
 from quantum_resistant_p2p_tpu_torch.core import chacha as tc
 from quantum_resistant_p2p_tpu_torch.core import chacha_cuda
 from quantum_resistant_p2p_tpu_torch.provider import (BatchedAEAD, ChaChaPolyDevice,
@@ -260,12 +261,27 @@ def test_scalar_chacha_interops_with_the_jax_package(monkeypatch, wheel):
 
 
 def test_aes_gcm_needs_the_wheel(monkeypatch):
+    """AES-256-GCM seals with OpenSSL where the wheel is installed; without
+    it, with the port's own ``core.aesgcm``, and each opens the other's."""
     aes = get_symmetric("AES-256-GCM")
     key = aes.generate_key()
-    assert aes.decrypt(key, aes.encrypt(key, b"x", b"a"), b"a") == b"x"
-    monkeypatch.setattr(port_symmetric, "_aead", None)
-    with pytest.raises(RuntimeError, match="cryptography"):
-        aes.encrypt(key, b"x")
+    with_wheel = aes.encrypt(key, b"x", b"a")
+    assert aes.decrypt(key, with_wheel, b"a") == b"x"
+    assert port_symmetric.AES256GCM_IMPL == "OpenSSL"
+
+    def hide_wheel():  # the module's names as its import without the wheel sets them
+        monkeypatch.setattr(port_symmetric, "_aead", None)
+        monkeypatch.setattr(port_symmetric, "InvalidTag", port_aesgcm.InvalidTag)
+
+    hide_wheel()
+    assert type(port_symmetric.aes256gcm(key)).__module__.endswith("core.aesgcm")
+    assert aes.decrypt(key, with_wheel, b"a") == b"x"
+    without = aes.encrypt(key, b"x")
+    monkeypatch.undo()
+    assert aes.decrypt(key, without) == b"x"
+    hide_wheel()
+    with pytest.raises(ValueError, match="authentication failed"):
+        aes.decrypt(key, with_wheel, b"other ad")
 
 
 def test_registry_aeads():

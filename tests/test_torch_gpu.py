@@ -1024,3 +1024,60 @@ def test_task_fleet_storm_with_a_roll_serves_on_the_card(gpu, tmp_path, monkeypa
         assert (e.symmetric.name, e.backend) == ("ChaCha20-Poly1305", "cuda")
         assert all(q.fallback_fn is None for f in (e._bkem, e._bsig, e._bfused, e._baead)
                    for q in facade_queues(f))
+
+
+def test_two_clis_chat_on_the_card_with_the_default_aead(gpu, tmp_path, monkeypatch):
+    """Two port CLIs on their default backend ("cuda"), unbatched and with
+    the engine's default AEAD, AES-256-GCM (OpenSSL's where the wheel is
+    installed, the port's host AES-256-GCM otherwise): each banner names the
+    card, the handshake runs on the kernels, a message arrives each way, and
+    the audit log and key history hold the exchange."""
+    import io
+
+    from quantum_resistant_p2p_tpu_torch.cli import CLI
+    from quantum_resistant_p2p_tpu_torch.core import keccak_cuda
+    from quantum_resistant_p2p_tpu_torch.provider.symmetric import AES256GCM_IMPL
+    from quantum_resistant_p2p_tpu_torch.sig import mldsa_cuda
+
+    monkeypatch.setenv("QRP2P_TPU_HOME", str(tmp_path / "home"))
+    monkeypatch.setenv("QRP2P_HEALTH_CACHE", str(tmp_path / "health"))
+
+    async def until(out, text):
+        for _ in range(3000):
+            if text in out.getvalue():
+                return
+            await asyncio.sleep(0.01)
+        raise AssertionError(f"no {text!r} in {out.getvalue()[-800:]!r}")
+
+    async def run():
+        outs = [io.StringIO(), io.StringIO()]
+        clis = [CLI(vault_path=str(tmp_path / f"{n}.vault.json"), port=0,
+                    enable_discovery=False, out=o) for n, o in zip("ab", outs)]
+        for i, c in enumerate(clis):
+            assert c.login(f"pw-{i}")
+            await c.start()
+        a, b = clis
+        try:
+            await a.handle(f"/connect 127.0.0.1 {b.node.port}")
+            a_id, b_id = a.node.node_id, b.node.node_id
+            k1, k7 = keccak_cuda.sponge.launches, mldsa_cuda.ntt.launches
+            await a.handle(f"/key {b_id[:8]}")
+            assert "shared key established" in outs[0].getvalue()
+            assert keccak_cuda.sponge.launches > k1 and mldsa_cuda.ntt.launches > k7
+            await a.handle(f"/send {b_id[:8]} to b on the card")
+            await until(outs[1], f"[{a_id[:8]}] to b on the card")
+            await b.handle(f"/send {a_id[:8]} to a on the card")
+            await until(outs[0], f"[{b_id[:8]}] to a on the card")
+            assert a.messaging.symmetric.name == "AES-256-GCM"
+            assert a.secure_logger.get_events(event_type="key_exchange")
+            assert a.storage.list_key_history(b_id) and b.storage.list_key_history(a_id)
+        finally:
+            for c in clis:
+                await c.stop()
+        return outs
+
+    outs = asyncio.run(asyncio.wait_for(run(), 300))
+    name = torch.cuda.get_device_name(0)
+    for out in outs:
+        assert (f"(backend=cuda, batching=False, device: {name}, AES-256-GCM: {AES256GCM_IMPL})"
+                in out.getvalue())

@@ -15,8 +15,10 @@ against the JAX package's ``app/messaging.py``, on the CPU.
   BatchedKEM, against the reference both ways, and two port engines
   hot-swap to it.
 * Mirrors of the reference's engine tests that need no JAX program:
-  ``tests/test_messaging_e2e.py`` (real providers, the reference's
-  ``KeyStorage`` as the vault), the fault and healing cases of
+  ``tests/test_messaging_e2e.py`` (real providers, the port's ``KeyStorage``
+  as the vault and its ``SecureLogger`` as the audit log; one case over the
+  reference's vault, so the engine's use of a vault stays interoperable),
+  the fault and healing cases of
   ``tests/test_faults.py`` and the resumption and drain cases of
   ``tests/test_resumption.py`` (stdlib toy algorithms on the port's
   interfaces, as the reference's own fault tests use, so their timeouts
@@ -397,14 +399,18 @@ def test_hqc_engines_interoperate(initiator, binary):
 
 
 class Stack:
-    """A node stack minus UI: the reference's vault, the port's transport
-    and protocol engine."""
+    """A node stack minus UI: the port's vault (or, with ``vault="reference"``,
+    the reference's), the port's audit log, transport and protocol engine."""
 
-    def __init__(self, name: str, tmp_path, **sm_kwargs):
-        from quantum_resistant_p2p_tpu.storage import KeyStorage
+    def __init__(self, name: str, tmp_path, vault: str = "port", **sm_kwargs):
+        from quantum_resistant_p2p_tpu.storage import KeyStorage as RefKeyStorage
+        from quantum_resistant_p2p_tpu_torch.storage import KeyStorage, SecureLogger
 
-        self.storage = KeyStorage(tmp_path / f"{name}.vault.json")
+        vault_cls = {"port": KeyStorage, "reference": RefKeyStorage}[vault]
+        self.storage = vault_cls(tmp_path / f"{name}.vault.json")
         assert self.storage.unlock("test_password")
+        self.logger = SecureLogger(self.storage.get_or_create_purpose_key("secure_logger"),
+                                   tmp_path / f"{name}.logs")
         self.node = net.P2PNode(name, "127.0.0.1", 0)
         self.messaging = None
         self.inbox: list[tuple[str, Message]] = []
@@ -413,7 +419,8 @@ class Stack:
 
     async def start(self):
         await self.node.start()
-        self.messaging = _port_engine(self.node, key_storage=self.storage, **self._sm_kwargs)
+        self.messaging = _port_engine(self.node, key_storage=self.storage,
+                                      secure_logger=self.logger, **self._sm_kwargs)
         self.messaging.register_message_listener(self._on_msg)
 
     def _on_msg(self, peer_id, message):
@@ -433,9 +440,10 @@ async def _connected_pair(tmp_path, **kw):
     return a, b
 
 
-def test_handshake_and_messaging(tmp_path):
+@pytest.mark.parametrize("vault", ["port", "reference"])
+def test_handshake_and_messaging(tmp_path, vault):
     async def main():
-        a, b = await _connected_pair(tmp_path)
+        a, b = await _connected_pair(tmp_path, vault=vault)
         assert await a.messaging.initiate_key_exchange("bob")
         assert a.messaging.verify_key_exchange_state("bob")
         await _until(lambda: b.messaging.verify_key_exchange_state("alice"), "bob's confirm")
@@ -451,6 +459,11 @@ def test_handshake_and_messaging(tmp_path):
         # shared-key history was persisted on both sides
         assert a.storage.list_key_history("bob")
         assert b.storage.list_key_history("alice")
+        # and the handshakes and messages went to the encrypted audit logs
+        for stack, role in ((a, "initiator"), (b, "responder")):
+            exchanges = stack.logger.get_events(event_type="key_exchange")
+            assert [e["role"] for e in exchanges if e["success"]] == [role]
+        assert a.logger.get_security_metrics()["messages_sent"] == 1
         await a.stop()
         await b.stop()
 

@@ -303,6 +303,21 @@ def test_port_imports_no_jax():
         "for fn in (storm.run_fleet_storm, storm.run_router_storm):\n"
         "    ps = inspect.signature(fn).parameters\n"
         "    assert (ps['providers'].default, ps['backend'].default) == ('real', 'cuda')\n"
+        "import os, tempfile\n"
+        "os.environ['QRP2P_TPU_HOME'] = tempfile.mkdtemp()\n"
+        "from quantum_resistant_p2p_tpu_torch import cli, config, storage, tui\n"
+        "import quantum_resistant_p2p_tpu_torch.__main__\n"
+        "from quantum_resistant_p2p_tpu_torch.core import aesgcm\n"
+        "from quantum_resistant_p2p_tpu_torch.net import discovery, identity\n"
+        "assert config.Config.load().backend == 'cuda'\n"
+        "assert inspect.signature(cli.CLI).parameters['backend'].default == 'cuda'\n"
+        "ks = storage.KeyStorage()\n"
+        "assert ks.unlock('pw')\n"
+        "node_id = identity.load_or_generate_node_id(ks)\n"
+        "assert p2p_node.P2PNode(key_storage=ks).node_id == node_id\n"
+        "box = aesgcm.AESGCM(bytes(32))\n"
+        "assert box.decrypt(bytes(12), box.encrypt(bytes(12), b'x', b'a'), b'a') == b'x'\n"
+        "assert discovery.NodeDiscovery(node_id, 1).get_discovered_nodes() == {}\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'quantum_resistant_p2p_tpu'\n"
         "             or m.startswith('quantum_resistant_p2p_tpu.'))\n"
