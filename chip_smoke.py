@@ -172,7 +172,7 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              nodes on 127.0.0.1, every engine "cuda" with ML-KEM-768 x
              ML-DSA-65 (fused) and ChaCha20-Poly1305 (the device data
              plane): a gateway, a second gateway with the autotuner off,
-             client 0 with queues of its own (autotuner off), and 32
+             client 0 with queues of its own (autotuner off), and 16
              burst client engines sharing one more engine's queues (as the
              reference's swarm bench builds its clients: many engines'
              device threads in one process launch far slower than one),
@@ -183,7 +183,7 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              agreeing; every burst client at once against the tuned and
              the static gateway in turns (every key agrees, one
              encaps_verify_sign op a handshake; flush sizes, handshakes/s
-             and each client's handshake_latency_s printed); 128 secure
+             and each client's handshake_latency_s printed); 64 secure
              messages of 256 B sent at once from client 0, signed, sealed,
              opened and verified through the engines' queues, arriving in
              order (one open op each); a ticket resume on a fresh
@@ -213,8 +213,8 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              of 3 gateway processes (``python -m
              quantum_resistant_p2p_tpu_torch.fleet.gateway``) on "cuda",
              each serving ML-KEM-768 x ML-DSA-65 (fused) and
-             ChaCha20-Poly1305 with its facades pre-warmed to 32 rows,
-             behind the router in the phase's process; 24 client engines
+             ChaCha20-Poly1305 with its facades pre-warmed to 16 rows,
+             behind the router in the phase's process; 12 client engines
              sharing one engine's queues each ask the router for their
              gateway, handshake at once and send two messages, the second
              round sent once the gateways have opened every first one (the
@@ -242,7 +242,7 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              (``python -m quantum_resistant_p2p_tpu_torch.fleet.router``,
              no crypto) and 2 gateway processes on "cuda" serving
              ML-KEM-768 x ML-DSA-65 (fused) and ChaCha20-Poly1305, warmed to
-             32 rows, register_timeout 90 s; 32 sessions arriving over ~2 s
+             16 rows, register_timeout 90 s; 16 sessions arriving over ~2 s
              from a client plane in the phase's process (one engine's queues,
              ChaCha20-Poly1305 as the gateways' AEAD), each routed through
              the router ring, handshaking and sending 4 messages with a
@@ -286,7 +286,34 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              spawn to banner, the first /key's seconds, each round's
              seconds, the vaults' unlock seconds, the host AES-256-GCM's
              seal and open microseconds at 256 B and 4 KiB (OpenSSL's seal
-             beside) and the phase's seconds.
+             beside) and the phase's seconds;
+21. mesh     in a fresh process of its own (``--mesh-phase``), serving
+             across GPUs: entry.dryrun_multichip(torch.cuda.device_count());
+             on a Mesh of cuda:0 listed MESH_COPIES times (the card has one
+             GPU), ML-KEM-768 keygen, encaps and decaps at B = 4097 and
+             ML-DSA-65 keygen, sign (fixed rnd) and verify at B = 1025
+             through provider.base.mesh_dispatch, bitwise equal to the
+             unsplit call on the same host rows (one flipped signature byte
+             refused), and every record of acvp_mlkem768_fixture.json
+             through the split, byte-exact; get_kem / get_signature with
+             devices= the GPU count (a mesh of that many GPUs), then the test
+             mesh set on them, equal to unsplit providers under the same
+             pinned os.urandom; where the machine has 2 GPUs or more, the
+             split across them equal to one GPU's and the flagship's
+             encaps/s at 1..N GPUs (else a line saying it did not run); two
+             port engines on 127.0.0.1 with mesh_devices = shard_devices =
+             the GPU count, batching on, ML-KEM-768 x ML-DSA-65 (fused) and
+             ChaCha20-Poly1305: a handshake whose keys agree and
+             MESH_MESSAGES messages each way in order, both providers split
+             over the GPU count, every shard on a GPU, no fallback armed or
+             served, every breaker closed; printed: single-key encaps and
+             verify at B = 1, unmeshed (operand cache) and with devices=
+             the GPU count (no operand cache), the flagship encaps at
+             B = 4096 from host rows to host rows, unsplit and split
+             MESH_COPIES ways under each launch strategy (one thread
+             enqueueing every share, kept in mesh_dispatch; a thread a
+             device), ms a batch by CUDA events and the host clock, and the
+             phase's seconds.
 
 Every kernel wrapper counts its launches. The counts are set to 0 just
 before each of phases 4-16 (11b included) and read just after it: every
@@ -311,7 +338,11 @@ before the storm and read just after): every kernel of phase 8 and K8 must
 have run, and each gateway must have launched every one of them.  Phase
 20's are CLI A's (the phase's process), set to 0 just before its /connect
 and read just after its first /key: K1, K2, K3 (prf_cbd_ntt), K4's inverse
-and K7 must have run.  The last
+and K7 must have run.  Phase 21's are its process's, in two windows each
+counted from 0: the split (dryrun_multichip, the split checks and the
+split providers; the unsplit calls and providers they are held to run
+before it), where
+K1-K7 must have run, and the meshed engines, where K8 must have.  The last
 three lines of output are the card's name and power limit (nvidia-smi), one JSON object
 with key "kernels", and the result
 line {"ok": true, "device": {...}}.  Without a GPU, or without the package
@@ -499,13 +530,13 @@ TRANSPORT_COOLOFF_S, TRANSPORT_WAIT_S = 0.2, 60.0
 SCHED_RATE_ARMS, SCHED_RATE_ROUNDS = ("plain", "scheduled", "tuned"), 5
 #: the engine phase: the burst clients (SecureMessaging engines sharing one
 #: engine's queues; client 0, with queues of its own, comes on top), the
-#: secure messages client 0 sends after its handshake and their size (128:
-#: at 1024 the gateway's one-at-a-time opens took 294 s, PERF.md §7 item 8),
-#: the messages after the FrodoKEM hot swap, the handshake bursts' gateway
+#: secure messages client 0 sends after its handshake and their size (64:
+#: the gateway opens them one at a time, 2.3-3.4 a second, PERF.md §7 item
+#: 8), the messages after each hot swap, the handshake bursts' gateway
 #: (tuned: autotune=True, static: autotune=False) in turn, the trips a lone
 #: handshake may take, the longest wait of the phase's checks, and the wait for the
 #: secure messages (the gateway opens and verifies them one at a time)
-ENGINE_CLIENTS, ENGINE_MESSAGES, ENGINE_MESSAGE_BYTES = 32, 128, 256
+ENGINE_CLIENTS, ENGINE_MESSAGES, ENGINE_MESSAGE_BYTES = 16, 64, 256
 #: phase "hqc": the published sets run at HQC_BATCH (nothing cut), the set
 #: the serve and the gate run, the vector files and the PQCgenKAT fixture
 HQC_BATCH, HQC_BATCHES, HQC_SERVE = 1024, ("HQC-128", "HQC-256"), "HQC-128"
@@ -514,7 +545,7 @@ HQC_VECTORS, HQC_RSP = ("128", "192", "256"), "PQCgenKAT_hqc128_fixture.rsp"
 HQC_DECODE_ROWS = 64
 #: the phase 16 hot swaps, in order: FrodoKEM (the unfused path on K9-K11),
 #: then HQC (the unfused path on K1 and PyTorch)
-ENGINE_SWAP_MESSAGES, ENGINE_SWAP_KEMS = 16, (FRODO_SHAKE, HQC_SERVE)
+ENGINE_SWAP_MESSAGES, ENGINE_SWAP_KEMS = 4, (FRODO_SHAKE, HQC_SERVE)
 #: phase 16's count of the K1 launches inside HQC's own SHAKE256 calls
 HQC_OWN_K1 = "keccak_sponge[HQC's own]"
 ENGINE_BURSTS = ("tuned", "static", "static", "tuned")
@@ -529,7 +560,7 @@ ENGINE_THREADS, ENGINE_THREAD_SIGNS = (1, 4, 8), 4
 #: count rounded up to a power of two), the margin over hb_miss_limit x
 #: hb_interval within which the killed gateway's breaker must open, the
 #: longest wait of the phase's checks, and the phase process's limit
-FLEET_GATEWAYS, FLEET_CLIENTS, FLEET_SEED = 3, 24, 18
+FLEET_GATEWAYS, FLEET_CLIENTS, FLEET_SEED = 3, 12, 18
 FLEET_PREWARM = 1 << (FLEET_CLIENTS - 1).bit_length()
 FLEET_OPEN_MARGIN_S, FLEET_WAIT_S, FLEET_PROCESS_TIMEOUT_S = 1.0, 120.0, 600.0
 #: how long the fleet waits for its gateways' hello: the manager's 60 s
@@ -551,15 +582,15 @@ FLEET_PID_FILE = "QRP2P_FLEET_PID_FILE"
 #: before the sessions begin: tick 4 lands 1 s into them, mid-handshake,
 #: before the router roll starts 3 s in (a kill landing in the roll hits
 #: the replica the roll is respawning)
-STORM_ROUTERS, STORM_GATEWAYS, STORM_SESSIONS, STORM_MSGS, STORM_SEED = 2, 2, 32, 4, 19
+STORM_ROUTERS, STORM_GATEWAYS, STORM_SESSIONS, STORM_MSGS, STORM_SEED = 2, 2, 16, 4, 19
 STORM_TICK = 4
-#: sessions arrive at this rate (the 32 over ~1.9 s), so about a third of
-#: them ask for their first route after the kill: 25 of the 32 peer ids
+#: sessions arrive at this rate (the 16 over ~1.9 s), so about half of
+#: them ask for their first route after the kill: 12 of the 16 peer ids
 #: have rt0 first on the seed's router ring, and a client walking past the
 #: dead replica is the failover the phase checks (with every session
 #: starting at once, only reconnects that fall in a router's downtime walk
 #: past one: 2 in a run on the H100, PERF.md §6)
-STORM_ARRIVAL_RATE = 16.0
+STORM_ARRIVAL_RATE = 8.0
 #: the router fleet's register_timeout, for the reason of
 #: FLEET_REGISTER_TIMEOUT_S (RouterFleet's default is also 60 s)
 STORM_REGISTER_TIMEOUT_S = FLEET_REGISTER_TIMEOUT_S
@@ -582,6 +613,14 @@ CLI_KERNELS = ("keccak_sponge", "mlkem_sample_ntt", "mlkem_prf_cbd_ntt", "mlkem_
                "mldsa_ntt")
 CLI_WAIT_S, CLI_PROCESS_TIMEOUT_S = 90.0, 300.0
 CLI_AES_REPS = {256: 200, 4096: 40}
+#: phase 21, the mesh: copies of the one GPU the split runs over (the
+#: card has one GPU), the batches held to the unsplit call (not divisible by
+#: the copies), the timed turns of each flagship arm and single-key op, the
+#: messages each way between the meshed engines, the longest wait of one
+#: step, and the phase process's limit
+MESH_COPIES, MESH_KEM_BATCH, MESH_SIG_BATCH = 4, 4097, 1025
+MESH_TIMED_REPS, MESH_MESSAGES = 10, 4
+MESH_WAIT_S, MESH_PROCESS_TIMEOUT_S = 120.0, 400.0
 
 
 class PhaseFailed(RuntimeError):
@@ -4683,6 +4722,410 @@ def phase_cli_process() -> dict:
     return phase_process("--cli-phase", "cli", CLI_PROCESS_TIMEOUT_S)
 
 
+def unsplit_call(torch, fn, device, *arrays) -> tuple:
+    """``fn`` over the whole batch in one call on ``device``: the host rows
+    copied up, the outputs copied back (host numpy)."""
+    out = fn(*(torch.tensor(np_rows, device=device) for np_rows in arrays))
+    return tuple(o.to("cpu").numpy() for o in (out if isinstance(out, tuple) else (out,)))
+
+
+def split_threaded(pool, fn, mesh, *arrays):
+    """``mesh_dispatch`` with a host thread a device: each of ``pool``'s
+    threads launches its device's share and reads it back.  The launch
+    strategy phase 21 measures against the one kept (one thread enqueues
+    every share in turn, then reads them back); it runs nowhere else."""
+    from quantum_resistant_p2p_tpu_torch.provider import base as pm
+    from quantum_resistant_p2p_tpu_torch.utils.wipe import wipe
+
+    n = len(arrays[0])
+    split = pm.shard_batch(mesh, *arrays)
+    shares = list(zip(*split)) if len(arrays) > 1 else [(s,) for s in split]
+    outs = [None] * len(shares)
+
+    def one(i):
+        outs[i] = pm.run_share(fn, mesh.devices[i], shares[i])
+        return pm.fetch_share(outs[i])
+
+    parts = list(pool.map(one, range(len(shares))))
+    host = pm.join_shares(parts, n)
+    wipe(*(t for share in shares for t in share), *(t for o in outs for t in o))
+    return host if len(host) > 1 else host[0]
+
+
+def same(a, b) -> bool:
+    """Host outputs (an array or a tuple of them) equal byte for byte."""
+    import numpy as np
+
+    a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
+    return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def mesh_acvp(torch, split, mlkem) -> int:
+    """Every record of tests/vectors/acvp_mlkem768_fixture.json through the
+    split, byte-exact; -> the records run."""
+    import numpy as np
+
+    data = json.loads((ROOT / "tests" / "vectors" / "acvp_mlkem768_fixture.json").read_text())
+    kg, enc, dec = mlkem.get(data["algorithm"])
+
+    def rows(*hexes):
+        return [np.frombuffer(bytes.fromhex(h), np.uint8)[None] for h in hexes]
+
+    done = 0
+    for group in data["testGroups"]:
+        for case in group["tests"]:
+            fn = group["function"]
+            if fn == "keyGen":
+                got, want = split(kg, *rows(case["d"], case["z"])), (case["ek"], case["dk"])
+            elif fn == "encapsulation":
+                got, want = split(enc, *rows(case["ek"], case["m"])), (case["k"], case["c"])
+            elif fn == "decapsulation":
+                got, want = (split(dec, *rows(case["dk"], case["c"])),), (case["k"],)
+            else:
+                raise PhaseFailed(f"mesh: unknown ACVP function {fn!r}")
+            if [bytes(g[0]).hex() for g in got] != [w.lower() for w in want]:
+                raise PhaseFailed(f"mesh: ACVP {fn} tcId {case['tcId']} differs through the split")
+            done += 1
+    return done
+
+
+def pinned_urandom(seed: int):
+    """A stand-in for ``os.urandom`` that draws from a fixed seed."""
+    rng = random.Random(seed)
+    return lambda n: rng.randbytes(n)
+
+
+async def mesh_engines(provider, app, p2p, backend: str, n_gpu: int) -> dict:
+    """Two port engines on 127.0.0.1 with mesh_devices = shard_devices =
+    the GPU count, batching on, ML-KEM-768 x ML-DSA-65 (fused) and
+    ChaCha20-Poly1305: a handshake whose keys agree, MESH_MESSAGES messages
+    each way in order, every provider split over the GPU count, every shard
+    on a GPU, no fallback armed or served, every breaker closed."""
+    nodes, engines, boxes = [], [], []
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        for name in ("mesh-a", "mesh-b"):
+            node = p2p.P2PNode(name, "127.0.0.1", 0)
+            await node.start()
+            nodes.append(node)
+            engine = app.SecureMessaging(node, backend=backend, use_batching=True,
+                                         symmetric=provider.get_symmetric(AEAD),
+                                         mesh_devices=n_gpu, shard_devices=n_gpu)
+            engines.append(engine)
+            await asyncio.wait_for(engine.wait_ready(), MESH_WAIT_S)
+            box = []
+            engine.register_message_listener(
+                lambda peer, m, box=box: None if m.is_system else box.append(m.content))
+            boxes.append(box)
+        a, b = engines
+        out["ready_s"] = time.perf_counter() - t0
+        meshes = {e.node_id: [getattr(e.kem._mesh, "size", None),
+                              getattr(e.signature._mesh, "size", None)] for e in engines}
+        shards = {e.node_id: [s["device"] for s in e._scheduler.stats()["shards"]]
+                  for e in engines}
+        out.update({"mesh_sizes": meshes, "shard_devices": shards})
+        want = n_gpu if backend == "cuda" else None
+        if any(sizes != [want, want] for sizes in meshes.values()):
+            raise PhaseFailed(f"mesh: the engines' providers are split over {meshes}, "
+                              f"not {want} GPU(s)")
+        if backend == "cuda" and any(len(devs) != n_gpu or not all(
+                str(d).startswith("cuda") for d in devs) for devs in shards.values()):
+            raise PhaseFailed(f"mesh: the engines' shards sit on {shards}")
+        t0 = time.perf_counter()
+        if await nodes[0].connect_to_peer("127.0.0.1", nodes[1].port, timeout=5.0) != "mesh-b":
+            raise PhaseFailed("mesh: engine A could not reach engine B")
+        if not await asyncio.wait_for(a.initiate_key_exchange("mesh-b"), MESH_WAIT_S):
+            raise PhaseFailed("mesh: the handshake failed")
+        await engine_until(lambda: b.verify_key_exchange_state("mesh-a"), "B's confirm",
+                           MESH_WAIT_S, phase="mesh")
+        if a.shared_keys["mesh-b"] != b.shared_keys["mesh-a"]:
+            raise PhaseFailed("mesh: the engines' keys differ")
+        out["handshake_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sent = {"a": [b"a->b %d" % i for i in range(MESH_MESSAGES)],
+                "b": [b"b->a %d" % i for i in range(MESH_MESSAGES)]}
+        for src, peer, key in ((a, "mesh-b", "a"), (b, "mesh-a", "b")):
+            for m in sent[key]:
+                if await src.send_message(peer, m) is None:
+                    raise PhaseFailed(f"mesh: {src.node_id} could not send {m!r}")
+        await engine_until(lambda: len(boxes[1]) >= MESH_MESSAGES and
+                           len(boxes[0]) >= MESH_MESSAGES, "the messages",
+                           MESH_WAIT_S, phase="mesh")
+        if boxes[1] != sent["a"] or boxes[0] != sent["b"]:
+            raise PhaseFailed(f"mesh: messages out of order or lost: {boxes}")
+        out["messages_s"] = time.perf_counter() - t0
+        served = {}
+        for e in engines:
+            m = e.metrics()
+            armed = [label for label, q in engine_queues(e).items() if q.fallback_fn is not None]
+            served[e.node_id] = {"fallback_trips": m["fallback_trips"],
+                                 "device_served_fraction": m["device_served_fraction"],
+                                 "breakers": [s["breaker_state"]
+                                              for s in e._scheduler.stats()["shards"]],
+                                 "armed": armed}
+            if armed or m["fallback_trips"] or m["device_served_fraction"] != 1.0 or any(
+                    s != "closed" for s in served[e.node_id]["breakers"]):
+                raise PhaseFailed(f"mesh: engine {e.node_id}: {served[e.node_id]}")
+        out["served"] = served
+        return out
+    finally:
+        for n in nodes:
+            await n.stop()
+        for e in engines:
+            e.close()
+
+
+def phase_mesh(torch, np, backend: str = "cuda") -> dict:
+    """Phase 21: the split across GPUs, through parallel/, the providers'
+    devices= and the engine (see the module docstring)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from quantum_resistant_p2p_tpu_torch import app, entry, parallel, provider
+    from quantum_resistant_p2p_tpu_torch.kem import mlkem
+    from quantum_resistant_p2p_tpu_torch.net import p2p_node
+    from quantum_resistant_p2p_tpu_torch.provider import base
+    from quantum_resistant_p2p_tpu_torch.sig import mldsa
+
+    t_phase = time.perf_counter()
+    on_card = backend == "cuda"
+    n_gpu = torch.cuda.device_count() if on_card else 0
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    mesh = parallel.Mesh([dev] * MESH_COPIES)
+    card = smi("name,power.limit") if on_card else "cpu"
+    wrappers = kernel_wrappers()
+    out = {"gpus": n_gpu, "copies": MESH_COPIES}
+
+    def split(fn, *arrays):
+        return base.mesh_dispatch(fn, mesh, *arrays)
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+        for name in SHA2_KERNELS:
+            wrappers[name].split_launches = 0
+
+    # the host inputs, and the unsplit calls and providers they are held
+    # to, run before the split's launches are counted
+    rng = np.random.default_rng(21)
+    kg, enc, dec = mlkem.get("ML-KEM-768")
+    dkg, dsign, dverify = mldsa.get("ML-DSA-65")
+    kb, sb = MESH_KEM_BATCH, MESH_SIG_BATCH
+    d, z, m = (rng.integers(0, 256, (kb, 32), dtype=np.uint8) for _ in range(3))
+    ek, dk = unsplit_call(torch, kg, dev, d, z)
+    key, ct = unsplit_call(torch, enc, dev, ek, m)
+    xi, rnd = (rng.integers(0, 256, (sb, 32), dtype=np.uint8) for _ in range(2))
+    mu = rng.integers(0, 256, (sb, 64), dtype=np.uint8)
+    pk, sk = unsplit_call(torch, dkg, dev, xi)
+    sig, done = unsplit_call(torch, dsign, dev, sk, mu, rnd)
+    bad = sig.copy()
+    bad[0, 7] ^= 0x20
+    oks = unsplit_call(torch, dverify, dev, pk, mu, bad)[0]
+    if not done.all() or oks[0] or not oks[1:].all():
+        raise PhaseFailed(f"mesh: the unsplit ML-DSA-65 path: done {int(done.sum())}/{sb}, "
+                          f"verify {int(oks.sum())}/{sb} with row 0 flipped")
+    msgs = [b"mesh %d" % i for i in range(sb)]
+
+    def provider_run(kem_p, dsa_p):
+        """The providers' batch ops under a pinned os.urandom: -> their
+        keys, secret keys, ciphertexts, secrets, decaps and signatures."""
+        urandom, os.urandom = os.urandom, pinned_urandom(21)
+        try:
+            eks, dks = kem_p.generate_keypair_batch(kb)
+            cts, keys = kem_p.encapsulate_batch(eks)
+            sigs = dsa_p.sign_batch(sk, msgs, rnd=[bytes(r) for r in rnd])
+            return (eks, dks, cts, keys, kem_p.decapsulate_batch(dks, cts),
+                    np.stack([np.frombuffer(s, np.uint8) for s in sigs]))
+        finally:
+            os.urandom = urandom
+
+    whole = provider_run(provider.get_kem("ML-KEM-768", backend),
+                         provider.get_signature("ML-DSA-65", backend))
+
+    reset()
+    t0 = time.perf_counter()
+    if on_card:
+        out["dryrun"] = entry.dryrun_multichip(n_gpu)
+    else:  # the CPU rehearsal: the same checks on a mesh of CPU copies
+        kem_p, sig_p = (provider.get_kem("ML-KEM-768", backend),
+                        provider.get_signature("ML-DSA-44", backend))
+        kem_p._mesh = sig_p._mesh = mesh
+        out["dryrun"] = entry.run_multichip(mesh, kem_p, sig_p)
+    out["dryrun_s"] = time.perf_counter() - t0
+    print(f"[mesh] dryrun_multichip({n_gpu}): {out['dryrun']} in {out['dryrun_s']:.2f} s")
+
+    t0 = time.perf_counter()
+    checks = {"ML-KEM-768 keygen": same(split(kg, d, z), (ek, dk)),
+              "ML-KEM-768 encaps": same(split(enc, ek, m), (key, ct)),
+              "ML-KEM-768 decaps": same(split(dec, dk, ct), key),
+              "ML-DSA-65 keygen": same(split(dkg, xi), (pk, sk)),
+              "ML-DSA-65 sign": same(split(dsign, sk, mu, rnd), (sig, done)),
+              "ML-DSA-65 verify": same(split(dverify, pk, mu, bad), oks)}
+    out["acvp_records"] = mesh_acvp(torch, split, mlkem)
+
+    # the providers, split over the test mesh, against unsplit ones under
+    # the same host randomness
+    devices = n_gpu if on_card else 0
+    kem_split = provider.get_kem("ML-KEM-768", backend, devices=devices)
+    dsa_split = provider.get_signature("ML-DSA-65", backend, devices=devices)
+    if on_card and (kem_split._mesh.size, dsa_split._mesh.size) != (n_gpu, n_gpu):
+        raise PhaseFailed(f"mesh: get_kem / get_signature(devices={n_gpu}) made meshes of "
+                          f"{kem_split._mesh.size} / {dsa_split._mesh.size} GPUs")
+    kem_split._mesh = dsa_split._mesh = mesh
+    split_out = provider_run(kem_split, dsa_split)
+    checks["providers: bytes of the unsplit providers"] = all(
+        np.array_equal(x, y) for x, y in zip(split_out, whole))
+    checks["providers: decaps agrees"] = np.array_equal(split_out[3], split_out[4])
+    flipped = [bytes(s) for s in split_out[5]]
+    flipped[1] = flipped[1][:9] + bytes([flipped[1][9] ^ 1]) + flipped[1][10:]
+    verified = dsa_split.verify_batch(pk, msgs, flipped)
+    checks["providers: verify, one flipped byte refused"] = (
+        not verified[1] and bool(verified[:1].all()) and bool(verified[2:].all()))
+    split_counts = launch_counts(wrappers)
+    out["split_s"] = time.perf_counter() - t0
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise PhaseFailed(f"mesh: the split on {MESH_COPIES} copies of {dev} differs from the "
+                          f"unsplit call: {failed}")
+    out["checks"] = sorted(checks)
+    print(f"[mesh] {card}: on {MESH_COPIES} copies of {dev}, bitwise equal to the unsplit "
+          f"call: ML-KEM-768 keygen / encaps / decaps at B = {kb}, ML-DSA-65 keygen / sign "
+          f"(fixed rnd) / verify at B = {sb} (one flipped byte refused), "
+          f"{out['acvp_records']} ACVP ML-KEM-768 records byte-exact, the providers with the "
+          f"test mesh equal to unsplit ones; {out['split_s']:.2f} s")
+
+    if n_gpu >= 2:
+        full = parallel.make_mesh(n_gpu)
+        if not same(base.mesh_dispatch(enc, full, ek, m), (key, ct)):
+            raise PhaseFailed(f"mesh: the split across {n_gpu} GPUs differs from one GPU's")
+        fn, args = entry.entry()
+        feks, fms = (a.cpu().numpy() for a in args)
+        rates = {}
+        for k in range(1, n_gpu + 1):
+            sub = parallel.make_mesh(k)
+            base.mesh_dispatch(enc, sub, feks, fms)
+            t1 = time.perf_counter()
+            for _ in range(MESH_TIMED_REPS):
+                base.mesh_dispatch(enc, sub, feks, fms)
+            rates[k] = MESH_TIMED_REPS * len(feks) / (time.perf_counter() - t1)
+        out["distinct_gpus"] = {"encaps_per_s": rates}
+        print(f"[mesh] flagship encaps at B = {len(feks)} split across 1..{n_gpu} GPUs: "
+              + ", ".join(f"{k}: {r:.1f}/s" for k, r in rates.items()))
+    else:
+        out["distinct_gpus"] = None
+        print(f"[mesh] the split across distinct GPUs did not run: this machine has {n_gpu} "
+              "GPU(s) (torch.cuda.device_count()); it needs 2 or more")
+
+    reset()
+    out["engines"] = asyncio.run(mesh_engines(provider, app, p2p_node, backend, n_gpu))
+    engine_counts = launch_counts(wrappers)
+    e = out["engines"]
+    print(f"[mesh] two engines (mesh_devices = shard_devices = {n_gpu}): ready in "
+          f"{e['ready_s']:.2f} s, handshake {e['handshake_s']:.3f} s, {MESH_MESSAGES} messages "
+          f"each way in order in {e['messages_s']:.3f} s; providers split over "
+          f"{e['mesh_sizes']}, shards on {e['shard_devices']}, served {e['served']}")
+
+    # what the engine's mesh costs its single-key ops: B = 1 encaps against
+    # one peer key and B = 1 verify under one peer key, unmeshed (from the
+    # operand cache) and through providers with devices= the GPU count (a
+    # mesh keeps no operand cache), in alternating turns (after the counted
+    # windows)
+    one_mesh = parallel.make_mesh(n_gpu) if on_card else parallel.Mesh([dev])
+    kem_1, dsa_1 = (provider.get_kem("ML-KEM-768", backend),
+                    provider.get_signature("ML-DSA-65", backend))
+    kem_m, dsa_m = (provider.get_kem("ML-KEM-768", backend),
+                    provider.get_signature("ML-DSA-65", backend))
+    kem_m._mesh = dsa_m._mesh = one_mesh
+    msg1, sig1 = [msgs[0]], [bytes(split_out[5][0])]
+    single = {"unmeshed": (lambda: kem_1.encapsulate_batch(ek[:1]),
+                           lambda: dsa_1.verify_batch(pk[:1], msg1, sig1)),
+              "meshed": (lambda: kem_m.encapsulate_batch(ek[:1]),
+                         lambda: dsa_m.verify_batch(pk[:1], msg1, sig1))}
+    single_ms = {name: {"encaps_ms": [], "verify_ms": []} for name in single}
+    for name, (enc1, ver1) in single.items():
+        if not (enc1()[0].shape == (1, len(ct[0])) and ver1().all()):
+            raise PhaseFailed(f"mesh: the single-key ops, {name}, fail")
+    for r in range(MESH_TIMED_REPS):
+        for name in (("unmeshed", "meshed") if r % 2 == 0 else ("meshed", "unmeshed")):
+            for key_ms, op in zip(("encaps_ms", "verify_ms"), single[name]):
+                t1 = time.perf_counter()
+                op()
+                single_ms[name][key_ms].append(1e3 * (time.perf_counter() - t1))
+    out["single_key_ms"] = {name: {k: statistics.median(v) for k, v in t.items()}
+                            for name, t in single_ms.items()}
+    print(f"[mesh] {card}: single-key ops at B = 1 on {one_mesh} (devices = {n_gpu}) against "
+          f"unmeshed (operand cache), median of {MESH_TIMED_REPS} ms by the host clock: "
+          + "; ".join(f"{name} encaps {t['encaps_ms']:.4f}, verify {t['verify_ms']:.4f}"
+                      for name, t in out["single_key_ms"].items()))
+
+    # the flagship encaps at B = 4096: unsplit, and split 4 ways on one
+    # device under each launch strategy, in rotating turns (after the
+    # counted windows)
+    fn, args = entry.entry(dev)
+    feks, fms = (a.cpu().numpy() for a in args)
+    fkey, fct = unsplit_call(torch, enc, dev, feks, fms)
+    pool = ThreadPoolExecutor(MESH_COPIES)
+    arms = {"unsplit": lambda: unsplit_call(torch, enc, dev, feks, fms),
+            "split, one thread": lambda: base.mesh_dispatch(enc, mesh, feks, fms),
+            "split, a thread a device": lambda: split_threaded(pool, enc, mesh, feks, fms)}
+    try:
+        for name, arm in arms.items():
+            if not same(arm(), (fkey, fct)):
+                raise PhaseFailed(f"mesh: the flagship encaps, {name}, differs")
+        times = {name: {"event_ms": [], "host_ms": []} for name in arms}
+        order = list(arms)
+        for r in range(MESH_TIMED_REPS):
+            for name in order[r % 3:] + order[:r % 3]:
+                if on_card:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    torch.cuda.synchronize()
+                    start.record()
+                t1 = time.perf_counter()
+                arms[name]()
+                host = 1e3 * (time.perf_counter() - t1)
+                if on_card:
+                    end.record()
+                    end.synchronize()
+                    times[name]["event_ms"].append(start.elapsed_time(end))
+                times[name]["host_ms"].append(host)
+    finally:
+        pool.shutdown()
+    out["flagship_ms"] = {name: {k: (statistics.median(v) if v else None) for k, v in t.items()}
+                          for name, t in times.items()}
+    print(f"[mesh] {card}: flagship encaps at B = {len(feks)} (host rows in, host rows out), "
+          f"median of {MESH_TIMED_REPS} in turns: "
+          + "; ".join(f"{name} {t['event_ms'] if t['event_ms'] is None else round(t['event_ms'], 4)}"
+                      f" ms (events), {t['host_ms']:.4f} ms (host clock)"
+                      for name, t in out["flagship_ms"].items()))
+    out["split_launches"], out["engine_launches"] = split_counts, engine_counts
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[mesh] phase took {out['phase_s']:.1f} s")
+    return out
+
+
+def mesh_child() -> int:
+    """Phase 21 in a process of its own (``--mesh-phase``, started by
+    phase_mesh_process): its launch counts start at 0 in it, and its
+    result, the counts included, is its last line of output."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        out = phase_mesh(torch, np)
+    except PhaseFailed as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        return 1
+    print(json.dumps({"mesh_phase": out}, default=str))
+    return 0
+
+
+def phase_mesh_process() -> dict:
+    """Phase 21 in a fresh process on the same card."""
+    return phase_process("--mesh-phase", "mesh", MESH_PROCESS_TIMEOUT_S)
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -4713,6 +5156,7 @@ def main() -> int:
         print(f"chip_smoke: the port is not beside this script: {exc}", file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     card = smi("name,power.limit")
     max_sm_mhz = float(smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -4766,7 +5210,7 @@ def main() -> int:
             of ``few_row`` through its few-row path."""
             if counts is None:
                 counts = launch_counts(wrappers)
-            print(f"[launches] {phase}: {counts}")
+            print(f"[launches] {phase} (at {time.perf_counter() - t_start:.1f} s): {counts}")
             idle = [name for name in expected if counts[name] == 0]
             idle += [f"{name}[few-row]" for name in few_row if counts[f"{name}[few-row]"] == 0]
             if idle:
@@ -4994,6 +5438,15 @@ def main() -> int:
         # phase's process from 0 just before /connect and read after /key
         clied = phase_cli_process()
         launches["cli"] = read("cli", CLI_KERNELS, counts=clied.pop("launches"))
+        # phase 21: the split's launches (K1-K7) and the meshed engines' (K8),
+        # each window counted from 0 in the phase's process
+        meshed = phase_mesh_process()
+        mesh_split = read("mesh split", KEM_KERNELS + SIG_KERNELS[1:],
+                          counts=meshed.pop("split_launches"))
+        mesh_engines_counts = read("mesh engines", ("chacha_blocks",),
+                                   counts=meshed.pop("engine_launches"))
+        launches["mesh"] = {name: mesh_split[name] + mesh_engines_counts[name]
+                            for name in mesh_split}
     except PhaseFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -5022,6 +5475,7 @@ def main() -> int:
             "storm_launches": storm_gateways[name],
             "storm_client_launches": stormed["client_launches"][name],
             "cli_launches": launches["cli"][name],
+            "mesh_launches": launches["mesh"][name],
             "library_ms": (None if any(r["library_ms"] is None for r in mine)
                            else sum(r["library_ms"] for r in mine)),
             "shapes": [r["shape"] for r in mine]})
@@ -5039,7 +5493,7 @@ def main() -> int:
                                  "sphincs_serve": slh_served, "sphincs_batch": slh_batch,
                                  "sphincs_memory": slh_memory, "obs_faults": observed,
                                  "transport": carried, "engine": engined, "fleet": fleeted,
-                                 "storm": stormed, "cli": clied,
+                                 "storm": stormed, "cli": clied, "mesh": meshed,
                                  "launches": launches, "launches_per_op": per_op,
                                  "engine_swap_launches": swap_launches,
                                  "profile": profiled}}))
@@ -5060,6 +5514,8 @@ if __name__ == "__main__":
         sys.exit(storm_child())
     if sys.argv[1:] == ["--cli-phase"]:
         sys.exit(cli_child())
+    if sys.argv[1:] == ["--mesh-phase"]:
+        sys.exit(mesh_child())
     # this run's health verdicts go to a fresh cache, so every gate of the
     # earlier phases probes the card (phase 15 checks the cache itself)
     with tempfile.TemporaryDirectory(prefix="qrp2p-health-") as _cache:

@@ -31,7 +31,11 @@ Where it differs from the JAX package's engine:
   :meth:`ready_status` not ready instead of moving the work to the CPU;
 * it fuses on the "cpu" backend too, where ``get_fused`` gives the
   capability for "cpu" providers (the bytes on the wire are the same);
-* ``mesh_devices`` > 0 raises: a device mesh is not ported;
+* ``mesh_devices`` splits the KEM's and the signature's batches across
+  the first N GPUs (-1: all) and raises when fewer exist, where that
+  engine falls back to logical shards; ``shard_devices`` >= 1 on "cuda"
+  places shard ``i`` on GPU ``i`` and raises likewise (1 pins the one
+  shard to GPU 0, where that engine keeps it logical);
 * the batched AEAD is built on the engine's own backend;
 * :meth:`close` stops the scheduler's device workers.
 """
@@ -228,18 +232,17 @@ class SecureMessaging:
         #: arm the "cpu" twins as the batching queues' degrade fallbacks
         #: (the JAX package's engine always does on its device backend)
         self.degrade = degrade
-        if mesh_devices:
-            # splitting one device batch across several GPUs is ROADMAP
-            # item 15; the providers take no ``devices=``
-            raise ValueError("mesh_devices > 0: a device mesh is not ported "
-                             "(ROADMAP item 15); use shard_devices")
+        # the providers split each batch across this many GPUs
+        # (provider/base.py mesh_dispatch; 0 = unsplit, -1 = every GPU)
         self.mesh_devices = mesh_devices
         # the batching queues place each flush on one of this many shards
-        # (provider/scheduler.py; 0/1 = one logical shard)
+        # (provider/scheduler.py; 0 = one logical shard, N >= 1 on "cuda" =
+        # GPUs 0..N-1)
         self.shard_devices = shard_devices
-        self.kem = kem or get_kem("ML-KEM-768", backend)
+        self.kem = kem or get_kem("ML-KEM-768", backend, devices=mesh_devices)
         self.symmetric = symmetric or get_symmetric("AES-256-GCM")
-        self.signature = signature or get_signature("ML-DSA-65", backend)
+        self.signature = signature or get_signature("ML-DSA-65", backend,
+                                                    devices=mesh_devices)
 
         # Optional batching queues: when enabled, every handshake/sign/verify
         # op from every concurrent peer coalesces into padded device batches
@@ -386,7 +389,7 @@ class SecureMessaging:
             # cycle and a sick GPU quarantines one shard, not the fleet.
             self._scheduler = DeviceProgramScheduler(
                 shards=shard_devices, cooloff_s=breaker_cooloff_s,
-                registry=self.registry,
+                registry=self.registry, backend=backend,
             )
             self._queue_breaker = self._scheduler.shards[0].breaker
             self._scheduler.attach_cost(self.cost)
@@ -2632,7 +2635,7 @@ class SecureMessaging:
             # state; the swap ends those keys' sessions, so end their cache
             # lifetime too
             old_cache.zeroize()
-        self.kem = get_kem(name, self.backend)
+        self.kem = get_kem(name, self.backend, devices=self.mesh_devices)
         if self.use_batching:
             from ..provider.batched import BatchedKEM
 
@@ -2688,7 +2691,7 @@ class SecureMessaging:
         old_cache = getattr(self.signature, "opcache", None)
         if old_cache is not None:
             old_cache.zeroize()  # sk-derived device precomputes die with the swap
-        self.signature = get_signature(name, self.backend)
+        self.signature = get_signature(name, self.backend, devices=self.mesh_devices)
         if self.use_batching:
             from ..provider.batched import BatchedSignature
 

@@ -525,8 +525,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="where the crypto runs (default cuda, or QRP2P_BACKEND)")
     ap.add_argument("--batch", action="store_true", help="enable the GPU batch queues")
     ap.add_argument("--mesh-devices", type=int, default=None,
-                    help="split GPU batches across this many devices (0 = one; "
-                         "more is not ported and raises)")
+                    help="split each GPU batch across this many GPUs (0 = unsplit, "
+                         "-1 = every GPU; more GPUs than the machine has raises)")
     ap.add_argument("--telemetry-port", type=int, default=None,
                     help="serve live read-only telemetry endpoints on this "
                          "localhost port (0 = ephemeral; default off, or "

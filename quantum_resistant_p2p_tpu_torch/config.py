@@ -7,8 +7,9 @@ The port keeps only the keys something reads: ``UNREAD_KEYS`` are the JAX
 package's other keys, which nothing there reads either; a file or a
 ``QRP2P_*`` variable that sets one is warned about, not obeyed.
 ``backend`` is ``"cuda"`` (the default) or ``"cpu"``; any other value
-raises.  ``mesh_devices`` > 0 reaches the engine, which raises: splitting
-one batch across GPUs is not ported.
+raises.  ``mesh_devices`` reaches the engine, whose providers split each
+GPU batch across that many GPUs (0 unsplit, -1 every GPU; more than the
+machine has raises).
 
 Precedence: explicit kwargs > environment > config file > defaults.
 """

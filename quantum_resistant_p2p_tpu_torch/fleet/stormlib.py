@@ -224,6 +224,6 @@ def register_storm_providers() -> None:
                 signature,
                 hashlib.sha256(b"sig" + public_key + message).digest())
 
-    register_kem("STORM-KEM", StormKEM)
-    register_signature("STORM-SIG", StormSig)
+    register_kem("STORM-KEM", lambda backend, devices=0: StormKEM(backend))
+    register_signature("STORM-SIG", lambda backend, devices=0: StormSig(backend))
     _STORM_REGISTERED = True

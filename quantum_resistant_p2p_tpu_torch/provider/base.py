@@ -6,18 +6,26 @@ An algorithm reports its ``backend`` ("cuda" or "cpu") and offers
 ``*_batch`` operations over ``(batch, ...)`` uint8 numpy arrays; the scalar
 operations are the batch-of-one case.  The KEM, signature and scalar AEAD
 interfaces share :class:`CryptoAlgorithm`, which arms the ``scalar.op``
-fault hook (faults/) on their scalar operations.
+fault hook (faults/) on their scalar operations.  :func:`mesh_dispatch`
+splits a provider's batch across the GPUs of its ``devices=`` mesh
+(:func:`make_provider_mesh`): one host thread launches every device's
+share in turn before any is read back (on an NVIDIA H100 80GB HBM3 at
+700.00 W a thread a device took 2.9-4.1x as long; ``chip_smoke.py``
+phase 21 measures both).
 """
 
 from __future__ import annotations
 
 import abc
+import contextlib
 import os
 
 import numpy as np
 import torch
 
 from ..faults import instrument_scalar_ops
+from ..parallel.mesh import make_mesh
+from ..utils.wipe import wipe
 
 #: the port's backends: kernels on the GPU, or their plain versions on the CPU
 BACKENDS = ("cuda", "cpu")
@@ -34,11 +42,14 @@ def random_rows(n: int, width: int = 32) -> np.ndarray:
 
 
 class DeviceIO:
-    """Host <-> device copies for a provider that runs on ``self.device``.
+    """Host <-> device copies for a provider that runs on ``self.device``,
+    or splits its batches across ``self._mesh`` (``devices=``).
 
     Both directions copy, so wiping either side never touches the other."""
 
     device: torch.device
+    #: the mesh a batch is split across, or None to run it whole
+    _mesh = None
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.tensor(np.asarray(a, dtype=np.uint8), device=self.device)
@@ -47,15 +58,117 @@ class DeviceIO:
     def _to_host(t: torch.Tensor) -> np.ndarray:
         return t.to("cpu", copy=True).numpy()
 
+    def _dispatch(self, fn, *arrays):
+        """``fn`` over host rows: split across the provider's mesh
+        (:func:`mesh_dispatch`), or run whole on ``self.device``.  -> its
+        host outputs; every device copy is zeroed once read back."""
+        if self._mesh is not None:
+            return mesh_dispatch(fn, self._mesh, *arrays)
+        ins = [self._to_device(a) for a in arrays]
+        out = fn(*ins)
+        outs = out if isinstance(out, tuple) else (out,)
+        host = tuple(self._to_host(o) for o in outs)
+        wipe(*ins, *outs)
+        return host if len(host) > 1 else host[0]
+
 
 def pad_rows(rows: np.ndarray, target: int) -> np.ndarray:
     """Pad the batch dim to ``target`` by repeating the last row, so device
-    batches come in power-of-two sizes."""
+    batches come in power-of-two sizes and a split in equal shares."""
     n = rows.shape[0]
     if n == target:
         return rows
     pad = np.broadcast_to(rows[-1:], (target - n,) + rows.shape[1:])
     return np.concatenate([np.asarray(rows), pad], axis=0)
+
+
+def device_scope(device: torch.device):
+    """Make a GPU the current device (its current stream takes the
+    launches); a CPU device needs no scope."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def shard_batch(mesh, *arrays):
+    """Cut each array's leading (batch) axis into one contiguous share a
+    device of ``mesh``, padded to equal shares by repeating the last row,
+    and copy each share to its device.  ``arrays`` are host rows (numpy
+    arrays or CPU tensors) of one non-empty batch.  -> for each array, the
+    list of its shares in mesh order (the list alone for one array)."""
+    n = len(arrays[0])
+    if n == 0:
+        raise ValueError("shard_batch: an empty batch has no last row to pad with")
+    per = -(-n // mesh.size)
+    out = []
+    for a in arrays:
+        if len(a) != n:
+            raise ValueError(f"shard_batch: batches of {n} and {len(a)} rows")
+        a = pad_rows(np.asarray(a), per * mesh.size)
+        out.append([torch.tensor(a[i * per:(i + 1) * per], device=dev)
+                    for i, dev in enumerate(mesh.devices)])
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def run_share(fn, device: torch.device, inputs) -> tuple:
+    """``fn(*inputs)`` on one device's share, under that device: -> its
+    outputs as a tuple of tensors, launched and not waited for."""
+    with device_scope(device):
+        out = fn(*inputs)
+    return out if isinstance(out, tuple) else (out,)
+
+
+def fetch_share(outputs: tuple) -> tuple:
+    """Host copies (numpy) of one share's outputs; waits for its device."""
+    return tuple(t.to("cpu", copy=True).numpy() for t in outputs)
+
+
+def split_run(fn, mesh, *arrays) -> list[tuple]:
+    """``fn`` on each device's share of a non-empty batch of host rows,
+    every share launched before any is read back: -> each share's host
+    outputs, in mesh order.  The device copies are zeroed once read back."""
+    split = shard_batch(mesh, *arrays)
+    shares = list(zip(*split)) if len(arrays) > 1 else [(s,) for s in split]
+    outs = [run_share(fn, dev, share) for dev, share in zip(mesh.devices, shares)]
+    parts = [fetch_share(o) for o in outs]
+    wipe(*(t for share in shares for t in share), *(t for o in outs for t in o))
+    return parts
+
+
+def join_shares(parts: list, n: int) -> tuple:
+    """The shares' host outputs joined in mesh order and trimmed to ``n``
+    rows: -> one array an output."""
+    return tuple(np.concatenate(col)[:n] for col in zip(*parts))
+
+
+def mesh_dispatch(fn, mesh, *arrays):
+    """Run a batch function with the batch split across ``mesh``.
+
+    ``fn`` takes device tensors and returns a tensor or a tuple of them,
+    batch-major; ``arrays`` are host rows.  The batch is padded (last row
+    repeated) to a multiple of the mesh's size, each device's contiguous
+    share runs ``fn`` under that device and on its current stream, every
+    share launched before any is read back, and the outputs gather on the
+    host in order, trimmed to the batch: the bytes of one unsplit call.  An
+    empty batch runs unsplit on the mesh's first device.  Every device copy
+    the split made is zeroed once gathered."""
+    n = len(arrays[0])
+    if n == 0:
+        dev = mesh.devices[0]
+        host = fetch_share(run_share(fn, dev, [torch.tensor(np.asarray(a), device=dev)
+                                               for a in arrays]))
+    else:
+        host = join_shares(split_run(fn, mesh, *arrays), n)
+    return host if len(host) > 1 else host[0]
+
+
+def make_provider_mesh(devices: int, backend: str):
+    """The provider's device mesh, or None for a provider that runs each
+    batch whole.  ``devices`` is the registry's ``devices=`` (the engine's
+    ``mesh_devices``): 0 for none, N for the first N GPUs, -1 for all of
+    them; ``make_mesh`` raises when fewer GPUs exist.  The "cpu" backend
+    splits nothing."""
+    if not devices or backend != "cuda":
+        return None
+    return make_mesh(None if devices < 0 else devices)
 
 
 class CryptoAlgorithm(abc.ABC):

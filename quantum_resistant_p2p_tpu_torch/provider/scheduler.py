@@ -13,12 +13,15 @@ device and warm-up executors), so a sick device quarantines ONE shard
 while its siblings keep serving; the policy routes around open and
 quarantined shards and routes a canary flush back when a cool-off expires.
 
-``shards=1`` (the default) is one logical shard with no device pinned:
-placement then scopes only the operand cache (``opcache.shard_scope``).
+A logical shard has no device pinned: placement then scopes only the
+operand cache (``opcache.shard_scope``).
 A shard given a ``torch.device("cuda", i)`` also enters
-``torch.cuda.device(i)`` on the dispatching thread.  Placement across
-several GPUs is later work: the scheduler takes ``devices=`` but resolves
-none itself.
+``torch.cuda.device(i)`` on the dispatching thread, where the providers'
+index-less "cuda" device, their tables and their kernels' constant
+uploads (keyed by device) follow it.  On the "cuda" backend a scheduler
+asked for ``shards >= 1`` with no ``devices`` places shard ``i`` on GPU
+``i`` (``parallel.shard_devices``) and raises when fewer GPUs exist; on
+"cpu", or with ``shards=0``, shards stay logical.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from typing import Any, Callable
 import torch
 
 from ..obs import flight as obs_flight
+from ..parallel.mesh import shard_devices
 from .batched import Breaker, CoalescingHub
 from .opcache import shard_scope
 
@@ -63,6 +67,15 @@ def select_slot(slots):
     closed = [s for s in slots if s.breaker.state == "closed"]
     pool = closed or [s for s in slots if s.breaker.state != "quarantined"]
     return min(pool or slots, key=lambda s: (s.inflight, s.index))
+
+
+def _resolve_devices(shards: int, backend: str | None) -> list[Any]:
+    """One device a shard: GPU ``i`` for shard ``i`` of a "cuda" axis
+    (raising when fewer GPUs exist: no shard degrades to a logical one or
+    to the CPU), else logical placeholders (``None``)."""
+    if backend == "cuda" and shards >= 1:
+        return shard_devices(shards)
+    return [None] * max(shards, 1)
 
 
 class Shard:
@@ -165,17 +178,16 @@ class DeviceProgramScheduler(CoalescingHub):
     (:class:`provider.batched.CoalescingHub`): sibling queues flush in one
     scheduling window, and each coalesced flush is then placed on its own.
     ``devices`` (one entry a shard: ``None`` for a logical shard, or a
-    ``torch.device``) defaults to logical shards.  :meth:`close` stops
+    ``torch.device``) defaults to GPU ``i`` for shard ``i`` on the "cuda"
+    ``backend`` and to logical shards otherwise.  :meth:`close` stops
     every shard's workers.
     """
 
     def __init__(self, shards: int = 1, cooloff_s: float = 30.0,
                  cooloff_max_s: float = 480.0, registry=None,
-                 devices: list[Any] | None = None):
-        if shards == 0:
-            shards = 1
+                 devices: list[Any] | None = None, backend: str | None = None):
         if devices is None:
-            devices = [None] * shards
+            devices = _resolve_devices(shards, backend)
         self.shards = [
             Shard(i, None if dev is None else torch.device(dev),
                   Breaker(cooloff_s, cooloff_max_s))

@@ -12,6 +12,11 @@ digest on the host with ``hashlib`` (public data, cheap): ML-DSA's 64-byte
 H_msg digest.  The lattice and hash-tree work runs as fixed-shape batched
 calls on the device.  Randomness (seeds for keygen, rnd for ML-DSA's hedged
 signing) is drawn host-side from ``os.urandom``.
+
+``devices=N`` (the registry's, the engine's ``mesh_devices``) splits every
+batch across the first N GPUs through ``base.mesh_dispatch``, -1 across
+all of them, after the host work and the randomness: a split batch has the
+bytes of an unsplit one.  A split provider keeps no operand cache.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from ..sig import mldsa, slhdsa_params, sphincs
 from ..utils.cuda import require_device
 from ..utils.wipe import wipe
 from .base import (BACKENDS, DeviceIO, SignatureAlgorithm, expect_cols, expect_len,
-                   random_rows)
+                   make_provider_mesh, random_rows)
 from .opcache import DeviceOperandCache
 
 _LEVEL_TO_MLDSA = {2: mldsa.MLDSA44, 3: mldsa.MLDSA65, 5: mldsa.MLDSA87}
@@ -52,7 +57,7 @@ class MLDSASignature(DeviceIO, SignatureAlgorithm):
     ``verify`` returns False for a malformed or invalid signature; a
     device failure raises."""
 
-    def __init__(self, security_level: int = 3, backend: str = "cuda"):
+    def __init__(self, security_level: int = 3, backend: str = "cuda", devices: int = 0):
         if security_level not in _LEVEL_TO_MLDSA:
             raise ValueError(f"ML-DSA level must be 2/3/5, got {security_level}")
         if backend not in BACKENDS:
@@ -72,6 +77,7 @@ class MLDSASignature(DeviceIO, SignatureAlgorithm):
         #: long-lived key and verifies a peer's one public key, so ExpandA
         #: and the key NTTs are per-key work
         self.opcache = DeviceOperandCache()
+        self._mesh = make_provider_mesh(devices, backend)
 
     def generate_keypair(self) -> tuple[bytes, bytes]:
         pks, sks = self.generate_keypair_batch(1)
@@ -81,10 +87,8 @@ class MLDSASignature(DeviceIO, SignatureAlgorithm):
 
     def generate_keypair_batch(self, n: int) -> tuple[np.ndarray, np.ndarray]:
         xi = random_rows(n)
-        xi_t = self._to_device(xi)
-        pk, sk = self._kg(xi_t)
-        out = self._to_host(pk), self._to_host(sk)
-        wipe(xi, xi_t, sk)
+        out = self._dispatch(self._kg, xi)
+        wipe(xi)
         return out
 
     def sign(self, secret_key: bytes, message: bytes) -> bytes:
@@ -110,25 +114,28 @@ class MLDSASignature(DeviceIO, SignatureAlgorithm):
                     else np.stack([np.frombuffer(r, np.uint8) for r in rnd]))
         mus = np.stack([np.frombuffer(_mu(bytes(sk[64:128]), m), np.uint8)
                         for sk, m in zip(sks, messages)])
+        if self._mesh is not None or not _single_key(sks):
+            sigs, done = self._dispatch(self._sign_mu, sks, mus, rnd_host)
+            wipe(rnd_host)
+            return self._signatures(sigs, done)
+        # Single-key batch (a node's own long-lived key): a hit reuses the
+        # key's device state and skips ExpandA and the key NTTs; a miss
+        # computes it alongside the signatures and caches it.
         mu, rnd_t = self._to_device(mus), self._to_device(rnd_host)
-        if _single_key(sks):
-            # Single-key batch (a node's own long-lived key): a hit reuses
-            # the key's device state and skips ExpandA and the key NTTs; a
-            # miss computes it alongside the signatures and caches it.
-            skb = sks[0].tobytes()
-            pre = self.opcache.lookup("sk", skb)
-            if pre is None:
-                sk = self._to_device(sks[0])
-                pre, sigs, done = self._sign_cold(sk, mu, rnd_t)
-                self.opcache.put("sk", skb, pre)
-            else:
-                sk = None
-                sigs, done = self._sign_pre(pre, mu, rnd_t)
+        skb = sks[0].tobytes()
+        pre = self.opcache.lookup("sk", skb)
+        if pre is None:
+            sk = self._to_device(sks[0])
+            pre, sigs, done = self._sign_cold(sk, mu, rnd_t)
+            self.opcache.put("sk", skb, pre)
         else:
-            sk = self._to_device(sks)
-            sigs, done = self._sign_mu(sk, mu, rnd_t)
+            sk = None
+            sigs, done = self._sign_pre(pre, mu, rnd_t)
         done, sigs = self._to_host(done), self._to_host(sigs)
         wipe(rnd_host, rnd_t, sk)
+        return self._signatures(sigs, done)
+
+    def _signatures(self, sigs: np.ndarray, done: np.ndarray) -> list[bytes]:
         if not done.all():
             # an all-zero sigma must never leave the provider as a signature
             raise RuntimeError(f"{self.name}: {int((~done).sum())} lane(s) exhausted the "
@@ -150,21 +157,19 @@ class MLDSASignature(DeviceIO, SignatureAlgorithm):
         single = _single_key(pks)
         trs = ([hashlib.shake_256(pks[0].tobytes()).digest(64)] * len(pks) if single
                else [hashlib.shake_256(pk.tobytes()).digest(64) for pk in pks])
-        mu = self._to_device(np.stack([np.frombuffer(_mu(tr, m), np.uint8)
-                                       for tr, m in zip(trs, messages)]))
-        sig = self._to_device(sigs)
-        if single:
-            # Single-key batch (a peer's long-lived key): cached ExpandA
-            # and NTT(t1 << d); see sign_batch.
-            pkb = pks[0].tobytes()
-            pre = self.opcache.lookup("pk", pkb)
-            if pre is None:
-                pre, oks = self._verify_cold(self._to_device(pks[0]), mu, sig)
-                self.opcache.put("pk", pkb, pre)
-            else:
-                oks = self._verify_pre(pre, mu, sig)
+        mus = np.stack([np.frombuffer(_mu(tr, m), np.uint8) for tr, m in zip(trs, messages)])
+        if self._mesh is not None or not single:
+            return self._dispatch(self._verify_mu, pks, mus, sigs) & sized
+        # Single-key batch (a peer's long-lived key): cached ExpandA and
+        # NTT(t1 << d); see sign_batch.
+        mu, sig = self._to_device(mus), self._to_device(sigs)
+        pkb = pks[0].tobytes()
+        pre = self.opcache.lookup("pk", pkb)
+        if pre is None:
+            pre, oks = self._verify_cold(self._to_device(pks[0]), mu, sig)
+            self.opcache.put("pk", pkb, pre)
         else:
-            oks = self._verify_mu(self._to_device(pks), mu, sig)
+            oks = self._verify_pre(pre, mu, sig)
         return self._to_host(oks) & sized
 
 
@@ -185,10 +190,12 @@ class SPHINCSSignature(DeviceIO, SignatureAlgorithm):
     Signing is the deterministic variant (PRF_msg with opt_rand = pk_seed),
     as the reference provider signs.  ``sign_batch`` cuts a batch into
     chunks that fit the device's free memory: one s-set signature puts up
-    to 360k hash rows in flight at once.  ``verify`` returns False for a
-    malformed or invalid signature; a device failure raises."""
+    to 360k hash rows in flight at once (split across GPUs, each device's
+    share is chunked by that device's memory).  ``verify`` returns False
+    for a malformed or invalid signature; a device failure raises."""
 
-    def __init__(self, security_level: int = 1, backend: str = "cuda", fast: bool = True):
+    def __init__(self, security_level: int = 1, backend: str = "cuda", fast: bool = True,
+                 devices: int = 0):
         if (security_level, fast) not in _LEVEL_TO_SLH:
             raise ValueError(f"SPHINCS+ level must be 1/3/5, got {security_level}")
         if backend not in BACKENDS:
@@ -203,6 +210,7 @@ class SPHINCSSignature(DeviceIO, SignatureAlgorithm):
         self.secret_key_len = self.params.sk_len
         self.signature_len = self.params.sig_len
         self._kg, self._sign_digest, self._verify_digest = sphincs.get(self.name)
+        self._mesh = make_provider_mesh(devices, backend)
 
     def generate_keypair(self) -> tuple[bytes, bytes]:
         pks, sks = self.generate_keypair_batch(1)
@@ -210,13 +218,14 @@ class SPHINCSSignature(DeviceIO, SignatureAlgorithm):
         wipe(sks)
         return out
 
-    def generate_keypair_batch(self, n: int) -> tuple[np.ndarray, np.ndarray]:
+    def _keygen_rows(self, seeds: torch.Tensor):
         w = self.params.n
-        seeds = random_rows(n, 3 * w)  # sk_seed || sk_prf || pk_seed
-        seeds_t = self._to_device(seeds)
-        pk, sk = self._kg(seeds_t[:, :w], seeds_t[:, w:2 * w], seeds_t[:, 2 * w:])
-        out = self._to_host(pk), self._to_host(sk)
-        wipe(seeds, seeds_t, sk)
+        return self._kg(seeds[:, :w], seeds[:, w:2 * w], seeds[:, 2 * w:])
+
+    def generate_keypair_batch(self, n: int) -> tuple[np.ndarray, np.ndarray]:
+        seeds = random_rows(n, 3 * self.params.n)  # sk_seed || sk_prf || pk_seed
+        out = self._dispatch(self._keygen_rows, seeds)
+        wipe(seeds)
         return out
 
     def sign(self, secret_key: bytes, message: bytes) -> bytes:
@@ -232,12 +241,20 @@ class SPHINCSSignature(DeviceIO, SignatureAlgorithm):
     def memory_budget(self) -> int:
         """Bytes one sign call may fill: half of what the device has free
         (the caching allocator's idle blocks counted as free), or a fixed
-        budget on the CPU."""
+        budget on the CPU.  ``self.device`` names no GPU index, so this is
+        the current GPU's: a split share's own."""
         if self.device.type == "cpu":
             return CPU_SIGN_BUDGET_BYTES
         free, _ = torch.cuda.mem_get_info(self.device)
         idle = torch.cuda.memory_reserved(self.device) - torch.cuda.memory_allocated(self.device)
         return (free + idle) // 2
+
+    def _sign_chunks(self, sk: torch.Tensor, r: torch.Tensor, digest: torch.Tensor):
+        """sign_digest over device rows, in chunks of as many signatures as
+        :meth:`memory_budget` holds."""
+        step = sphincs.signatures_per_chunk(self.params, self.memory_budget())
+        return torch.cat([self._sign_digest(sk[i:i + step], r[i:i + step], digest[i:i + step])
+                          for i in range(0, len(sk), step)])
 
     def sign_batch(self, secret_keys: np.ndarray, messages: list[bytes]) -> list[bytes]:
         """Deterministic signatures of ``messages`` under the matching rows
@@ -256,15 +273,10 @@ class SPHINCSSignature(DeviceIO, SignatureAlgorithm):
             rs.append(np.frombuffer(r, np.uint8))
             digests.append(np.frombuffer(slhdsa_params.h_msg(p, r, pk_seed, pk_root, m),
                                          np.uint8))
-        step = sphincs.signatures_per_chunk(p, self.memory_budget())
-        sigs = []
-        for i in range(0, len(sks), step):
-            sk_t = self._to_device(sks[i:i + step])
-            sig = self._sign_digest(sk_t, self._to_device(np.stack(rs[i:i + step])),
-                                    self._to_device(np.stack(digests[i:i + step])))
-            sigs += [bytes(s) for s in self._to_host(sig)]
-            wipe(sk_t)
-        return sigs
+        if not rs:
+            return []
+        sigs = self._dispatch(self._sign_chunks, sks, np.stack(rs), np.stack(digests))
+        return [bytes(s) for s in sigs]
 
     def verify_batch(self, public_keys: np.ndarray, messages: list[bytes],
                      signatures: list[bytes]) -> np.ndarray:
@@ -282,7 +294,5 @@ class SPHINCSSignature(DeviceIO, SignatureAlgorithm):
             np.frombuffer(slhdsa_params.h_msg(p, sig[: p.n], pk[: p.n].tobytes(),
                                               pk[p.n:].tobytes(), m), np.uint8)
             for pk, m, sig in zip(pks, messages, sigs)])
-        oks = self._verify_digest(self._to_device(pks), self._to_device(digests),
-                                  self._to_device(np.stack([np.frombuffer(s, np.uint8)
-                                                            for s in sigs])))
-        return self._to_host(oks) & sized
+        sig_rows = np.stack([np.frombuffer(s, np.uint8) for s in sigs])
+        return self._dispatch(self._verify_digest, pks, digests, sig_rows) & sized

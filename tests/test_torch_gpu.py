@@ -1081,3 +1081,78 @@ def test_two_clis_chat_on_the_card_with_the_default_aead(gpu, tmp_path, monkeypa
     for out in outs:
         assert (f"(backend=cuda, batching=False, device: {name}, AES-256-GCM: {AES256GCM_IMPL})"
                 in out.getvalue())
+
+
+def _rows_u8(seed: int, n: int, width: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 256, size=(n, width), dtype=np.uint8)
+
+
+def _unsplit(fn, *arrays):
+    out = fn(*(torch.tensor(a, device="cuda") for a in arrays))
+    return tuple(o.cpu().numpy() for o in (out if isinstance(out, tuple) else (out,)))
+
+
+def test_mesh_split_on_one_gpu_matches_unsplit(gpu):
+    """ML-KEM-768 and ML-DSA-65 split across cuda:0 listed 4 times through
+    provider.base.mesh_dispatch, at batches the mesh does not divide:
+    bitwise the unsplit call's outputs, the kernels launched on the split."""
+    from quantum_resistant_p2p_tpu_torch.parallel import Mesh
+    from quantum_resistant_p2p_tpu_torch.provider.base import mesh_dispatch
+
+    mesh = Mesh([torch.device("cuda", 0)] * 4)
+
+    def split(fn, *arrays):
+        out = mesh_dispatch(fn, mesh, *arrays)
+        return out if isinstance(out, tuple) else (out,)
+
+    kg, enc, dec = mlkem.get("ML-KEM-768")
+    d, z, m = (_rows_u8(s, 257, 32) for s in (1, 2, 3))
+    ek, dk = _unsplit(kg, d, z)
+    key, ct = _unsplit(enc, ek, m)
+    before = keccak_cuda.sponge.launches
+    for got, want in ((split(kg, d, z), (ek, dk)), (split(enc, ek, m), (key, ct)),
+                      (split(dec, dk, ct), (key,))):
+        assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    assert keccak_cuda.sponge.launches > before
+    dkg, dsign, dverify = mldsa.get("ML-DSA-65")
+    xi, rnd, mu = _rows_u8(4, 33, 32), _rows_u8(5, 33, 32), _rows_u8(6, 33, 64)
+    pk, sk = _unsplit(dkg, xi)
+    sig, done = _unsplit(dsign, sk, mu, rnd)
+    assert done.all()
+    for got, want in ((split(dkg, xi), (pk, sk)), (split(dsign, sk, mu, rnd), (sig, done))):
+        assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    sig[3, 11] ^= 1
+    oks = split(dverify, pk, mu, sig)[0]
+    assert np.array_equal(oks, _unsplit(dverify, pk, mu, sig)[0])
+    assert not oks[3] and oks[:3].all() and oks[4:].all()
+
+
+def test_mesh_dryrun_multichip_on_the_card(gpu):
+    from quantum_resistant_p2p_tpu_torch.entry import dryrun_multichip
+
+    n = torch.cuda.device_count()
+    out = dryrun_multichip(n)
+    assert out["handshake_ok"] == out["handshake_rows"] == 2 * n
+    assert out["devices"] == [f"cuda:{i}" for i in range(n)]
+
+
+def test_mesh_engine_places_every_shard_on_a_gpu(gpu, tmp_path, monkeypatch):
+    """A "cuda" engine with shard_devices = mesh_devices = the GPU count
+    places shard i on GPU i and splits its providers over every GPU; one
+    shard or one mesh device more than the machine has raises."""
+    from quantum_resistant_p2p_tpu_torch.app import SecureMessaging
+    from quantum_resistant_p2p_tpu_torch.net.p2p_node import P2PNode
+
+    monkeypatch.setenv("QRP2P_HEALTH_CACHE", str(tmp_path))
+    n = torch.cuda.device_count()
+    e = SecureMessaging(P2PNode("mesh-shards", "127.0.0.1", 0), use_batching=True,
+                        shard_devices=n, mesh_devices=n)
+    try:
+        assert [s.device for s in e._scheduler.shards] == [torch.device("cuda", i)
+                                                           for i in range(n)]
+        assert e.kem._mesh.size == e.signature._mesh.size == n
+    finally:
+        e.close()
+    for kw in ({"shard_devices": n + 1}, {"mesh_devices": n + 1}):
+        with pytest.raises(RuntimeError, match=f"need {n + 1} GPU"):
+            SecureMessaging(P2PNode("mesh-too-many", "127.0.0.1", 0), use_batching=True, **kw)

@@ -152,16 +152,22 @@ def test_wipe_zeroes_in_place_and_skips_none():
 
 def test_default_engine_runs_on_cuda_and_raises_without_a_gpu():
     """The entry point's default backend is "cuda"; the CPU is used only
-    when asked for.  A device mesh is not ported."""
+    when asked for.  ``mesh_devices`` splits "cuda" batches only: on "cpu"
+    the providers run each batch whole, and without a GPU a meshed default
+    engine raises."""
     import inspect
 
     assert inspect.signature(msg.SecureMessaging).parameters["backend"].default == "cuda"
     node = net.P2PNode("gpu-default", "127.0.0.1", 0)
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="cuda"):
-            msg.SecureMessaging(node)
-    with pytest.raises(ValueError, match="item 15"):
-        msg.SecureMessaging(node, backend="cpu", mesh_devices=2)
+        for kw in ({}, {"mesh_devices": 2}):
+            with pytest.raises(RuntimeError, match="cuda"):
+                msg.SecureMessaging(node, **kw)
+    e = msg.SecureMessaging(node, backend="cpu", mesh_devices=2)
+    try:
+        assert e.mesh_devices == 2 and e.kem._mesh is None and e.signature._mesh is None
+    finally:
+        e.close()
 
 
 def _device_toy_engine(monkeypatch, name: str, **kw):

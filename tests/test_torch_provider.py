@@ -236,6 +236,8 @@ def test_port_imports_no_jax():
         "from quantum_resistant_p2p_tpu_torch.provider import get_kem, get_signature\n"
         "import quantum_resistant_p2p_tpu_torch.entry, quantum_resistant_p2p_tpu_torch.kem.mlkem_cuda\n"
         "import quantum_resistant_p2p_tpu_torch.sig.mldsa_cuda\n"
+        "import quantum_resistant_p2p_tpu_torch.parallel\n"
+        "from quantum_resistant_p2p_tpu_torch.parallel import mesh\n"
         "import quantum_resistant_p2p_tpu_torch.provider.sig_providers\n"
         "from quantum_resistant_p2p_tpu_torch.provider import BatchedSignature\n"
         "import quantum_resistant_p2p_tpu_torch.fused.mlkem_mldsa\n"

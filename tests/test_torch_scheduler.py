@@ -475,3 +475,66 @@ def test_facade_breaker_rules_and_close():
     assert sum(s.dispatches for s in sched.shards) == 3
     sched.close()
 
+
+
+# -- bit-exactness of placed programs (logical CPU shards) --------------------
+
+
+def test_placed_kem_program_bit_exact_vs_default_device():
+    """Placement changes where a program runs, never its bytes: the same
+    ML-KEM-512 keygen seeds give the same keys, and decaps the same secret,
+    on shards 1 and 3 of four as unplaced (the JAX package's test of the
+    same name places on its virtual devices; here the shards are logical,
+    as on the "cpu" backend)."""
+    from quantum_resistant_p2p_tpu_torch.kem import mlkem
+
+    sched = scheduler.DeviceProgramScheduler(shards=4, backend="cpu")
+    assert [s.device for s in sched.shards] == [None] * 4
+    kg, enc, dec = mlkem.get("ML-KEM-512")
+    rng = np.random.default_rng(20260803)
+    d, z, m = (torch.tensor(rng.integers(0, 256, (2, 32), dtype=np.uint8)) for _ in range(3))
+    ek_ref, dk_ref = kg(d, z)
+    key_ref, ct_ref = enc(ek_ref, m)
+    try:
+        for shard in (sched.shards[1], sched.shards[3]):
+            ek_s, dk_s = shard.run_placed(lambda _items: kg(d, z), [])
+            assert torch.equal(ek_s, ek_ref) and torch.equal(dk_s, dk_ref)
+            key_s = shard.run_placed(lambda _items: dec(dk_ref, ct_ref), [])
+            assert torch.equal(key_s, key_ref)
+    finally:
+        sched.close()
+    assert [s.dispatches for s in sched.shards] == [0, 2, 0, 2]
+
+
+def test_placed_fused_handshake_step_bit_exact(monkeypatch):
+    """The fused keygen_sign program (ML-KEM-512 x ML-DSA-44) with the host
+    seeds pinned and a fixed rnd gives byte-identical keys and signatures
+    placed on shard 1 of two as unplaced."""
+    import os
+
+    from quantum_resistant_p2p_tpu_torch.provider import (get_fused, get_kem, get_signature,
+                                                          init_pk_offset)
+
+    kem = get_kem("ML-KEM-512", backend="cpu")
+    sig = get_signature("ML-DSA-44", backend="cpu")
+    fused = get_fused(kem, sig)
+    pk_off = init_pk_offset(kem.name, "AES-256-GCM")
+    _spk, ssk = sig.generate_keypair()
+    sks = np.frombuffer(ssk, np.uint8)[None]
+    tmpl = [b"t" * (pk_off + 2 * kem.public_key_len + 64)]
+    rnd = [b"\x07" * 32]
+    seeds = os.urandom(64)
+
+    def fixed_urandom(n, _s=seeds):
+        return (_s * (n // len(_s) + 1))[:n]
+
+    monkeypatch.setattr(os, "urandom", fixed_urandom)
+    ek_ref, dk_ref, sig_ref = fused.keygen_sign_batch(sks, tmpl, pk_off, rnd=rnd)
+    sched = scheduler.DeviceProgramScheduler(shards=2, backend="cpu")
+    try:
+        ek_s, dk_s, sig_s = sched.shards[1].run_placed(
+            lambda _items: fused.keygen_sign_batch(sks, tmpl, pk_off, rnd=rnd), [])
+    finally:
+        sched.close()
+    assert np.array_equal(ek_s, ek_ref) and np.array_equal(dk_s, dk_ref)
+    assert [bytes(s) for s in sig_s] == [bytes(s) for s in sig_ref]
