@@ -183,7 +183,7 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              agreeing; every burst client at once against the tuned and
              the static gateway in turns (every key agrees, one
              encaps_verify_sign op a handshake; flush sizes, handshakes/s
-             and each client's handshake_latency_s printed); 64 secure
+             and each client's handshake_latency_s printed); 16 secure
              messages of 256 B sent at once from client 0, signed, sealed,
              opened and verified through the engines' queues, arriving in
              order (one open op each); a ticket resume on a fresh
@@ -313,7 +313,35 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              MESH_COPIES ways under each launch strategy (one thread
              enqueueing every share, kept in mesh_dispatch; a thread a
              device), ms a batch by CUDA events and the host clock, and the
-             phase's seconds.
+             phase's seconds;
+22. tools    in a fresh process of its own (``--tools-phase``), the port's
+             tools (quantum_resistant_p2p_tpu_torch.tools), every engine on
+             "cuda" with no fallback armed: (a) BASELINE.json config 5,
+             swarm_bench.run_swarm with 1000 peers and the CLI's defaults
+             (concurrency 256, warmup 32, max_batch 4096, max_wait 3 ms,
+             batching on): no failure, 1000 messages received, no fallback
+             op at the hub; printed: handshakes/s, p50/p99 handshake
+             seconds, end-to-end messages/s and the elapsed seconds; (b)
+             run_storm, the in-process hub storm, with 32 sessions at once,
+             ML-KEM-768 x ML-DSA-65, batched ChaCha20-Poly1305, the resume
+             mix and seed 0: no failure, device_served_fraction 1.0, every
+             reconnect resumed by ticket; (c) compat_matrix.run_matrix with
+             batching on over TOOLS_MATRIX (5 combinations, each with
+             ChaCha20-Poly1305 but the last: ML-KEM-768 / ML-DSA-65,
+             FrodoKEM-640-SHAKE / ML-DSA-65, ML-KEM-768 /
+             SPHINCS+-SHA2-128f-simple, HQC-128 / SPHINCS+-SHA2-192f-simple,
+             ML-KEM-768 / AES-256-GCM / ML-DSA-65) and one 10 KB file
+             each: every combination passes; (d) ``python -m
+             quantum_resistant_p2p_tpu_torch.tools.swarm_bench --slo --peers
+             8 --backend cuda --obs-dir <tmp>`` exits 0 with no failure, and
+             ``tools.trace_merge`` (a hub lane and peer lanes) and
+             ``tools.slo_merge`` (hub and proto) over what it wrote exit 0;
+             (e) run_multichip(shard_counts=(1, 2, 4), hs_peers=32): the
+             counts above the GPU count dropped, its encaps/s at n = 1
+             printed beside phase 5's flagship; and the phase's seconds.
+             Cut for the script's time (it ran 1,246 s with phase 22 at
+             full depth on a slow host): (b) 128 -> 32 sessions, (c) 10 ->
+             5 combinations, phase 16's secure messages 64 -> 16.
 
 Every kernel wrapper counts its launches. The counts are set to 0 just
 before each of phases 4-16 (11b included) and read just after it: every
@@ -342,7 +370,10 @@ and K7 must have run.  Phase 21's are its process's, in two windows each
 counted from 0: the split (dryrun_multichip, the split checks and the
 split providers; the unsplit calls and providers they are held to run
 before it), where
-K1-K7 must have run, and the meshed engines, where K8 must have.  The last
+K1-K7 must have run, and the meshed engines, where K8 must have.  Phase
+22's are its process's, in four windows each counted from 0: the swarm
+(K1-K7, K1 with per-row lengths included), the storm (K8), the matrix
+(every kernel, K9-K13 included) and run_multichip (the encaps's).  The last
 three lines of output are the card's name and power limit (nvidia-smi), one JSON object
 with key "kernels", and the result
 line {"ok": true, "device": {...}}.  Without a GPU, or without the package
@@ -530,13 +561,13 @@ TRANSPORT_COOLOFF_S, TRANSPORT_WAIT_S = 0.2, 60.0
 SCHED_RATE_ARMS, SCHED_RATE_ROUNDS = ("plain", "scheduled", "tuned"), 5
 #: the engine phase: the burst clients (SecureMessaging engines sharing one
 #: engine's queues; client 0, with queues of its own, comes on top), the
-#: secure messages client 0 sends after its handshake and their size (64:
+#: secure messages client 0 sends after its handshake and their size (16:
 #: the gateway opens them one at a time, 2.3-3.4 a second, PERF.md §7 item
-#: 8), the messages after each hot swap, the handshake bursts' gateway
+#: 8; cut from 128, then from 64, for the script's time), the messages after each hot swap, the handshake bursts' gateway
 #: (tuned: autotune=True, static: autotune=False) in turn, the trips a lone
 #: handshake may take, the longest wait of the phase's checks, and the wait for the
 #: secure messages (the gateway opens and verifies them one at a time)
-ENGINE_CLIENTS, ENGINE_MESSAGES, ENGINE_MESSAGE_BYTES = 16, 64, 256
+ENGINE_CLIENTS, ENGINE_MESSAGES, ENGINE_MESSAGE_BYTES = 16, 16, 256
 #: phase "hqc": the published sets run at HQC_BATCH (nothing cut), the set
 #: the serve and the gate run, the vector files and the PQCgenKAT fixture
 HQC_BATCH, HQC_BATCHES, HQC_SERVE = 1024, ("HQC-128", "HQC-256"), "HQC-128"
@@ -621,6 +652,28 @@ CLI_AES_REPS = {256: 200, 4096: 40}
 MESH_COPIES, MESH_KEM_BATCH, MESH_SIG_BATCH = 4, 4097, 1025
 MESH_TIMED_REPS, MESH_MESSAGES = 10, 4
 MESH_WAIT_S, MESH_PROCESS_TIMEOUT_S = 120.0, 400.0
+#: phase 22, the tools: BASELINE.json config 5's swarm at its full size with
+#: swarm_bench's CLI defaults (batching on), the in-process hub storm's
+#: sessions (all at once: its concurrency, which caps its warm-ups; 128
+#: until the script's time asked for the cut), the algorithm matrix's
+#: combinations (each KEM family and each signature family, the default
+#: pair under both AEADs: K1-K8 under the default pair, K9-K11 under
+#: FrodoKEM, K12 under 128f, K13 under 192f; 10 before the cut: each KEM
+#: family under each signature family) and its file, the --slo CLI run's peers, run_multichip's
+#: shard counts and handshake peers, the CLIs' limit and the phase
+#: process's limit
+TOOLS_SWARM_PEERS = 1000
+TOOLS_SWARM = {"use_batching": True, "max_batch": 4096, "max_wait_ms": 3.0,
+               "concurrency": 256, "warmup": 32}
+TOOLS_STORM_SESSIONS = 32
+TOOLS_MATRIX = (("ML-KEM-768", AEAD, "ML-DSA-65"), ("FrodoKEM-640-SHAKE", AEAD, "ML-DSA-65"),
+                ("ML-KEM-768", AEAD, "SPHINCS+-SHA2-128f-simple"),
+                ("HQC-128", AEAD, "SPHINCS+-SHA2-192f-simple"),
+                ("ML-KEM-768", "AES-256-GCM", "ML-DSA-65"))
+TOOLS_MATRIX_FILES = {"10KB": 10240}
+TOOLS_SLO_PEERS = 8
+TOOLS_MULTICHIP_COUNTS, TOOLS_MULTICHIP_HS_PEERS = (1, 2, 4), 32
+TOOLS_CLI_TIMEOUT_S, TOOLS_PROCESS_TIMEOUT_S = 300.0, 900.0
 
 
 class PhaseFailed(RuntimeError):
@@ -5126,6 +5179,206 @@ def phase_mesh_process() -> dict:
     return phase_process("--mesh-phase", "mesh", MESH_PROCESS_TIMEOUT_S)
 
 
+def tools_cli(args: list, cwd: str, what: str) -> str:
+    """Run ``python -m quantum_resistant_p2p_tpu_torch.tools.<args>`` with the
+    checkout on PYTHONPATH; it must exit 0 within TOOLS_CLI_TIMEOUT_S.  ->
+    its standard output."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT)] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    try:
+        proc = subprocess.run([sys.executable, "-m", "quantum_resistant_p2p_tpu_torch.tools."
+                               + args[0], *args[1:]], cwd=cwd, env=env, capture_output=True,
+                              text=True, timeout=TOOLS_CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        raise PhaseFailed(f"tools: {what} ran past {TOOLS_CLI_TIMEOUT_S} s") from None
+    if proc.returncode != 0:
+        raise PhaseFailed(f"tools: {what} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def phase_tools(torch, backend: str = "cuda") -> dict:
+    """Phase 22: the port's tools (quantum_resistant_p2p_tpu_torch.tools) on
+    the card (see the module docstring)."""
+    from quantum_resistant_p2p_tpu_torch.tools import compat_matrix, swarm_bench
+
+    t_phase = time.perf_counter()
+    on_card = backend == "cuda"
+    card = smi("name,power.limit") if on_card else "cpu"
+    wrappers = kernel_wrappers()
+    out, counts = {}, {}
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+        for name in SHA2_KERNELS:
+            wrappers[name].split_launches = 0
+
+    def window(tag, expected):
+        got = launch_counts(wrappers)
+        counts[tag] = got
+        idle = [name for name in expected if got[name] == 0]
+        print(f"[tools] {tag} launches (at {time.perf_counter() - t_phase:.1f} s in the "
+              f"phase): {got}")
+        if on_card and idle:
+            raise PhaseFailed(f"tools: {tag}: kernels not launched: {idle}")
+
+    # (a) BASELINE.json config 5: 1000 peers, swarm_bench's CLI defaults
+    reset()
+    t0 = time.perf_counter()
+    sw = asyncio.run(swarm_bench.run_swarm(TOOLS_SWARM_PEERS, backend, **TOOLS_SWARM))
+    out["swarm_s"] = time.perf_counter() - t0
+    window("swarm", HANDSHAKE_KERNELS)
+    hub_fallback = sum(q["fallback_ops"] for fam in sw["hub_queue"].values()
+                       for q in fam.values())
+    out["swarm"] = {k: v for k, v in sw.items() if k not in ("hub_queue", "client_queue")}
+    out["swarm"]["hub_fallback_ops"] = hub_fallback
+    print(f"[tools] {card}: config 5 swarm, {TOOLS_SWARM_PEERS} peers on {backend} "
+          f"(concurrency {TOOLS_SWARM['concurrency']}, warmup {TOOLS_SWARM['warmup']}, "
+          f"max_batch {TOOLS_SWARM['max_batch']}, max_wait {TOOLS_SWARM['max_wait_ms']} ms): "
+          f"{sw['handshakes_per_s']} handshakes/s, p50 {sw['p50_handshake_s']} s p99 "
+          f"{sw['p99_handshake_s']} s, {sw['e2e_msgs_per_s']} msgs/s end to end, elapsed "
+          f"{sw['elapsed_s']} s ({out['swarm_s']:.1f} s with set-up); failures "
+          f"{sw['failures']}, messages {sw['messages_received']}, hub fallback ops "
+          f"{hub_fallback}, device_served_fraction {sw['device_served_fraction']}, "
+          f"{sw['trips_per_handshake']} trips a handshake")
+    if (sw["failures"], sw["messages_received"], hub_fallback) != (0, TOOLS_SWARM_PEERS, 0):
+        raise PhaseFailed(f"tools: the swarm had {sw['failures']} failures, "
+                          f"{sw['messages_received']} of {TOOLS_SWARM_PEERS} messages and "
+                          f"{hub_fallback} hub fallback ops")
+
+    # (b) the in-process hub storm, real providers, the batched ChaCha20-Poly1305
+    reset()
+    t0 = time.perf_counter()
+    st = asyncio.run(swarm_bench.run_storm(TOOLS_STORM_SESSIONS, providers="real",
+                                           aead_mode="chacha", resume_mix=True, seed=0,
+                                           concurrency=TOOLS_STORM_SESSIONS, backend=backend))
+    out["storm_s"] = time.perf_counter() - t0
+    window("storm", HANDSHAKE_KERNELS + ("chacha_blocks",))
+    out["storm"] = {k: st[k] for k in (
+        "sessions", "providers", "aead", "elapsed_s", "failures", "handshakes",
+        "handshakes_per_s", "msgs_sent", "msgs_received", "msgs_per_s", "p50_msg_s", "p99_msg_s",
+        "p50_handshake_s", "p99_handshake_s", "resumed_reconnects",
+        "full_handshake_reconnects", "ticket_resume_rate", "p50_resume_s", "p99_resume_s",
+        "resume_cost_probe", "device_served_fraction", "sheds")}
+    print(f"[tools] storm: {TOOLS_STORM_SESSIONS} sessions, {st['providers']}, {st['aead']} "
+          f"batched: {st['handshakes_per_s']} handshakes/s, {st['msgs_sent']} messages "
+          f"sent, {st['msgs_received']} opened by the hub in the window, "
+          f"first handshake p50 {st['p50_handshake_s']} s p99 {st['p99_handshake_s']} s, "
+          f"send p50 {st['p50_msg_s']} s p99 {st['p99_msg_s']} s, resumes "
+          f"{st['resumed_reconnects']} (full {st['full_handshake_reconnects']}) p50 "
+          f"{st['p50_resume_s']} s, resume probe {st['resume_cost_probe']}, "
+          f"device_served_fraction {st['device_served_fraction']}, elapsed {st['elapsed_s']} "
+          f"s ({out['storm_s']:.1f} s with set-up)")
+    if (st["failures"] != 0 or st["device_served_fraction"] != 1.0
+            or st["resumed_reconnects"] != TOOLS_STORM_SESSIONS
+            or st["full_handshake_reconnects"] != 0):
+        raise PhaseFailed(f"tools: the storm: failures {st['failures']}, "
+                          f"device_served_fraction {st['device_served_fraction']}, "
+                          f"resumed {st['resumed_reconnects']} of {TOOLS_STORM_SESSIONS}, "
+                          f"full reconnects {st['full_handshake_reconnects']}")
+
+    with tempfile.TemporaryDirectory(prefix="qrp2p-tools-") as tmp:
+        # (c) the algorithm matrix through two node stacks, batching on
+        reset()
+        t0 = time.perf_counter()
+        rep = asyncio.run(compat_matrix.run_matrix(
+            None, None, None, backend, Path(tmp) / "compat", file_sizes=TOOLS_MATRIX_FILES,
+            combos=list(TOOLS_MATRIX), use_batching=True))
+        out["matrix_s"] = time.perf_counter() - t0
+        window("matrix", tuple(wrappers))
+        for name in SHA2_KERNELS:
+            print(f"[tools] matrix: {name} {counts['matrix'][name]} launches, "
+                  f"{counts['matrix'][f'{name}[few-row]']} through the few-row path")
+        out["matrix"] = {k: rep[k] for k in ("total", "passed", "failed")}
+        out["matrix"]["combos"] = [
+            {k: r[k] for k in ("kem", "aead", "sig", "key_exchange_time", "file_results",
+                               "error")} for r in rep["results"]]
+        for r in out["matrix"]["combos"]:
+            print(f"[tools] matrix {r['kem']} + {r['aead']} + {r['sig']}: key exchange "
+                  f"{r['key_exchange_time']:.3f} s, files KB/s {r['file_results']}, "
+                  f"error {r['error']}")
+        if (rep["total"], rep["passed"]) != (len(TOOLS_MATRIX),) * 2:
+            raise PhaseFailed(f"tools: the matrix passed {rep['passed']} of {rep['total']}: "
+                              f"{[r for r in out['matrix']['combos'] if r['error']]}")
+
+        # (d) the CLIs: an --slo swarm, then trace_merge and slo_merge over
+        # what it wrote
+        t0 = time.perf_counter()
+        obs_dir = Path(tmp) / "obs"
+        last = tools_cli(["swarm_bench", "--slo", "--peers", str(TOOLS_SLO_PEERS), "--backend",
+                          backend, "--obs-dir", str(obs_dir)], tmp,
+                         "swarm_bench --slo").strip().splitlines()[-1]
+        slo_stats = json.loads(last)
+        if slo_stats["failures"] != 0:
+            raise PhaseFailed(f"tools: swarm_bench --slo had {slo_stats['failures']} failures")
+        tools_cli(["trace_merge", "--out", str(obs_dir / "merged.json"),
+                   str(obs_dir / "swarm_span_dump.json")], tmp, "trace_merge")
+        tools_cli(["slo_merge", "--out", str(obs_dir / "fleet_slo.json"), str(obs_dir)], tmp,
+                  "slo_merge")
+        merged = json.loads((obs_dir / "merged.json").read_text())["otherData"]
+        slo_doc = json.loads((obs_dir / "fleet_slo.json").read_text())
+        lanes = merged["merged_nodes"]
+        if "hub" not in lanes or not any(n.startswith("peer") for n in lanes):
+            raise PhaseFailed(f"tools: the merged trace's lanes are {lanes}")
+        if sorted(slo_doc["nodes"]) != ["hub", "proto"]:
+            raise PhaseFailed(f"tools: slo_merge merged {slo_doc['nodes']}")
+        out["cli"] = {"slo_swarm": {k: slo_stats.get(k) for k in (
+            "handshakes_per_s", "p50_handshake_s", "p99_handshake_s", "trips_per_handshake",
+            "initiator_trips_p50", "initiator_trips_max", "device_served_fraction")},
+            "merged_lanes": len(lanes), "cross_node_edges": merged["cross_node_edges"],
+            "slo_nodes": slo_doc["nodes"], "seconds": time.perf_counter() - t0}
+        print(f"[tools] CLIs: swarm_bench --slo, {TOOLS_SLO_PEERS} peers one at a time: "
+              f"{out['cli']['slo_swarm']}; trace_merge: {len(lanes)} node lanes, "
+              f"{merged['cross_node_edges']} cross-node edges; slo_merge: {slo_doc['nodes']} "
+              f"({out['cli']['seconds']:.1f} s, three processes)")
+
+    # (e) run_multichip: n = 1 on one GPU, the larger counts dropped (it
+    # needs a GPU: a rehearsal on the CPU stops before it)
+    if on_card:
+        reset()
+        t0 = time.perf_counter()
+        mc = swarm_bench.run_multichip(shard_counts=TOOLS_MULTICHIP_COUNTS,
+                                       hs_peers=TOOLS_MULTICHIP_HS_PEERS)
+        out["multichip_s"] = time.perf_counter() - t0
+        window("multichip", ENCAPS_KERNELS)
+        n_gpu = torch.cuda.device_count()
+        want_dropped = [c for c in TOOLS_MULTICHIP_COUNTS if c > n_gpu]
+        out["multichip"] = mc
+        if mc["dropped_shard_counts"] != want_dropped or any(
+                e.get("failures") for e in mc["shards"].values()):
+            raise PhaseFailed(f"tools: run_multichip on {n_gpu} GPU(s): {mc}")
+        print(f"[tools] run_multichip on {n_gpu} GPU(s): shard counts {mc['shard_counts']} "
+              f"ran, {mc['dropped_shard_counts']} dropped; "
+              + "; ".join(f"n = {n}: {e['encaps_per_s']} encaps/s, "
+                          f"{e.get('handshakes_per_s')} handshakes/s"
+                          for n, e in mc["shards"].items()))
+    out["launches"] = counts
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[tools] phase took {out['phase_s']:.1f} s")
+    return out
+
+
+def tools_child() -> int:
+    """Phase 22 in a process of its own (``--tools-phase``, started by
+    phase_tools_process): its launch counts start at 0 in it, and its result,
+    the counts included, is its last line of output."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    try:
+        out = phase_tools(torch)
+    except PhaseFailed as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        return 1
+    print(json.dumps({"tools_phase": out}, default=str))
+    return 0
+
+
+def phase_tools_process() -> dict:
+    """Phase 22 in a fresh process on the same card."""
+    return phase_process("--tools-phase", "tools", TOOLS_PROCESS_TIMEOUT_S)
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -5447,6 +5700,23 @@ def main() -> int:
                                    counts=meshed.pop("engine_launches"))
         launches["mesh"] = {name: mesh_split[name] + mesh_engines_counts[name]
                             for name in mesh_split}
+        # phase 22: the tools, in windows each counted from 0 in the phase's
+        # process: K1-K7 in the swarm, K8 in the storm, every kernel in the
+        # matrix; the multichip encaps's kernels too
+        tooled = phase_tools_process()
+        tool_windows = tooled.pop("launches")
+        read("tools swarm", HANDSHAKE_KERNELS, counts=tool_windows["swarm"])
+        read("tools storm", ("chacha_blocks",), counts=tool_windows["storm"])
+        read("tools matrix", tuple(wrappers), counts=tool_windows["matrix"])
+        read("tools multichip", ENCAPS_KERNELS, counts=tool_windows["multichip"])
+        launches["tools"] = {name: sum(c[name] for c in tool_windows.values())
+                             for name in tool_windows["swarm"]}
+        mc1 = tooled["multichip"]["shards"]["1"]["encaps_per_s"]
+        print(f"[tools] beside phase 5 in this run: run_multichip's n = 1 at "
+              f"{mc1} encaps/s (utils.benchmarking.timeit, ML-KEM-768 at B = "
+              f"{tooled['multichip']['shards']['1']['encaps_batch']}), the flagship at "
+              f"{flagship['encaps_per_s']:.1f} encaps/s (CUDA events), "
+              f"{flagship['encaps_per_s_wall']:.1f} (host clock)")
     except PhaseFailed as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -5476,6 +5746,7 @@ def main() -> int:
             "storm_client_launches": stormed["client_launches"][name],
             "cli_launches": launches["cli"][name],
             "mesh_launches": launches["mesh"][name],
+            "tools_launches": launches["tools"][name],
             "library_ms": (None if any(r["library_ms"] is None for r in mine)
                            else sum(r["library_ms"] for r in mine)),
             "shapes": [r["shape"] for r in mine]})
@@ -5494,6 +5765,7 @@ def main() -> int:
                                  "sphincs_memory": slh_memory, "obs_faults": observed,
                                  "transport": carried, "engine": engined, "fleet": fleeted,
                                  "storm": stormed, "cli": clied, "mesh": meshed,
+                                 "tools": tooled,
                                  "launches": launches, "launches_per_op": per_op,
                                  "engine_swap_launches": swap_launches,
                                  "profile": profiled}}))
@@ -5516,6 +5788,8 @@ if __name__ == "__main__":
         sys.exit(cli_child())
     if sys.argv[1:] == ["--mesh-phase"]:
         sys.exit(mesh_child())
+    if sys.argv[1:] == ["--tools-phase"]:
+        sys.exit(tools_child())
     # this run's health verdicts go to a fresh cache, so every gate of the
     # earlier phases probes the card (phase 15 checks the cache itself)
     with tempfile.TemporaryDirectory(prefix="qrp2p-health-") as _cache:

@@ -360,6 +360,11 @@ class SecureMessaging:
         #: over it, ke_init draws a typed BUSY rejection instead of joining
         #: a pile-up that times every initiator out
         self._hs_budget = max_inflight_handshakes
+        #: responder handshakes in flight that hold a slot of the budget;
+        #: re-keys are exempt from it, so they neither wait for a slot nor
+        #: hold one (the JAX package counts them, and an established
+        #: session's re-keys then keep new sessions shed for as long as
+        #: they run)
         self._responding = 0
         #: per-queue bulk-lane pending bound (0 = unbounded), applied to
         #: every facade queue so a bulk flood sheds bulk, not handshakes
@@ -1650,22 +1655,23 @@ class SecureMessaging:
             self._shed_handshake(peer_id)
             await self._reject(peer_id, message_id, RejectReason.BUSY)
             return
+        budgeted = not self._is_rekey(peer_id)
         if (
             self._hs_budget
             and self._responding >= self._hs_budget
-            and not self._is_rekey(peer_id)
+            and budgeted
         ):
             self._shed_handshake(peer_id)
             await self._reject(peer_id, message_id, RejectReason.BUSY)
             return
-        self._responding += 1
+        self._responding += budgeted
         self._ctr_hs_admitted.inc()  # the shed-rate SLO's "good" side
         try:
             with obs_trace.span("handshake.respond", peer=peer_id[:8],
                                 kem=self.kem.name):
                 await self._handle_ke_init_inner(peer_id, msg, data, message_id)
         finally:
-            self._responding -= 1
+            self._responding -= budgeted
 
     def _shed_handshake(self, peer_id: str) -> None:
         self._ctr_handshake_sheds.inc()

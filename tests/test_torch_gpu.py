@@ -1156,3 +1156,31 @@ def test_mesh_engine_places_every_shard_on_a_gpu(gpu, tmp_path, monkeypatch):
     for kw in ({"shard_devices": n + 1}, {"mesh_devices": n + 1}):
         with pytest.raises(RuntimeError, match=f"need {n + 1} GPU"):
             SecureMessaging(P2PNode("mesh-too-many", "127.0.0.1", 0), use_batching=True, **kw)
+
+
+def test_tools_swarm_of_sixteen_peers_on_the_card(gpu, tmp_path, monkeypatch):
+    """swarm_bench.run_swarm with 16 peers on "cuda", batching on: every
+    handshake and message lands, every op on the device, and the report
+    names the backend; utils.benchmarking.sync fences its CUDA tensors."""
+    from quantum_resistant_p2p_tpu_torch.tools import swarm_bench
+    from quantum_resistant_p2p_tpu_torch.utils import benchmarking
+
+    monkeypatch.setenv("QRP2P_HEALTH_CACHE", str(tmp_path))
+    out = asyncio.run(swarm_bench.run_swarm(16, "cuda", True, 4096, 3.0, 16, warmup=4))
+    assert (out["failures"], out["messages_received"]) == (0, 16)
+    assert out["device_served_fraction"] == 1.0 and out["backend"] == "cuda"
+    benchmarking.sync({"x": [torch.ones(4, device=gpu)], "y": (torch.zeros(1),)})
+    per_call = benchmarking.timeit(lambda: torch.ones(1024, device=gpu) * 3, min_time_s=0.05)
+    assert per_call > 0
+
+
+def test_tools_one_matrix_combination_on_the_card(gpu, tmp_path, monkeypatch):
+    """compat_matrix.run_matrix with one combination (ML-KEM-768,
+    ChaCha20-Poly1305, ML-DSA-65) on "cuda", batching on: it passes."""
+    from quantum_resistant_p2p_tpu_torch.tools import compat_matrix
+
+    monkeypatch.setenv("QRP2P_HEALTH_CACHE", str(tmp_path))
+    rep = asyncio.run(compat_matrix.run_matrix(
+        ["ML-KEM-768"], ["ChaCha20-Poly1305"], ["ML-DSA-65"], "cuda", tmp_path / "out",
+        {"10KB": 10240}, use_batching=True))
+    assert (rep["total"], rep["passed"]) == (1, 1), rep["results"]

@@ -320,9 +320,18 @@ def test_port_imports_no_jax():
         "box = aesgcm.AESGCM(bytes(32))\n"
         "assert box.decrypt(bytes(12), box.encrypt(bytes(12), b'x', b'a'), b'a') == b'x'\n"
         "assert discovery.NodeDiscovery(node_id, 1).get_discovered_nodes() == {}\n"
+        "from quantum_resistant_p2p_tpu_torch.utils import benchmarking\n"
+        "from quantum_resistant_p2p_tpu_torch.tools import (compat_matrix, qrtop, slo_merge,\n"
+        "                                                   swarm_bench, trace_merge)\n"
+        "benchmarking.sync([torch.zeros(1), {'x': (1, torch.ones(2))}])\n"
+        "assert trace_merge.merge([[]])['otherData']['merged_nodes'] == []\n"
+        "assert swarm_bench.snapshot_digest({})['_digest']['registries'] == 0\n"
+        "assert qrtop.render([], {}, 0.0).startswith('GATEWAY')\n"
+        "assert slo_merge.collect_paths([]) == [] and compat_matrix.ComboResult('k', 'a', 's')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'quantum_resistant_p2p_tpu'\n"
-        "             or m.startswith('quantum_resistant_p2p_tpu.'))\n"
+        "             or m.startswith('quantum_resistant_p2p_tpu.')\n"
+        "             or m == 'tools' or m.startswith('tools.'))\n"
         "assert any(m.startswith('quantum_resistant_p2p_tpu_torch') for m in sys.modules)\n"
         "print('LOADED', bad)\n"
     )
