@@ -37,8 +37,9 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              while the GPU sleeps; K11 beside torch.searchsorted); K3 also
              at eta 2 over 4096 and 16384 rows (the serve shape, and e1 + e2
              of one encaps batch in one launch), K4's inverse also at 4096
-             polynomials (the flagship's v), K5 also at 122880 rows
-             (ExpandA of 4096 ML-DSA-65 keys), and K6 at eta 4 and 2 over
+             polynomials (the flagship's v), K5 also at 122880 and 245760
+             rows (ExpandA of 4096 and of 8192 ML-DSA-65 keys, the second
+             BASELINE.json config 4's batch), and K6 at eta 4 and 2 over
              11264 rows (ExpandS of 1024 keys) and at eta 4 over 90112
              (ExpandS of 8192 keys, BASELINE.json config 4's batch);
 3. kat       tests/vectors/mlkem_768.json through keygen/encaps/decaps,
@@ -69,7 +70,15 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              ML-DSA-65 key's precompute, timed with CUDA events, with the
              number of attempts the sign loop ran; the CPU path builds the
              precompute from the key itself, which must equal the GPU's,
-             and signs and verifies the first rows the same;
+             and signs and verifies the first rows the same; then
+             BASELINE.json config 4's ML-DSA-65 half as
+             tools/full_bench.py runs it: 8192 keys from one batched
+             keygen, a cold sign_mu (ExpandA of every key inside the call)
+             over 8192 seeded mu and rnd, and verify_mu; every lane done,
+             every signature verified, a byte flipped in each refused, the
+             first rows byte-identical to the CPU path; each op timed warm
+             by CUDA events and the host clock, with the sign loop's
+             attempts and the peak device memory of the first run;
 8. handshake the default handshake pair, ML-KEM-768 + ML-DSA-65 with
              ChaCha20-Poly1305 as the AEAD, trip by trip as the reference's
              SecureMessaging runs it: 1024 initiators (own ML-DSA-65 keys,
@@ -96,14 +105,19 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              AES-256 CTR-DRBG, on the host) through keygen/encaps/decaps on
              the GPU, byte-exact, a tampered ciphertext giving K(sigma ||
              u || v); phase 4 over get_kem("HQC-128") (no operand cache);
-             keygen, encaps and decaps at B = 1024 of HQC-128 and HQC-256
-             (published parameters), the first rows held to the CPU path,
+             keygen, encaps and decaps at B = 1024 of HQC-128, HQC-192 and
+             HQC-256 (published parameters), the first rows held to the CPU
+             path,
              the odd rows' tampered ciphertexts to their rejection secret and
              the RM and RS decoders to the CPU path on 64 uniform words (most
              RM blocks tied),
              timed with CUDA events and the host clock, with each op's kernel
              launches and K1's device ms (profiler), K1's launches and its
-             peak device memory a row;
+             peak device memory a row; then each of the three sets at B = 1
+             through get_kem(name)'s scalar generate_keypair, encapsulate
+             and decapsulate on "cuda" under a pinned os.urandom: the
+             secrets agree and every byte equals the "cpu" provider's under
+             the same draws, each call timed by the host clock;
 12. sphincs serve  BASELINE.json config 4's "SPHINCS+-SHA2-128s verify":
              2048 SPHINCS+-SHA2-128s keys from one batched keygen, one
              message signed under each by sign_batch (in chunks that fit the
@@ -248,7 +262,9 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              the router ring, handshaking and sending 4 messages with a
              forced drop and a ticket reconnect halfway; a FaultPlan process
              rule SIGKILLs the initial leader rt0 on chaos tick STORM_TICK,
-             and a rolling restart of both routers follows; every session
+             and a rolling restart of both routers follows (each respawn
+             applies the live leader's sync before the next router stops,
+             so the fleet's STEK ring survives the roll); every session
              completes, none lost, no plaintext, at least one router kill
              and one client failover across the router ring, a post-failover
              resume rate of at least 0.9, device_served_fraction 1.0, every
@@ -286,7 +302,12 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              spawn to banner, the first /key's seconds, each round's
              seconds, the vaults' unlock seconds, the host AES-256-GCM's
              seal and open microseconds at 256 B and 4 KiB (OpenSSL's seal
-             beside) and the phase's seconds;
+             beside) and the phase's seconds; then, in the same process, the
+             two-node demo (quantum_resistant_p2p_tpu_torch.demo) on "cuda":
+             two vault + P2PNode + SecureMessaging stacks over 127.0.0.1, the
+             default handshake, a message and a ~115 KiB file arriving, the
+             audit metrics and the key history, a wrong vault password and a
+             forged ciphertext refused, and its seconds;
 21. mesh     in a fresh process of its own (``--mesh-phase``), serving
              across GPUs: entry.dryrun_multichip(torch.cuda.device_count());
              on a Mesh of cuda:0 listed MESH_COPIES times (the card has one
@@ -322,7 +343,7 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              batching on): no failure, 1000 messages received, no fallback
              op at the hub; printed: handshakes/s, p50/p99 handshake
              seconds, end-to-end messages/s and the elapsed seconds; (b)
-             run_storm, the in-process hub storm, with 32 sessions at once,
+             run_storm, the in-process hub storm, with 16 sessions at once,
              ML-KEM-768 x ML-DSA-65, batched ChaCha20-Poly1305, the resume
              mix and seed 0: no failure, device_served_fraction 1.0, every
              reconnect resumed by ticket; (c) compat_matrix.run_matrix with
@@ -341,15 +362,20 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              printed beside phase 5's flagship; and the phase's seconds.
              Cut for the script's time (it ran 1,246 s with phase 22 at
              full depth on a slow host): (b) 128 -> 32 sessions, (c) 10 ->
-             5 combinations, phase 16's secure messages 64 -> 16.
+             5 combinations, phase 16's secure messages 64 -> 16; then, as
+             the close-out's checks came in (1,017 s on a slow host), (b)
+             32 -> 16 sessions and phase 16's thread signs from 1, 4 and 8
+             threads -> 1 and 4.
 
 Every kernel wrapper counts its launches. The counts are set to 0 just
 before each of phases 4-16 (11b included) and read just after it: every
 ML-KEM kernel must have run in phase 4, every kernel that encaps runs in
-phase 5, every ML-DSA kernel and K1 in phase 6, K1 and K7 in phase 7,
+phase 5, every ML-DSA kernel and K1 in phase 6, K1 and K7 in phase 7's
+precompute run and every ML-DSA kernel and K1 in its config 4 run (a
+window of its own),
 every kernel but K8 (K1 with per-row lengths included) in phase 8, K8 in
 phase 9, K1 and K9-K11 in phase 10, K1, K10 and K11 in phase 11, K1 in
-phase 11b, K12 in phase 12 and in each set of phase 13, and K13 in phase
+phase 11b's batches and K1 in its B = 1 calls (a window of its own), K12 in phase 12 and in each set of phase 13, and K13 in phase
 13's 192f run and in its memory check; K12's few-row path in phase 12
 and 13's 128f run, K13's in 13's 192f run; every kernel of phase 8 and
 K8 in phases 14, 15 and 16, K1 and K9-K11 in phase 16's re-handshake after
@@ -366,7 +392,9 @@ before the storm and read just after): every kernel of phase 8 and K8 must
 have run, and each gateway must have launched every one of them.  Phase
 20's are CLI A's (the phase's process), set to 0 just before its /connect
 and read just after its first /key: K1, K2, K3 (prf_cbd_ntt), K4's inverse
-and K7 must have run.  Phase 21's are its process's, in two windows each
+and K7 must have run; then, set to 0 again, the demo's, where every kernel
+of phase 8 but K1 with per-row lengths must have run.  Phase 21's are its
+process's, in two windows each
 counted from 0: the split (dryrun_multichip, the split checks and the
 split providers; the unsplit calls and providers they are held to run
 before it), where
@@ -457,6 +485,9 @@ KEM_KERNELS = ENCAPS_KERNELS + ("mlkem_ntt",)
 SIG_KERNELS = ("keccak_sponge", "mldsa_rej_ntt", "mldsa_rej_bounded", "mldsa_ntt",
                "mldsa_ntt_inv")
 SIG_PRE_KERNELS = ("keccak_sponge", "mldsa_ntt", "mldsa_ntt_inv")
+#: BASELINE.json config 4's ML-DSA-65 half (tools/full_bench.py:221-245):
+#: keygen, a cold sign_mu and verify_mu over this many keys
+CONFIG4_BATCH = 8192
 #: the kernels of the handshake phase (keys are made in it, so K6 too)
 HANDSHAKE_KERNELS = KEM_KERNELS + SIG_KERNELS[1:] + ("keccak_sponge_varlen",)
 #: one ChaCha20 block: 80 quarter rounds of 4 adds, 4 xors and 4 rotates,
@@ -570,7 +601,10 @@ SCHED_RATE_ARMS, SCHED_RATE_ROUNDS = ("plain", "scheduled", "tuned"), 5
 ENGINE_CLIENTS, ENGINE_MESSAGES, ENGINE_MESSAGE_BYTES = 16, 16, 256
 #: phase "hqc": the published sets run at HQC_BATCH (nothing cut), the set
 #: the serve and the gate run, the vector files and the PQCgenKAT fixture
-HQC_BATCH, HQC_BATCHES, HQC_SERVE = 1024, ("HQC-128", "HQC-256"), "HQC-128"
+HQC_BATCH, HQC_BATCHES, HQC_SERVE = 1024, ("HQC-128", "HQC-192", "HQC-256"), "HQC-128"
+#: each set at B = 1 through get_kem's scalar API, "cuda" against "cpu"
+#: under the same pinned draws (seed HQC_SCALAR_SEED + the set's index)
+HQC_SCALAR, HQC_SCALAR_SEED, HQC_SCALAR_REPS = HQC_BATCHES, 11, 3
 HQC_VECTORS, HQC_RSP = ("128", "192", "256"), "PQCgenKAT_hqc128_fixture.rsp"
 #: uniform words through the decoders, card against CPU
 HQC_DECODE_ROWS = 64
@@ -584,7 +618,7 @@ ENGINE_TRIPS_MAX, ENGINE_WAIT_S, ENGINE_MESSAGES_WAIT_S = 4, 120.0, 300.0
 ENGINE_PROCESS_TIMEOUT_S = 900.0
 #: host threads of the phase's process, each signing ENGINE_THREAD_SIGNS
 #: ML-DSA-65 messages at B = 1, after the phase (PERF.md §7 item 8)
-ENGINE_THREADS, ENGINE_THREAD_SIGNS = (1, 4, 8), 4
+ENGINE_THREADS, ENGINE_THREAD_SIGNS = (1, 4), 4
 #: phase 18, the fleet: gateway processes, the client engines (all sharing
 #: one engine's queues in the phase's process), the seed of the fleet's
 #: ring and of the kill's pick, the facades' pre-warm cap (the clients'
@@ -642,7 +676,13 @@ CLI_MESSAGES = 4
 CLI_AEADS = ("AES-256-GCM", "ChaCha20-Poly1305")
 CLI_KERNELS = ("keccak_sponge", "mlkem_sample_ntt", "mlkem_prf_cbd_ntt", "mlkem_ntt_inv",
                "mldsa_ntt")
-CLI_WAIT_S, CLI_PROCESS_TIMEOUT_S = 90.0, 300.0
+#: the two-node demo after the CLIs, in phase 20's process: its kernels
+#: (both ends of a handshake, each engine's ML-DSA keygen) and time limit
+DEMO_KERNELS = ("keccak_sponge", "mlkem_sample_ntt", "mlkem_prf_cbd", "mlkem_prf_cbd_ntt",
+                "mlkem_ntt_inv", "mlkem_ntt", "mldsa_rej_ntt", "mldsa_rej_bounded", "mldsa_ntt",
+                "mldsa_ntt_inv")
+DEMO_TIMEOUT_S = 120.0
+CLI_WAIT_S, CLI_PROCESS_TIMEOUT_S = 90.0, 300.0 + DEMO_TIMEOUT_S
 CLI_AES_REPS = {256: 200, 4096: 40}
 #: phase 21, the mesh: copies of the one GPU the split runs over (the
 #: card has one GPU), the batches held to the unsplit call (not divisible by
@@ -665,7 +705,7 @@ MESH_WAIT_S, MESH_PROCESS_TIMEOUT_S = 120.0, 400.0
 TOOLS_SWARM_PEERS = 1000
 TOOLS_SWARM = {"use_batching": True, "max_batch": 4096, "max_wait_ms": 3.0,
                "concurrency": 256, "warmup": 32}
-TOOLS_STORM_SESSIONS = 32
+TOOLS_STORM_SESSIONS = 16
 TOOLS_MATRIX = (("ML-KEM-768", AEAD, "ML-DSA-65"), ("FrodoKEM-640-SHAKE", AEAD, "ML-DSA-65"),
                 ("ML-KEM-768", AEAD, "SPHINCS+-SHA2-128f-simple"),
                 ("HQC-128", AEAD, "SPHINCS+-SHA2-192f-simple"),
@@ -1048,7 +1088,7 @@ def k4_k5_cases(torch, np, rng, keccak, mlkem, mlkem_cuda, mldsa, mldsa_cuda) ->
     """K4 at u's 12,288 polynomials of the batch-4096 ML-KEM-768 path (3 a
     key), rows of 0 and of q - 1 among them, and the inverse at v's 4,096;
     K5 at ExpandA of the ML-DSA-65 keygen batch (30 rows a key) and of four
-    times as many keys.  The untagged names are the ones the kernels line
+    and eight times as many keys (config 4's 8,192).  The untagged names are the ones the kernels line
     sums."""
     dev = torch.device("cuda")
     polys = torch.from_numpy(rng.integers(0, 3329, size=(BATCH * 3, 256), dtype=np.int32))
@@ -1066,7 +1106,7 @@ def k4_k5_cases(torch, np, rng, keccak, mlkem, mlkem_cuda, mldsa, mldsa_cuda) ->
                       2 * f.numel() * 4, f.shape[0] * ops, f"({f.shape[0]}, 256) int32"))
     p = mldsa.MLDSA65
     n_a = KEYGEN_KEYS * p.k * p.l
-    for tag, rows in (("", n_a), (f"[{4 * n_a}]", 4 * n_a)):
+    for tag, rows in (("", n_a), (f"[{4 * n_a}]", 4 * n_a), (f"[{8 * n_a}]", 8 * n_a)):
         seeds = torch.from_numpy(rng.integers(0, 256, size=(rows, 34), dtype=np.uint8)).to(dev)
         cases.append((f"mldsa_rej_ntt{tag}", f"{SRC}/sig/mldsa_pallas.py:259",
                       lambda x=seeds: mldsa_cuda.rej_ntt(x),
@@ -1395,7 +1435,7 @@ def phase_kat_hqc(torch, hqc, sbox) -> None:
                 if bytes(t[i].cpu().numpy()).hex() != rec["ss"]:
                     raise PhaseFailed(f"KAT {p.name} count {rec['count']}: {name} differs")
             want = hashlib.shake_256(bytes.fromhex(rec["sigma"])
-                                     + bytes(bad[i, :-16].cpu().numpy()) + b"").digest(64)
+                                     + bytes(bad[i, :-16].cpu().numpy()) + b"\x04").digest(64)
             if bytes(rej[i].cpu().numpy()) != want:
                 raise PhaseFailed(f"KAT {p.name} count {rec['count']}: a tampered ciphertext "
                                   "did not give the rejection secret")
@@ -1480,7 +1520,7 @@ def phase_hqc_batch(torch, np, hqc, keccak_cuda, inputs) -> tuple[dict, tuple]:
     if not torch.equal(got[0::2], ss[0::2]):
         raise PhaseFailed(f"{p.name}: GPU decaps of honest ciphertexts differs from encaps")
     sig_h, bad_h = sk[1::2, 40:40 + p.k].cpu().numpy(), bad[1::2, :-16].cpu().numpy()
-    want = [hashlib.shake_256(bytes(a) + bytes(b) + b"").digest(64)
+    want = [hashlib.shake_256(bytes(a) + bytes(b) + b"\x04").digest(64)
             for a, b in zip(sig_h, bad_h)]
     if [bytes(r) for r in got[1::2].cpu().numpy()] != want:
         raise PhaseFailed(f"{p.name}: a tampered ciphertext did not give K(sigma || u || v)")
@@ -1529,6 +1569,53 @@ def phase_hqc_batch(torch, np, hqc, keccak_cuda, inputs) -> tuple[dict, tuple]:
               f"{launched} kernel launches ({k1} of K1, {k1_ms:.4f} ms on the device); peak "
               f"device memory {peak / HQC_BATCH / 1024:.1f} KiB a row")
     return out, (pk, m, salt)
+
+
+def phase_hqc_scalar(get_kem) -> dict:
+    """Phase 11b's B = 1 calls: each HQC set through get_kem(name)'s scalar
+    generate_keypair, encapsulate and decapsulate on "cuda" and on "cpu",
+    each under os.urandom pinned to the same seed: the secrets agree and
+    every byte of the two backends is the same; then HQC_SCALAR_REPS more
+    calls of each op on "cuda", timed by the host clock (the call returns
+    host bytes, so it has synchronised)."""
+    out = {}
+    urandom = os.urandom
+    try:
+        for i, name in enumerate(HQC_SCALAR):
+            got = {}
+            for backend in ("cuda", "cpu"):
+                kem = get_kem(name, backend=backend)
+                os.urandom = pinned_urandom(HQC_SCALAR_SEED + i)
+                pk, sk = kem.generate_keypair()
+                ct, ss = kem.encapsulate(pk)
+                got[backend] = (pk, sk, ct, ss, kem.decapsulate(sk, ct))
+            if got["cuda"][3] != got["cuda"][4]:
+                raise PhaseFailed(f"hqc B = 1: {name} decapsulate disagrees with encapsulate")
+            differ = [what for what, a, b in zip(("pk", "sk", "ct", "ss", "decaps"),
+                                                 got["cuda"], got["cpu"]) if a != b]
+            if differ:
+                raise PhaseFailed(f"hqc B = 1: {name} on cuda differs from cpu in {differ}")
+            os.urandom = urandom
+            kem = get_kem(name)
+            ms = {op: [] for op in ("keygen", "encaps", "decaps")}
+            for _ in range(HQC_SCALAR_REPS):
+                t = time.perf_counter()
+                pk, sk = kem.generate_keypair()
+                ms["keygen"].append(1e3 * (time.perf_counter() - t))
+                t = time.perf_counter()
+                ct, ss = kem.encapsulate(pk)
+                ms["encaps"].append(1e3 * (time.perf_counter() - t))
+                t = time.perf_counter()
+                if kem.decapsulate(sk, ct) != ss:
+                    raise PhaseFailed(f"hqc B = 1: {name} decapsulate disagrees with encapsulate")
+                ms["decaps"].append(1e3 * (time.perf_counter() - t))
+            out[name] = {op: statistics.median(v) for op, v in ms.items()}
+            print(f"[hqc] {name} B=1 via get_kem on cuda: equal to cpu under the same draws; "
+                  + ", ".join(f"{op} {v:.2f} ms" for op, v in out[name].items())
+                  + f" (host clock, median of {HQC_SCALAR_REPS})")
+    finally:
+        os.urandom = urandom
+    return out
 
 
 def slh_host_digests(p, slhdsa_params, sks, msgs) -> tuple[list, list]:
@@ -3150,6 +3237,80 @@ def phase_sig_flagship(torch, mldsa, inputs) -> dict:
     return out
 
 
+def timed_once(torch, fn) -> tuple[float, float]:
+    """(CUDA-event ms, host-clock ms) of one warm run of fn."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), 1e3 * (time.perf_counter() - t0)
+
+
+def phase_sig_config4(torch, np, mldsa) -> dict:
+    """Phase 7's config 4 run: BASELINE.json config 4's ML-DSA-65 half as
+    tools/full_bench.py runs it.  CONFIG4_BATCH keys from one batched keygen,
+    a cold sign_mu over seeded mu and rnd (sign_mu_rounds, the function
+    sign_mu calls, for the attempt counts: ExpandA of every key runs inside
+    the call) and verify_mu: every lane done, every signature verified, a
+    byte flipped in each signature refused, the first rows byte-identical to
+    the CPU path.  The peak device memory is the first run's; each op is
+    then timed once more, warm, by CUDA events and the host clock."""
+    p, batch = mldsa.MLDSA65, CONFIG4_BATCH
+    rng = np.random.default_rng(batch)
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, size=shape, dtype=np.uint8)).to("cuda")
+
+    xi, mu, rnd = u8(batch, 32), u8(batch, 64), u8(batch, 32)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pk, sk = mldsa.keygen(p, xi)
+    sig, done, kappa = mldsa.sign_mu_rounds(p, sk, mu, rnd, 0, mldsa.MAX_SIGN_ITERS)
+    ok = mldsa.verify_mu(p, pk, mu, sig)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    if sig.shape != (batch, p.sig_len) or not bool(done.all()) or not bool(ok.all()):
+        raise PhaseFailed(f"config 4: shape {tuple(sig.shape)}, done {int(done.sum())}, "
+                          f"verified {int(ok.sum())} of {batch}")
+    # one byte flipped in every signature, at a place that walks c~ and z
+    rows = torch.arange(batch, device="cuda")
+    bad = sig.clone()
+    bad[rows, rows * 131 % (p.ctilde_len + 32 * p.l * p.z_bits)] ^= 0x04
+    refused = int((~mldsa.verify_mu(p, pk, mu, bad)).sum())
+    if refused != batch:
+        raise PhaseFailed(f"config 4: {batch - refused} signatures with a flipped byte verified")
+    n = 2
+    cpk, csk = mldsa.keygen(p, xi[:n].cpu())
+    csig, cdone = mldsa.sign_mu(p, csk, mu[:n].cpu(), rnd[:n].cpu())
+    for what, gpu, cpu in (("pk", pk, cpk), ("sk", sk, csk), ("signature", sig, csig)):
+        if not torch.equal(gpu[:n].cpu(), cpu):
+            raise PhaseFailed(f"config 4: the GPU's first {what}s differ from the CPU path's")
+    if not bool(cdone.all()) or not bool(mldsa.verify_mu(p, cpk, mu[:n].cpu(), csig).all()):
+        raise PhaseFailed("config 4: the CPU path does not sign and verify the first rows")
+    checked_s = time.perf_counter() - t0
+    times = {"keygen": timed_once(torch, lambda: mldsa.keygen(p, xi)),
+             "sign": timed_once(torch, lambda: mldsa.sign_mu(p, sk, mu, rnd)),
+             "verify": timed_once(torch, lambda: mldsa.verify_mu(p, pk, mu, sig))}
+    attempts = int(kappa.max()) // p.l + 1  # kappa grows by l for each rejected attempt
+    out = {"batch": batch, "attempts_per_sign_batch": attempts,
+           "mean_attempts_per_lane": float((kappa // p.l + 1).to(torch.float64).mean()),
+           "peak_device_bytes": peak, "checked_s": checked_s}
+    for op, (ms, wall_ms) in times.items():
+        out[op] = {"ms_cuda_events": ms, "ms_wall": wall_ms, "ops_per_s": batch / (ms / 1e3)}
+    print(f"[config 4] ML-DSA-65 at B={batch}, cold (ExpandA in the call): "
+          + ", ".join(f"{op} {out[op]['ms_cuda_events']:.3f} ms (host clock "
+                      f"{out[op]['ms_wall']:.3f}; {out[op]['ops_per_s']:.0f}/s)"
+                      for op in times)
+          + f"; {attempts} sign attempts (mean {out['mean_attempts_per_lane']:.2f} a lane); "
+          f"peak device memory {peak / 2**30:.2f} GiB; the checked run {checked_s:.1f} s")
+    return out
+
+
 def frodo_batch_inputs(torch, np, frodo, name: str):
     """FRODO_BATCH key pairs of one set made by one keygen batch, the first
     key's precompute, and FRODO_BATCH seeded mu rows, all on the GPU."""
@@ -4291,8 +4452,8 @@ async def storm_run(provider, storm_mod, router_mod, messaging_mod, backend: str
                      else "never (not seen before the stop)"))
         roll = r["roll"] or {}
         print(f"[storm] router roll: ok {roll.get('ok')}, "
-              + ", ".join(f"{x['router']} back in {x['took_s']} s"
-                          for x in roll.get("restarted") or []))
+              + ", ".join(f"{x['router']} back in {x['took_s']} s (the leader's sync applied: "
+                          f"{x.get('synced')})" for x in roll.get("restarted") or []))
         print(f"[storm] reconnects: {r['resumed_reconnects']} resumed by ticket "
               f"({r['resumed_reconnects'] - r['post_failover_resumed']} before the failover, "
               f"{r['post_failover_resumed']} after), {r['full_handshake_reconnects']} full "
@@ -4725,10 +4886,34 @@ async def cli_run(torch, backend: str = "cuda") -> dict:
     return out
 
 
+def phase_demo(backend: str = "cuda") -> dict:
+    """Phase 20's demo: ``quantum_resistant_p2p_tpu_torch.demo.run`` on
+    ``backend``, its launches counted from 0 just before it (DEMO_KERNELS
+    must all run on "cuda"); every step must pass."""
+    from quantum_resistant_p2p_tpu_torch import demo
+
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    lines = []
+    t0 = time.perf_counter()
+    res = asyncio.run(asyncio.wait_for(demo.run(backend, out=lines.append), DEMO_TIMEOUT_S))
+    out = {"seconds": time.perf_counter() - t0, "launches": launch_counts(wrappers),
+           "lines": lines}
+    for line in lines:
+        print(f"[demo] {line}")
+    if not demo.passed(res):
+        raise PhaseFailed(f"demo: a step failed: {res}")
+    print(f"[demo] every step passed on {backend} in {out['seconds']:.1f} s")
+    return out
+
+
 def phase_cli(torch, backend: str = "cuda") -> dict:
     """Phase 20: the port's CLI on the card."""
     t0 = time.perf_counter()
-    out = asyncio.run(asyncio.wait_for(cli_run(torch, backend), CLI_PROCESS_TIMEOUT_S - 30.0))
+    out = asyncio.run(asyncio.wait_for(cli_run(torch, backend),
+                                       CLI_PROCESS_TIMEOUT_S - DEMO_TIMEOUT_S - 30.0))
+    out["demo"] = phase_demo(backend)
     out["phase_s"] = time.perf_counter() - t0
     card = smi("name,power.limit") if backend == "cuda" else "cpu"
     us = out["aesgcm_us"]
@@ -5427,14 +5612,24 @@ def main() -> int:
         sources.update({n: f"quantum_resistant_p2p_tpu_torch/csrc/{prefix}.cu" for n in wrappers
                         if n.startswith(prefix)})
 
+    # each phase's seconds: the time since the stamp before it
+    seconds, last = {}, [t_start]
+
+    def stamp(phase):
+        now = time.perf_counter()
+        seconds[phase] = round(now - last[0], 1)
+        last[0] = now
+
     try:
         ptxas = phase_build(cuda)
         sass = keccak_round_sass(cuda)
         sass["chacha_kernel"] = kernel_sass_opcodes(cuda, "chacha", "chacha_kernel")
         sass.update(sha2_block_sass(cuda))
+        stamp("build")
         rows = phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mldsa_cuda,
                              chacha, chacha_cuda, frodo, frodo_cuda,
                              (sha256, sha256_cuda, sha512, sha512_cuda), int_rate)
+        stamp("kernels")
         phase_kat(torch, mlkem)
         phase_kat_mldsa(torch, mldsa)
         phase_kat_frodo(torch, frodo)
@@ -5463,13 +5658,16 @@ def main() -> int:
             of ``few_row`` through its few-row path."""
             if counts is None:
                 counts = launch_counts(wrappers)
-            print(f"[launches] {phase} (at {time.perf_counter() - t_start:.1f} s): {counts}")
+            stamp(phase)
+            print(f"[launches] {phase} (at {time.perf_counter() - t_start:.1f} s, "
+                  f"{seconds[phase]} s since the last stamp): {counts}")
             idle = [name for name in expected if counts[name] == 0]
             idle += [f"{name}[few-row]" for name in few_row if counts[f"{name}[few-row]"] == 0]
             if idle:
                 raise PhaseFailed(f"{phase}: kernels not launched on the main path: {idle}")
             return counts
 
+        stamp("kat and health")
         reset()
         served = asyncio.run(serve(BatchedKEM, kem))
         launches = {"serve": read("serve", KEM_KERNELS)}
@@ -5492,6 +5690,9 @@ def main() -> int:
         reset()
         sig_flagship = phase_sig_flagship(torch, mldsa, dsa_inputs)
         launches["sig_flagship"] = read("sig flagship", SIG_PRE_KERNELS)
+        reset()
+        config4 = phase_sig_config4(torch, np, mldsa)
+        launches["config4"] = read("config 4", SIG_KERNELS)
 
         cpu_dsa = get_signature("ML-DSA-65", backend="cpu")
         reset()
@@ -5544,6 +5745,11 @@ def main() -> int:
         hqc_batch["serve"] = hqc_served
         hqc_batch["phase_s"] = hqc_kat_s + time.perf_counter() - t_hqc
         launches["hqc"] = read("hqc", ("keccak_sponge",))
+        reset()
+        t_scalar = time.perf_counter()
+        hqc_batch["scalar"] = phase_hqc_scalar(get_kem)
+        launches["hqc_scalar"] = read("hqc B = 1", ("keccak_sponge",))
+        hqc_batch["phase_s"] += time.perf_counter() - t_scalar
         print(f"[hqc] phase took {hqc_batch['phase_s']:.1f} s (the vectors {hqc_kat_s:.1f} s)")
 
         reset()
@@ -5622,6 +5828,7 @@ def main() -> int:
         _, per_op["sphincs_128f_verify"] = count(lambda: sverify(spk[:16], sdigest[:16],
                                                                  ssig[:16]))
         print(f"[launches] per batched op: {per_op}")
+        stamp("launches per op")
         fn, args = entry()
         profiled = {
             "flagship": phase_profile(torch, "flagship", lambda: fn(*args), 5),
@@ -5651,6 +5858,7 @@ def main() -> int:
             raise PhaseFailed("profile: the 128s verify batch rejects a signature")
         profiled["sphincs_verify_128s"] = phase_profile(torch, "sphincs_verify_128s",
                                                         lambda: vverify(*vargs), 1)
+        stamp("profile")
         # phase 18: the launches are the gateways', read from their byes (each
         # process counts from 0); SHA-2 runs in no gateway
         fleeted = phase_fleet_process()
@@ -5691,6 +5899,7 @@ def main() -> int:
         # phase's process from 0 just before /connect and read after /key
         clied = phase_cli_process()
         launches["cli"] = read("cli", CLI_KERNELS, counts=clied.pop("launches"))
+        launches["demo"] = read("demo", DEMO_KERNELS, counts=clied["demo"].pop("launches"))
         # phase 21: the split's launches (K1-K7) and the meshed engines' (K8),
         # each window counted from 0 in the phase's process
         meshed = phase_mesh_process()
@@ -5744,7 +5953,9 @@ def main() -> int:
             "fleet_launches": launches["fleet"][name],
             "storm_launches": storm_gateways[name],
             "storm_client_launches": stormed["client_launches"][name],
+            "config4_launches": launches["config4"][name],
             "cli_launches": launches["cli"][name],
+            "demo_launches": launches["demo"][name],
             "mesh_launches": launches["mesh"][name],
             "tools_launches": launches["tools"][name],
             "library_ms": (None if any(r["library_ms"] is None for r in mine)
@@ -5755,9 +5966,13 @@ def main() -> int:
                                            for r in mine})
             kernels[-1]["few_row_launches"] = sum(counts[f"{name}[few-row]"]
                                                   for counts in launches.values())
+    seconds["total"] = round(time.perf_counter() - t_start, 1)
+    print(f"[phases] seconds: {seconds}")
     print(json.dumps({"detail": {"ptxas": ptxas, "keccak_round_sass": sass,
+                                 "phase_seconds": seconds,
                                  "kernel_rows": rows, "serve": served, "flagship": flagship,
                                  "sig_serve": sig_served, "sig_flagship": sig_flagship,
+                                 "config4": config4,
                                  "health": verdicts, "handshake": shaken, "data_plane": plane,
                                  "frodo_serve": frodo_served, "frodo_batch": frodo_batch,
                                  "hqc": hqc_batch,

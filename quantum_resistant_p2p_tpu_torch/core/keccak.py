@@ -7,13 +7,15 @@ launch of kernel K1 (``keccak_cuda.sponge``, ``csrc/sponge.cu``); on a CPU
 tensor it runs :func:`sponge_plain`, the plain PyTorch version that the
 tests hold to the JAX functions and ``hashlib``.
 
-The plain version keeps each 64-bit lane in an int64 tensor.  PyTorch has
-no unsigned 64-bit shifts on the CPU and ``int64 >>`` sign-extends, so every
-right shift is masked back to the bits a logical shift would keep.
+The plain version keeps each 64-bit lane in an int64 tensor, the state
+lane-major, ``(25, n)``, so a round's lane moves are row gathers.  PyTorch
+has no unsigned 64-bit shifts on the CPU and ``int64 >>`` sign-extends, so
+every right shift is masked back to the bits a logical shift would keep.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -69,33 +71,81 @@ PI_SRC = _pi_source()
 RC = _round_constants()
 
 
+@functools.cache
+def _round_tables(device: torch.device) -> tuple:
+    """Index and constant tensors of one round, built once per device.
+
+    The state is lane-major, ``(25, n)``: lane l = x + 5*y is row l, so an
+    index table moves whole rows.  ``y1``, ``y2``, ``y4`` take each lane to
+    the lane 1, 2 and 4 rows down its column (theta's parity in three
+    xors, left at every lane of the column); ``xp`` / ``xm`` give each pi
+    source lane its column's C[x+1] / C[x-1]; ``src`` is pi; ``rot``,
+    ``back`` and ``keep`` rho's rotation of each destination; ``chi1`` /
+    ``chi2`` each lane's neighbours x+1 and x+2 in its row; ``rc`` iota's
+    constants as columns that are zero but in lane 0."""
+
+    def rows(values) -> torch.Tensor:
+        return torch.tensor(values, dtype=torch.int64, device=device)
+
+    def column(values) -> torch.Tensor:
+        return rows(values)[:, None].contiguous()
+
+    def lane(x: int, y: int) -> int:
+        return x % 5 + 5 * (y % 5)
+
+    rot = [RHO[s] for s in PI_SRC]
+    return (rows([lane(l, l // 5 + 1) for l in range(25)]),
+            rows([lane(l, l // 5 + 2) for l in range(25)]),
+            rows([lane(l, l // 5 + 4) for l in range(25)]),
+            rows([(s + 1) % 5 for s in PI_SRC]), rows([(s - 1) % 5 for s in PI_SRC]),
+            rows(PI_SRC), column(rot), column([(64 - r) % 64 for r in rot]),
+            column([(1 << r) - 1 for r in rot]),
+            rows([lane(l + 1, l // 5) for l in range(25)]),
+            rows([lane(l + 2, l // 5) for l in range(25)]),
+            [column([rc] + [0] * 24) for rc in RC])
+
+
+def _permute_lanes(s: torch.Tensor) -> torch.Tensor:
+    """Keccak-f[1600] on a lane-major ``(25, n)`` int64 state -> a new one.
+
+    A round is 24 tensor ops whatever n (a single row's cost is their
+    dispatch): row gathers by the tables of :func:`_round_tables` and
+    in-place bitwise ops on the tensors they make."""
+    y1, y2, y4, xp, xm, src, rot, back, keep, chi1, chi2, rcs = _round_tables(s.device)
+    for rc in rcs:
+        # theta: C[x] at every lane of column x, then D at each pi source
+        u = s.index_select(0, y1)
+        u ^= s
+        v = u.index_select(0, y2)
+        v ^= u
+        c = s.index_select(0, y4)
+        c ^= v
+        d = c.index_select(0, xp)
+        top = d >> 63
+        d <<= 1
+        d -= top  # rotl(C[x+1], 1): the carried bit is the low bit, which << 1 left 0
+        d ^= c.index_select(0, xm)
+        # pi, theta's xor and rho
+        b = s.index_select(0, src)
+        b ^= d
+        low = b >> back
+        low &= keep
+        b <<= rot
+        b |= low
+        # chi and iota
+        g = b.index_select(0, chi1)
+        g.bitwise_not_()
+        g &= b.index_select(0, chi2)
+        b ^= g
+        b ^= rc
+        s = b
+    return s
+
+
 def keccak_f1600(state: torch.Tensor) -> torch.Tensor:
     """Keccak-f[1600] on ``(..., 25)`` int64 lanes (the bits of uint64)."""
-    dev = state.device
-    src = torch.tensor(PI_SRC, device=dev)
-    rot = torch.tensor([RHO[s] for s in PI_SRC], dtype=torch.int64, device=dev)
-    back = (64 - rot) % 64  # the right shift of each rotation; 0 where rot == 0
-    keep = torch.tensor([(1 << r) - 1 for r in (RHO[s] for s in PI_SRC)],
-                        dtype=torch.int64, device=dev)
-    rc = torch.tensor(RC, dtype=torch.int64, device=dev)
-    shape = state.shape
-    s = state.reshape(-1, 5, 5)  # [b, y, x]
-    for r in range(24):
-        # theta
-        c = s[:, 0] ^ s[:, 1] ^ s[:, 2] ^ s[:, 3] ^ s[:, 4]
-        cn = torch.roll(c, -1, dims=-1)  # C[x+1]
-        d = torch.roll(c, 1, dims=-1) ^ ((cn << 1) | ((cn >> 63) & 1))
-        s = s ^ d[:, None, :]
-        # rho + pi
-        b = s.reshape(-1, 25)[:, src]
-        b = (b << rot) | ((b >> back) & keep)
-        b = b.reshape(-1, 5, 5)
-        # chi
-        s = b ^ (~torch.roll(b, -1, dims=-1) & torch.roll(b, -2, dims=-1))
-        # iota
-        s = s.reshape(-1, 25)
-        s = torch.cat([s[:, :1] ^ rc[r], s[:, 1:]], dim=1).reshape(-1, 5, 5)
-    return s.reshape(shape)
+    lanes = state.reshape(-1, 25).t().contiguous()
+    return _permute_lanes(lanes).t().reshape(state.shape)
 
 
 def pad_message(data: torch.Tensor, rate: int, ds_byte: int) -> torch.Tensor:
@@ -111,22 +161,29 @@ def pad_message(data: torch.Tensor, rate: int, ds_byte: int) -> torch.Tensor:
     return out
 
 
-def sponge_plain(data: torch.Tensor, rate: int, ds_byte: int, out_len: int) -> torch.Tensor:
-    """The plain PyTorch sponge: ``(..., L)`` uint8 -> ``(..., out_len)``."""
-    batch = data.shape[:-1]
-    nwords = rate // 8
-    padded = pad_message(data.reshape(math.prod(batch), data.shape[-1]), rate, ds_byte)
-    blocks = padded.view(torch.int64).reshape(padded.shape[0], -1, nwords)
-    state = torch.zeros((padded.shape[0], 25), dtype=torch.int64, device=data.device)
-    for blk in range(blocks.shape[1]):
-        state = torch.cat([state[:, :nwords] ^ blocks[:, blk], state[:, nwords:]], dim=1)
-        state = keccak_f1600(state)
+def _squeeze(s: torch.Tensor, nwords: int, out_len: int, rate: int) -> torch.Tensor:
+    """The first ``out_len`` bytes of the lane-major state's squeeze:
+    ``(25, n)`` int64 -> ``(n, out_len)`` uint8."""
     out = []
     for blk in range(-(-out_len // rate)):
         if blk:
-            state = keccak_f1600(state)
-        out.append(state[:, :nwords].contiguous().view(torch.uint8))
-    return torch.cat(out, dim=1)[:, :out_len].reshape(batch + (out_len,))
+            s = _permute_lanes(s)
+        out.append(s[:nwords].t())
+    return torch.cat(out, dim=1).view(torch.uint8)[:, :out_len]
+
+
+def sponge_plain(data: torch.Tensor, rate: int, ds_byte: int, out_len: int) -> torch.Tensor:
+    """The plain PyTorch sponge: ``(..., L)`` uint8 -> ``(..., out_len)``."""
+    batch = data.shape[:-1]
+    n = math.prod(batch)
+    nwords = rate // 8
+    padded = pad_message(data.reshape(n, data.shape[-1]), rate, ds_byte)
+    blocks = padded.view(torch.int64).reshape(n, -1, nwords).permute(1, 2, 0)
+    s = torch.zeros((25, n), dtype=torch.int64, device=data.device)
+    for block in blocks:
+        s[:nwords] ^= block
+        s = _permute_lanes(s)
+    return _squeeze(s, nwords, out_len, rate).reshape(batch + (out_len,))
 
 
 def sponge(data: torch.Tensor, rate: int, ds_byte: int, out_len: int) -> torch.Tensor:
@@ -168,18 +225,14 @@ def sponge_varlen_plain(data: torch.Tensor, lengths: torch.Tensor, rate: int, ds
     buf = buf ^ torch.where(idx == mlen, ds_byte, 0).to(torch.uint8)
     last_block = mlen // rate
     buf = buf ^ torch.where(idx == (last_block + 1) * rate - 1, 0x80, 0).to(torch.uint8)
-    blocks = buf.view(torch.int64).reshape(n, nblocks, nwords)
-    state = torch.zeros((n, 25), dtype=torch.int64, device=dev)
-    for blk in range(nblocks):
-        nxt = keccak_f1600(torch.cat([state[:, :nwords] ^ blocks[:, blk], state[:, nwords:]],
-                                     dim=1))
-        state = torch.where(blk <= last_block, nxt, state)
-    out = []
-    for blk in range(-(-out_len // rate)):
-        if blk:
-            state = keccak_f1600(state)
-        out.append(state[:, :nwords].contiguous().view(torch.uint8))
-    return torch.cat(out, dim=1)[:, :out_len].reshape(batch + (out_len,))
+    blocks = buf.view(torch.int64).reshape(n, nblocks, nwords).permute(1, 2, 0)
+    last_block = last_block.reshape(1, n)
+    s = torch.zeros((25, n), dtype=torch.int64, device=dev)
+    for blk, block in enumerate(blocks):
+        nxt = s.clone()
+        nxt[:nwords] ^= block
+        s = torch.where(blk <= last_block, _permute_lanes(nxt), s)
+    return _squeeze(s, nwords, out_len, rate).reshape(batch + (out_len,))
 
 
 def sponge_varlen(data: torch.Tensor, lengths: torch.Tensor, rate: int, ds_byte: int,

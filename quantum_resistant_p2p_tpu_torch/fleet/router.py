@@ -587,7 +587,8 @@ class RouterFleet:
     async def restart_router(self, rid: str) -> dict[str, Any]:
         """One replica's roll: graceful stop (SIGTERM — a stopping leader
         goes silent, followers claim), respawn on the SAME ports, await
-        reachable.  A chaos-killed replica just respawns."""
+        reachable, then await the fleet's authority state on it (see
+        :meth:`_await_synced`).  A chaos-killed replica just respawns."""
         member = self.routers[rid]
         t0 = time.monotonic()
         await self._stop_router(member, graceful=True)
@@ -604,12 +605,37 @@ class RouterFleet:
                 break
             except OSError:
                 await asyncio.sleep(0.1)
-        out = {"router": rid, "reachable": reachable,
+        synced = await self._await_synced(rid, deadline) if reachable else None
+        out = {"router": rid, "reachable": reachable, "synced": synced,
                "took_s": round(time.monotonic() - t0, 3)}
         obs_flight.record("router_restarted", **out)
         if not reachable:
             logger.error("router %s never came back after restart", rid)
+        elif synced is False:
+            logger.error("router %s came back but never received the fleet's "
+                         "authority state", rid)
         return out
+
+    async def _await_synced(self, rid: str, deadline: float) -> bool | None:
+        """Whether a respawned replica holds the fleet's authority state
+        (the leader's STEK ring) by ``deadline``: it applied a leader's
+        sync.  A respawn starts with a private random STEK ring (and may
+        briefly claim a lease the live leader then fences); a roll that
+        stopped the next replica, the leader, before this one synced would
+        let it claim the lease for real and push that ring over the
+        gateways', and every ticket minted before the roll would then be
+        refused as unknown_stek.  None when no other replica is alive to
+        sync from or the replica's view cannot be read (no telemetry)."""
+        if not any(m.alive for r, m in self.routers.items() if r != rid):
+            return None
+        while time.monotonic() < deadline:
+            view = await self.router_view(rid)
+            if view is None and self.routers[rid].fleet is None and not self._telemetry:
+                return None
+            if view and (view.get("syncs_applied") or 0) > 0:
+                return True
+            await asyncio.sleep(0.1)
+        return False
 
     async def rolling_restart(self) -> dict[str, Any]:
         """Roll EVERY replica, one at a time, lowest rank first — the
@@ -620,7 +646,7 @@ class RouterFleet:
         results = []
         for rid in sorted(self.routers):
             results.append(await self.restart_router(rid))
-        ok = all(r["reachable"] for r in results)
+        ok = all(r["reachable"] and r["synced"] is not False for r in results)
         obs_flight.record("router_rolling_restart",
                           routers=[r["router"] for r in results], ok=ok)
         return {"restarted": results, "ok": ok}

@@ -167,7 +167,7 @@ def register_storm_providers() -> None:
     if _STORM_REGISTERED:
         return
 
-    from ..provider.base import KeyExchangeAlgorithm, SignatureAlgorithm
+    from ..provider.base import BACKENDS, KeyExchangeAlgorithm, SignatureAlgorithm
     from ..provider.registry import register_kem, register_signature
 
     class StormKEM(KeyExchangeAlgorithm):
@@ -224,6 +224,6 @@ def register_storm_providers() -> None:
                 signature,
                 hashlib.sha256(b"sig" + public_key + message).digest())
 
-    register_kem("STORM-KEM", lambda backend, devices=0: StormKEM(backend))
-    register_signature("STORM-SIG", lambda backend, devices=0: StormSig(backend))
+    register_kem("STORM-KEM", lambda backend, devices=0: StormKEM(backend), BACKENDS)
+    register_signature("STORM-SIG", lambda backend, devices=0: StormSig(backend), BACKENDS)
     _STORM_REGISTERED = True

@@ -35,6 +35,12 @@ def next_pow2(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
 
 
+def backend_desc(backend: str) -> str:
+    """What runs a provider on ``backend``: the last clause of its
+    ``description``, where the reference names JAX/TPU or its CPU core."""
+    return "batched PyTorch/CUDA" if backend == "cuda" else "plain PyTorch CPU"
+
+
 def random_rows(n: int, width: int = 32) -> np.ndarray:
     """(n, width) uint8 from ``os.urandom``: the seeds and signing
     randomness every provider draws on the host."""
@@ -187,14 +193,40 @@ class CryptoAlgorithm(abc.ABC):
         super().__init_subclass__(**kwargs)
         instrument_scalar_ops(cls)
 
+    #: canonical registry name, e.g. "ML-KEM-768"
+    name: str = ""
+    #: human-readable name for UIs and the settings gossip
+    display_name: str = ""
+    description: str = ""
+    #: NIST security level
+    security_level: int = 0
+    #: "cuda" (kernels on the GPU) or "cpu" (the plain PyTorch versions)
+    backend: str = "cuda"
+
+    @property
+    def is_using_mock(self) -> bool:
+        """Never: no provider stands in mock crypto for the real thing."""
+        return False
+
+    @property
+    def actual_variant(self) -> str:
+        return self.name
+
+    def get_security_info(self) -> dict:
+        """The reference's metadata dict, ``backend`` "cuda" or "cpu"."""
+        return {
+            "name": self.name,
+            "display_name": self.display_name,
+            "description": self.description,
+            "security_level": self.security_level,
+            "backend": self.backend,
+            "mock": self.is_using_mock,
+        }
+
 
 class KeyExchangeAlgorithm(CryptoAlgorithm):
     """KEM interface; byte-level scalar API + array-level batch API."""
 
-    #: canonical registry name, e.g. "ML-KEM-768"
-    name: str = ""
-    #: "cuda" (kernels on the GPU) or "cpu" (the plain PyTorch versions)
-    backend: str = "cuda"
     public_key_len: int = 0
     secret_key_len: int = 0
     ciphertext_len: int = 0
@@ -233,10 +265,6 @@ class SignatureAlgorithm(CryptoAlgorithm):
     """Signature interface; verify returns False for a malformed or invalid
     signature (a device failure raises)."""
 
-    #: canonical registry name, e.g. "ML-DSA-65"
-    name: str = ""
-    #: "cuda" (kernels on the GPU) or "cpu" (the plain PyTorch versions)
-    backend: str = "cuda"
     public_key_len: int = 0
     secret_key_len: int = 0
     signature_len: int = 0
@@ -322,10 +350,6 @@ class SymmetricAlgorithm(CryptoAlgorithm):
     12-byte nonce before ``ciphertext || tag``; a failed authentication
     raises ValueError."""
 
-    name: str = ""
-    display_name: str = ""
-    description: str = ""
-    security_level: int = 0
     backend: str = "cpu"
     key_size: int = 32
     nonce_size: int = 12

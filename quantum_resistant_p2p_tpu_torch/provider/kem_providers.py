@@ -24,9 +24,9 @@ import numpy as np
 from ..kem import frodo, hqc, mlkem
 from ..utils.cuda import require_device
 from ..utils.wipe import wipe
-from .base import (BACKENDS, DeviceIO, KeyExchangeAlgorithm, expect_cols, make_provider_mesh,
-                   random_rows)
-from .opcache import DeviceOperandCache
+from .base import (BACKENDS, DeviceIO, KeyExchangeAlgorithm, backend_desc, expect_cols,
+                   make_provider_mesh, random_rows)
+from .opcache import OPCACHE_KEYS, DeviceOperandCache
 
 _LEVEL_TO_MLKEM = {1: mlkem.MLKEM512, 3: mlkem.MLKEM768, 5: mlkem.MLKEM1024}
 
@@ -34,7 +34,8 @@ _LEVEL_TO_MLKEM = {1: mlkem.MLKEM512, 3: mlkem.MLKEM768, 5: mlkem.MLKEM1024}
 class MLKEMKeyExchange(DeviceIO, KeyExchangeAlgorithm):
     """ML-KEM (FIPS 203) at NIST level 1, 3 or 5."""
 
-    def __init__(self, security_level: int = 3, backend: str = "cuda", devices: int = 0):
+    def __init__(self, security_level: int = 3, backend: str = "cuda", devices: int = 0,
+                 opcache_size: int = OPCACHE_KEYS):
         if security_level not in _LEVEL_TO_MLKEM:
             raise ValueError(f"ML-KEM level must be 1/3/5, got {security_level}")
         if backend not in BACKENDS:
@@ -44,14 +45,17 @@ class MLKEMKeyExchange(DeviceIO, KeyExchangeAlgorithm):
         self.security_level = security_level
         self.backend = backend
         self.name = self.params.name
+        self.display_name = f"{self.name} ({backend})"
+        self.description = (f"Module-Lattice KEM, FIPS 203, NIST level {security_level}, "
+                            f"{backend_desc(backend)} backend")
         self.public_key_len = self.params.ek_len
         self.secret_key_len = self.params.dk_len
         self.ciphertext_len = self.params.ct_len
         self._kg, self._enc, self._dec = mlkem.get(self.params.name)
         self._enc_cold, self._enc_pre = mlkem.get_pre(self.params.name)
         #: per-key precompute kept on the device: repeat encaps against one
-        #: peer key skip the key upload and ExpandA
-        self.opcache = DeviceOperandCache()
+        #: peer key skip the key upload and ExpandA.  0 keeps none.
+        self.opcache = DeviceOperandCache(opcache_size) if opcache_size > 0 else None
         self._mesh = make_provider_mesh(devices, backend)
 
     def generate_keypair_batch(self, n: int) -> tuple[np.ndarray, np.ndarray]:
@@ -65,7 +69,8 @@ class MLKEMKeyExchange(DeviceIO, KeyExchangeAlgorithm):
         pks = np.asarray(public_keys)
         n = pks.shape[0]
         m_host = random_rows(n)
-        if self._mesh is not None or not (n and (pks[0] == pks).all()):
+        if (self.opcache is None or self._mesh is not None
+                or not (n and (pks[0] == pks).all())):
             key, ct = self._dispatch(self._enc, pks, m_host)
             wipe(m_host)
             return ct, key
@@ -103,7 +108,7 @@ class FrodoKEMKeyExchange(DeviceIO, KeyExchangeAlgorithm):
     (``use_aes``, the reference's default) or SHAKE-128."""
 
     def __init__(self, security_level: int = 1, backend: str = "cuda", use_aes: bool = True,
-                 devices: int = 0):
+                 devices: int = 0, opcache_size: int = OPCACHE_KEYS):
         if (security_level, use_aes) not in _LEVEL_TO_FRODO:
             raise ValueError(f"FrodoKEM level must be 1/3/5, got {security_level}")
         if backend not in BACKENDS:
@@ -114,6 +119,10 @@ class FrodoKEMKeyExchange(DeviceIO, KeyExchangeAlgorithm):
         self.backend = backend
         self.use_aes = use_aes
         self.name = self.params.name
+        self.display_name = f"{self.name} ({backend})"
+        self.description = (f"Dense-LWE KEM (FrodoKEM round 3), NIST level {security_level}, "
+                            f"{'AES' if use_aes else 'SHAKE'} matrix generation, "
+                            f"{backend_desc(backend)} backend")
         self.public_key_len = self.params.pk_len
         self.secret_key_len = self.params.sk_len
         self.ciphertext_len = self.params.ct_len
@@ -121,8 +130,8 @@ class FrodoKEMKeyExchange(DeviceIO, KeyExchangeAlgorithm):
         self._kg, self._enc, self._dec = frodo.get(self.params.name)
         self._enc_cold, self._enc_pre = frodo.get_pre(self.params.name)
         #: per-key precompute kept on the device: repeat encaps against one
-        #: peer key skip the expansion of its n x n matrix A
-        self.opcache = DeviceOperandCache()
+        #: peer key skip the expansion of its n x n matrix A.  0 keeps none.
+        self.opcache = DeviceOperandCache(opcache_size) if opcache_size > 0 else None
         self._mesh = make_provider_mesh(devices, backend)
 
     def generate_keypair_batch(self, n: int) -> tuple[np.ndarray, np.ndarray]:
@@ -136,7 +145,8 @@ class FrodoKEMKeyExchange(DeviceIO, KeyExchangeAlgorithm):
         pks = np.asarray(public_keys)
         n = pks.shape[0]
         mu_host = random_rows(n, self.params.len_sec)
-        if self._mesh is not None or not (n and (pks[0] == pks).all()):
+        if (self.opcache is None or self._mesh is not None
+                or not (n and (pks[0] == pks).all())):
             out = self._dispatch(self._enc, pks, mu_host)
             wipe(mu_host)
             return out
@@ -178,6 +188,9 @@ class HQCKeyExchange(DeviceIO, KeyExchangeAlgorithm):
         self.security_level = security_level
         self.backend = backend
         self.name = self.params.name
+        self.display_name = f"{self.name} ({backend})"
+        self.description = (f"Quasi-cyclic code-based KEM (HQC round 4 shape), NIST level "
+                            f"{security_level}, {backend_desc(backend)} backend")
         self.public_key_len = self.params.pk_len
         self.secret_key_len = self.params.sk_len
         self.ciphertext_len = self.params.ct_len

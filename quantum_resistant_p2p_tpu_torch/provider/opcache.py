@@ -112,18 +112,25 @@ class DeviceOperandCache:
                 self._entries.popitem(last=False)
                 self.evictions += 1
 
-    def zeroize(self) -> int:
-        """Zero every cached tensor in place on its device, then drop the
-        entries; returns how many were released."""
+    def clear(self) -> int:
+        """Drop every entry, each cached tensor zeroed in place on its device
+        first; returns how many were released (taken under one lock hold, so
+        the count is exact)."""
         with self._lock:
             entries = list(self._entries.values())
             self._entries.clear()
         for val in entries:
             wipe(*val.values())
+        return len(entries)
+
+    def zeroize(self) -> int:
+        """End the cached keys' lifetime (:meth:`clear`) and record it in the
+        flight ring; returns how many were released."""
+        n = self.clear()
         # key-lifetime events belong in the flight ring (counts only,
         # never key identities)
-        obs_flight.record("opcache_zeroized", entries=len(entries))
-        return len(entries)
+        obs_flight.record("opcache_zeroized", entries=n)
+        return n
 
     def stats(self) -> dict[str, int]:
         with self._lock:

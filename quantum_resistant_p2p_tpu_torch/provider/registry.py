@@ -1,7 +1,9 @@
 """Algorithm registry: canonical names to provider factories.
 
-The backend is an orthogonal axis, "cuda" (the default) or "cpu".  There
-is no "auto": a caller that asks for the GPU gets it or an error.  A KEM
+The backend is an orthogonal axis, "cuda" (the default) or "cpu"; each KEM
+and signature is registered with the backends it supports, and asking for
+another raises.  There is no "auto": a caller that asks for the GPU gets it
+or an error.  A KEM
 or signature factory also takes ``devices`` (``get_kem(..., devices=N)``,
 the engine's ``mesh_devices``): N > 0 splits each batch of a "cuda"
 provider across the first N GPUs, -1 across all of them (raising when
@@ -25,9 +27,9 @@ from .kem_providers import FrodoKEMKeyExchange, HQCKeyExchange, MLKEMKeyExchange
 from .sig_providers import MLDSASignature, SPHINCSSignature
 from .symmetric import AES256GCM, ChaCha20Poly1305
 
-# name -> factory(backend, devices) -> algorithm
-_KEMS: dict[str, Callable[[str, int], KeyExchangeAlgorithm]] = {}
-_SIGS: dict[str, Callable[[str, int], SignatureAlgorithm]] = {}
+# name -> (factory(backend, devices) -> algorithm, supported backends)
+_KEMS: dict[str, tuple[Callable[[str, int], KeyExchangeAlgorithm], tuple[str, ...]]] = {}
+_SIGS: dict[str, tuple[Callable[[str, int], SignatureAlgorithm], tuple[str, ...]]] = {}
 _AEADS: dict[str, Callable[[], SymmetricAlgorithm]] = {
     "AES-256-GCM": AES256GCM,
     "ChaCha20-Poly1305": ChaCha20Poly1305,
@@ -41,13 +43,15 @@ _BATCHED_AEADS: dict[str, Callable[[str], BatchedAEADOps]] = {}
 def _get(table: dict, kind: str, name: str, backend: str, devices: int):
     if name not in table:
         raise KeyError(f"unknown {kind} {name!r}; known: {sorted(table)}")
-    if backend not in BACKENDS:
-        raise ValueError(f"backend {backend!r} not supported (have {BACKENDS})")
-    return table[name](backend, devices)
+    factory, backends = table[name]
+    if backend not in backends:
+        raise ValueError(f"backend {backend!r} not supported (have {backends})")
+    return factory(backend, devices)
 
 
-def register_kem(name: str, factory: Callable[[str, int], KeyExchangeAlgorithm]) -> None:
-    _KEMS[name] = factory
+def register_kem(name: str, factory: Callable[[str, int], KeyExchangeAlgorithm],
+                 backends: tuple[str, ...]) -> None:
+    _KEMS[name] = (factory, backends)
 
 
 def get_kem(name: str, backend: str = "cuda", devices: int = 0) -> KeyExchangeAlgorithm:
@@ -58,8 +62,9 @@ def list_kems() -> list[str]:
     return sorted(_KEMS)
 
 
-def register_signature(name: str, factory: Callable[[str, int], SignatureAlgorithm]) -> None:
-    _SIGS[name] = factory
+def register_signature(name: str, factory: Callable[[str, int], SignatureAlgorithm],
+                       backends: tuple[str, ...]) -> None:
+    _SIGS[name] = (factory, backends)
 
 
 def get_signature(name: str, backend: str = "cuda", devices: int = 0) -> SignatureAlgorithm:
@@ -121,23 +126,24 @@ def list_batched_aeads() -> list[str]:
 
 for _level, _name in ((1, "ML-KEM-512"), (3, "ML-KEM-768"), (5, "ML-KEM-1024")):
     register_kem(_name, lambda backend, devices=0, _level=_level: MLKEMKeyExchange(
-        _level, backend, devices=devices))
+        _level, backend, devices=devices), BACKENDS)
 for _level, _size in ((1, 640), (3, 976), (5, 1344)):
     for _aes in (True, False):
         register_kem(f"FrodoKEM-{_size}-{'AES' if _aes else 'SHAKE'}",
                      lambda backend, devices=0, _level=_level, _aes=_aes: FrodoKEMKeyExchange(
-                         _level, backend, use_aes=_aes, devices=devices))
+                         _level, backend, use_aes=_aes, devices=devices), BACKENDS)
 for _level, _size in ((1, 128), (3, 192), (5, 256)):
     register_kem(f"HQC-{_size}", lambda backend, devices=0, _level=_level: HQCKeyExchange(
-        _level, backend, devices=devices))
+        _level, backend, devices=devices), BACKENDS)
 for _level, _name in ((2, "ML-DSA-44"), (3, "ML-DSA-65"), (5, "ML-DSA-87")):
     register_signature(_name, lambda backend, devices=0, _level=_level: MLDSASignature(
-        _level, backend, devices=devices))
+        _level, backend, devices=devices), BACKENDS)
 for _level, _size in ((1, 128), (3, 192), (5, 256)):
     for _fast in (True, False):
         register_signature(f"SPHINCS+-SHA2-{_size}{'f' if _fast else 's'}-simple",
                            lambda backend, devices=0, _level=_level, _fast=_fast:
-                           SPHINCSSignature(_level, backend, fast=_fast, devices=devices))
+                           SPHINCSSignature(_level, backend, fast=_fast, devices=devices),
+                           BACKENDS)
 register_batched_aead("ChaCha20-Poly1305", ChaChaPolyDevice)
 for _kem_name in ("ML-KEM-512", "ML-KEM-768", "ML-KEM-1024"):
     for _sig_name in ("ML-DSA-44", "ML-DSA-65", "ML-DSA-87"):

@@ -29,9 +29,9 @@ import torch
 from ..sig import mldsa, slhdsa_params, sphincs
 from ..utils.cuda import require_device
 from ..utils.wipe import wipe
-from .base import (BACKENDS, DeviceIO, SignatureAlgorithm, expect_cols, expect_len,
-                   make_provider_mesh, random_rows)
-from .opcache import DeviceOperandCache
+from .base import (BACKENDS, DeviceIO, SignatureAlgorithm, backend_desc, expect_cols,
+                   expect_len, make_provider_mesh, random_rows)
+from .opcache import OPCACHE_KEYS, DeviceOperandCache
 
 _LEVEL_TO_MLDSA = {2: mldsa.MLDSA44, 3: mldsa.MLDSA65, 5: mldsa.MLDSA87}
 
@@ -57,7 +57,8 @@ class MLDSASignature(DeviceIO, SignatureAlgorithm):
     ``verify`` returns False for a malformed or invalid signature; a
     device failure raises."""
 
-    def __init__(self, security_level: int = 3, backend: str = "cuda", devices: int = 0):
+    def __init__(self, security_level: int = 3, backend: str = "cuda", devices: int = 0,
+                 opcache_size: int = OPCACHE_KEYS):
         if security_level not in _LEVEL_TO_MLDSA:
             raise ValueError(f"ML-DSA level must be 2/3/5, got {security_level}")
         if backend not in BACKENDS:
@@ -67,6 +68,9 @@ class MLDSASignature(DeviceIO, SignatureAlgorithm):
         self.security_level = security_level
         self.backend = backend
         self.name = self.params.name
+        self.display_name = f"{self.name} ({backend})"
+        self.description = (f"Module-Lattice signature, FIPS 204, NIST level {security_level}, "
+                            f"{backend_desc(backend)} backend")
         self.public_key_len = self.params.pk_len
         self.secret_key_len = self.params.sk_len
         self.signature_len = self.params.sig_len
@@ -75,8 +79,8 @@ class MLDSASignature(DeviceIO, SignatureAlgorithm):
          self._verify_cold, self._verify_pre) = mldsa.get_pre(self.name)
         #: per-key precompute kept on the device: a node signs with one
         #: long-lived key and verifies a peer's one public key, so ExpandA
-        #: and the key NTTs are per-key work
-        self.opcache = DeviceOperandCache()
+        #: and the key NTTs are per-key work.  0 keeps none.
+        self.opcache = DeviceOperandCache(opcache_size) if opcache_size > 0 else None
         self._mesh = make_provider_mesh(devices, backend)
 
     def generate_keypair(self) -> tuple[bytes, bytes]:
@@ -114,7 +118,7 @@ class MLDSASignature(DeviceIO, SignatureAlgorithm):
                     else np.stack([np.frombuffer(r, np.uint8) for r in rnd]))
         mus = np.stack([np.frombuffer(_mu(bytes(sk[64:128]), m), np.uint8)
                         for sk, m in zip(sks, messages)])
-        if self._mesh is not None or not _single_key(sks):
+        if self.opcache is None or self._mesh is not None or not _single_key(sks):
             sigs, done = self._dispatch(self._sign_mu, sks, mus, rnd_host)
             wipe(rnd_host)
             return self._signatures(sigs, done)
@@ -158,7 +162,7 @@ class MLDSASignature(DeviceIO, SignatureAlgorithm):
         trs = ([hashlib.shake_256(pks[0].tobytes()).digest(64)] * len(pks) if single
                else [hashlib.shake_256(pk.tobytes()).digest(64) for pk in pks])
         mus = np.stack([np.frombuffer(_mu(tr, m), np.uint8) for tr, m in zip(trs, messages)])
-        if self._mesh is not None or not single:
+        if self.opcache is None or self._mesh is not None or not single:
             return self._dispatch(self._verify_mu, pks, mus, sigs) & sized
         # Single-key batch (a peer's long-lived key): cached ExpandA and
         # NTT(t1 << d); see sign_batch.
@@ -206,6 +210,10 @@ class SPHINCSSignature(DeviceIO, SignatureAlgorithm):
         self.fast = fast
         self.backend = backend
         self.name = self.params.name
+        self.display_name = f"{self.name} ({backend})"
+        self.description = (f"Stateless hash-based signature, FIPS 205, NIST level "
+                            f"{security_level}, {'fast-sign' if fast else 'small-signature'} "
+                            f"variant, {backend_desc(backend)} backend")
         self.public_key_len = self.params.pk_len
         self.secret_key_len = self.params.sk_len
         self.signature_len = self.params.sig_len

@@ -326,6 +326,9 @@ def expand_mask(p: MLDSAParams, rhopp: torch.Tensor, kappa: torch.Tensor) -> tor
 
 
 _BALL_BYTES = 8 + 1024  # fixed SHAKE squeeze, the reference's convention
+#: one SHAKE256 block: the bytes a CPU call tries first (a lane uses ~62 on
+#: average: 8 sign bytes, then tau = 39-60 swaps at ~10% rejected bytes)
+_BALL_FIRST_BYTES = 136
 
 
 def sample_in_ball(p: MLDSAParams, ctilde: torch.Tensor) -> torch.Tensor:
@@ -335,12 +338,28 @@ def sample_in_ball(p: MLDSAParams, ctilde: torch.Tensor) -> torch.Tensor:
     insertion index is i = 256 - tau + s, the source j is the first byte
     after the previous one that is <= i, c[i] = c[j] and c[j] = ±1 by sign
     bit s.  One step per swap (tau steps), each a search over the buffer;
-    a lane that runs out of bytes stops swapping, as the reference does."""
-    buf = keccak.shake256(ctilde, _BALL_BYTES)
+    a lane that runs out of bytes stops swapping, as the reference does.
+
+    On the CPU, where each Keccak-f is ~24 rounds of tensor-op dispatch,
+    the swaps first run over the first squeezed block alone: if every lane
+    finds all its bytes there, the result is the full buffer's (the
+    searches never reach past it), and the other seven blocks are never
+    squeezed; else the whole buffer is run.  c~ is public, so which of the
+    two ran gives nothing away.  On the GPU the buffer is one K1 launch."""
+    if ctilde.device.type == "cpu":
+        c, alive = _ball_swaps(p, keccak.shake256(ctilde, _BALL_FIRST_BYTES))
+        if bool(alive.all()):
+            return c
+    return _ball_swaps(p, keccak.shake256(ctilde, _BALL_BYTES))[0]
+
+
+def _ball_swaps(p: MLDSAParams, buf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """SampleInBall's swaps over a squeezed buffer (8 sign bytes, then the
+    index bytes) -> (c, whether each lane found every swap's byte)."""
     signs = buf[..., :8].to(torch.int32)
     rejb = buf[..., 8:].to(torch.int32)
-    dev = ctilde.device
-    batch = ctilde.shape[:-1]
+    dev = buf.device
+    batch = buf.shape[:-1]
     tau = p.tau
     at_b = torch.arange(rejb.shape[-1], device=dev)
     at_c = torch.arange(N, device=dev)
@@ -357,7 +376,7 @@ def sample_in_ball(p: MLDSAParams, ctilde: torch.Tensor) -> torch.Tensor:
         sign_val = 1 + ((signs[..., s // 8] >> (s % 8)) & 1) * (Q - 2)  # +1 or -1 mod q
         c[..., i] = torch.where(alive, c.gather(-1, j.to(torch.int64))[..., 0], c[..., i])
         c = torch.where((at_c == j) & alive[..., None], sign_val[..., None], c)
-    return c
+    return c, alive
 
 
 # --------------------------------------------------------------------------

@@ -454,7 +454,7 @@ def test_process_mode_router_fleet_failover_restart_and_no_process_left(run, mon
             await _until(lambda: _leads(other), "the survivor's claim")
             assert await members(other) == {"gw0", "gw1"}, logs()
             restart = await asyncio.wait_for(rf.restart_router(leader), 60.0)
-            assert restart["reachable"], logs()
+            assert restart["reachable"] and restart["synced"], logs()
             m = rf.routers[leader]
             assert (m.ctrl_port, m.telemetry_port) == ports and m.restarts == 1
             pids.add(m.proc.pid)
@@ -481,3 +481,43 @@ def test_process_mode_router_fleet_failover_restart_and_no_process_left(run, mon
     run(main(), 300.0)
     assert len(pids) == 5
     assert not [p for p in pids if _alive(p)]
+
+
+def test_router_roll_after_a_leader_kill_keeps_the_fleets_stek_ring(run, monkeypatch):
+    """A killed leader, then a roll of both replicas (phase 19's order): each
+    respawned replica applies the live leader's sync before the roll stops
+    the next one, so the replica that leads at the end holds the fleet's
+    STEK ring and every gateway keeps the ring it minted tickets under (a
+    respawn that led with its private ring would make them unknown_stek).
+    The reference's roll returns on reachable alone and loses the ring
+    (ROADMAP C9)."""
+    engines = []
+
+    class Recorded(messaging_mod.SecureMessaging):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    monkeypatch.setattr(messaging_mod, "SecureMessaging", Recorded)
+    rf = RouterFleet(2, 2, spawn="task", providers="stdlib", register_timeout=60.0,
+                     gateway_kw={"backend": "cpu", "prewarm_cap": 0})
+
+    async def main():
+        await rf.start()
+        try:
+            first = await rf.await_leader(WAIT_S)
+            ring = (await rf.router_view(first))["stek_epoch"]
+            await _until(lambda: [e.tickets.current_epoch for e in engines] == [ring, ring],
+                         "the fleet's ring on both gateways")
+            await rf.kill_router(first)
+            await _until(rf.leader_id, "the survivor's claim")
+            rolled = await rf.rolling_restart()
+            assert rolled["ok"] and all(r["synced"] for r in rolled["restarted"]), rolled
+            await asyncio.sleep(1.0)  # a lease interval for any late claim
+            views = [await rf.router_view(rid) for rid in sorted(rf.routers)]
+            assert [v["stek_epoch"] for v in views] == [ring, ring]
+            assert [e.tickets.current_epoch for e in engines] == [ring, ring]
+        finally:
+            await rf.stop()
+
+    run(main(), 180.0)

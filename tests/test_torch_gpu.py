@@ -17,6 +17,8 @@ absorbs), and SPHINCS+-SHA2's to tests/vectors/slhdsa_*.json.
 import asyncio
 import hashlib
 import json
+import os
+import random
 from pathlib import Path
 
 import numpy as np
@@ -175,6 +177,28 @@ def test_mldsa65_gpu_path_matches_cpu_path(gpu):
     bad = sig.clone()
     bad[:, -1] ^= 0xFF
     assert not mldsa.verify_mu(p, pk, mu.to(gpu), bad).any()
+
+
+def test_mldsa65_config4_cold_sign_and_verify_at_8192(gpu):
+    """BASELINE.json config 4's ML-DSA-65 half: 8,192 keys from one batched
+    keygen, a cold sign_mu (ExpandA of every key in the call) and verify_mu:
+    every lane done, every signature verified, a byte flipped in each
+    refused, the first rows equal to the CPU path."""
+    p, batch = mldsa.MLDSA65, 8192
+    xi, mu, rnd = _u8(120, batch, 32), _u8(121, batch, 64), _u8(122, batch, 32)
+    pk, sk = mldsa.keygen(p, xi.to(gpu))
+    sig, done = mldsa.sign_mu(p, sk, mu.to(gpu), rnd.to(gpu))
+    assert done.all()
+    assert mldsa.verify_mu(p, pk, mu.to(gpu), sig).all()
+    rows = torch.arange(batch, device=gpu)
+    bad = sig.clone()
+    bad[rows, rows * 131 % (p.ctilde_len + 32 * p.l * p.z_bits)] ^= 0x04
+    assert not mldsa.verify_mu(p, pk, mu.to(gpu), bad).any()
+    pk_c, sk_c = mldsa.keygen(p, xi[:2])
+    sig_c, done_c = mldsa.sign_mu(p, sk_c, mu[:2], rnd[:2])
+    assert done_c.all()
+    for a, b in ((pk, pk_c), (sk, sk_c), (sig, sig_c)):
+        assert torch.equal(a[:2].cpu(), b)
 
 
 def test_batched_signature_on_the_default_backend(gpu):
@@ -542,6 +566,45 @@ def test_hqc_gpu_path_matches_vectors_and_cpu(gpu, tag):
         assert torch.equal(got, want)
     assert torch.equal(outs["cpu"][4][:32], outs["cpu"][3][:32])
     assert not (outs["cpu"][4][32:] == outs["cpu"][3][32:]).all(-1).any()
+
+
+def test_hqc192_at_1024_rows_matches_cpu(gpu):
+    """HQC-192 keygen, encaps and decaps at B = 1024: the first rows equal
+    to the CPU path, the honest rows' secrets agree and each tampered odd
+    row gives its rejection secret K(sigma || u || v)."""
+    p = hqc.PARAMS["HQC-192"]
+    ins = [_u8(130 + j, 1024, n) for j, n in enumerate((40, p.k, 40, p.k, 16))]
+    sk_seed, sigma, pk_seed, m, salt = (t.to(gpu) for t in ins)
+    pk, sk = hqc.keygen(p, sk_seed, sigma, pk_seed)
+    ct, ss = hqc.encaps(p, pk, m, salt)
+    bad = ct.clone()
+    bad[1::2, 3] ^= 0x20
+    got = hqc.decaps(p, sk, bad)
+    assert torch.equal(got[0::2], ss[0::2])
+    want = [hashlib.shake_256(bytes(a) + bytes(b) + b"\x04").digest(64)  # K's domain byte
+            for a, b in zip(sk[1::2, 40:40 + p.k].cpu().numpy(), bad[1::2, :-16].cpu().numpy())]
+    assert [bytes(r) for r in got[1::2].cpu().numpy()] == want
+    cpk, csk = hqc.keygen(p, *(t[:2] for t in ins[:3]))
+    cct, css = hqc.encaps(p, cpk, ins[3][:2], ins[4][:2])
+    for a, b in ((pk, cpk), (sk, csk), (ct, cct), (ss, css),
+                 (got, hqc.decaps(p, csk, bad[:2].cpu()))):
+        assert torch.equal(a[:2].cpu(), b)
+
+
+@pytest.mark.parametrize("name", ["HQC-128", "HQC-192", "HQC-256"])
+def test_hqc_scalar_calls_on_the_card_match_cpu(gpu, name, monkeypatch):
+    """B = 1 through get_kem's scalar generate_keypair, encapsulate and
+    decapsulate: the secrets agree, and "cuda" gives the "cpu" provider's
+    bytes under the same os.urandom draws."""
+    got = {}
+    for backend in ("cuda", "cpu"):
+        monkeypatch.setattr(os, "urandom", random.Random(7).randbytes)
+        kem = get_kem(name, backend=backend)
+        pk, sk = kem.generate_keypair()
+        ct, ss = kem.encapsulate(pk)
+        got[backend] = (pk, sk, ct, ss, kem.decapsulate(sk, ct))
+    assert got["cuda"] == got["cpu"]
+    assert got["cuda"][3] == got["cuda"][4]
 
 
 @pytest.mark.parametrize("name", ["HQC-128", "HQC-256"])

@@ -10,6 +10,7 @@ kernels themselves run only on a GPU (tests/test_torch_gpu.py).
 """
 
 import functools
+import gc
 import hashlib
 import json
 from pathlib import Path
@@ -29,6 +30,14 @@ from quantum_resistant_p2p_tpu_torch.sig import mldsa_cuda, params
 VECTOR_DIR = Path(__file__).parent / "vectors"
 NAMES = ["ML-DSA-44", "ML-DSA-65", "ML-DSA-87"]
 B = 3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_jax():
+    """JAX's compiled programs released at the module's end (ROADMAP C1)."""
+    yield
+    jax.clear_caches()
+    gc.collect()
 
 
 def _u8(seed: int, *shape) -> np.ndarray:
@@ -157,6 +166,25 @@ def test_sample_in_ball_matches_jax(name):
     got = tm.sample_in_ball(p, _t(ct)).numpy()
     assert np.array_equal(got, np.asarray(_jit(jm.sample_in_ball, pj)(ct)))
     assert ((got == 1) | (got == params.Q - 1)).sum(-1).tolist() == [p.tau] * 8
+
+
+@pytest.mark.parametrize("first,squeezes", [(136, [136]), (16, [16, 1032])])
+@pytest.mark.parametrize("name", NAMES)
+def test_sample_in_ball_first_block_and_full_buffer_match_jax(name, first, squeezes,
+                                                              monkeypatch):
+    """On the CPU the swaps run over the first squeezed block when it holds
+    every lane's bytes (one squeeze), else over the reference's whole
+    buffer (a second squeeze): forced here with a first try of 16 bytes.
+    Both give the JAX function's output at 64 lanes."""
+    p, pj = tm.PARAMS[name], jm.PARAMS[name]
+    ct = _u8(41, 64, p.ctilde_len)
+    lens = []
+    shake = tm.keccak.shake256
+    monkeypatch.setattr(tm, "_BALL_FIRST_BYTES", first)
+    monkeypatch.setattr(tm.keccak, "shake256", lambda x, n: lens.append(n) or shake(x, n))
+    got = tm.sample_in_ball(p, _t(ct)).numpy()
+    assert lens == squeezes
+    assert np.array_equal(got, np.asarray(_jit(jm.sample_in_ball, pj)(ct)))
 
 
 @pytest.mark.parametrize("bits", [3, 4, 6, 10, 13, 18, 20])

@@ -328,6 +328,8 @@ def test_port_imports_no_jax():
         "assert swarm_bench.snapshot_digest({})['_digest']['registries'] == 0\n"
         "assert qrtop.render([], {}, 0.0).startswith('GATEWAY')\n"
         "assert slo_merge.collect_paths([]) == [] and compat_matrix.ComboResult('k', 'a', 's')\n"
+        "from quantum_resistant_p2p_tpu_torch import demo\n"
+        "assert demo.passed.__module__ == 'quantum_resistant_p2p_tpu_torch.demo'\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'quantum_resistant_p2p_tpu'\n"
         "             or m.startswith('quantum_resistant_p2p_tpu.')\n"
