@@ -41,9 +41,25 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              rows (ExpandA of 4096 and of 8192 ML-DSA-65 keys, the second
              BASELINE.json config 4's batch), and K6 at eta 4 and 2 over
              11264 rows (ExpandS of 1024 keys) and at eta 4 over 90112
-             (ExpandS of 8192 keys, BASELINE.json config 4's batch);
-3. kat       tests/vectors/mlkem_768.json through keygen/encaps/decaps,
-             tests/vectors/mldsa_65.json through keygen/sign/verify and the
+             (ExpandS of 8192 keys, BASELINE.json config 4's batch); and
+             every kernel launch of one ML-KEM-768 encaps at BASELINE.json
+             config 2's widest batch, B = 16384, on the arguments that call
+             launched it with: K1 at H (16384 x 1184 -> 32) and G (16384 x
+             64 -> 64), K2 over A (147456 rows), K3 at e1 + e2 (65536 rows,
+             eta 2) and fused at r (49152 rows), K4's inverse at u (49152
+             polynomials) and v (16384); and K1 at J (16384 x 1120 -> 32) of
+             a decaps batch as wide;
+3. kat       tests/vectors/mlkem_512.json, mlkem_768.json and
+             mlkem_1024.json through keygen/encaps/decaps (implicit rejection
+             too), mldsa_44.json, mldsa_65.json and mldsa_87.json through
+             keygen/sign/verify, each file's first record once more through
+             get_kem / get_signature on "cuda" (os.urandom set to its seeds);
+             acvp_mldsa44_fixture.json's keyGen, sigGen (internal interface,
+             the record's rnd) and sigVer records (testPassed false ones
+             included), and the stanzas of PQCgenKAT_mlkem512_fixture.rsp and
+             PQCgenKAT_frodo640shake_fixture.rsp (seeds by the KAT harness's
+             AES-256 CTR-DRBG, on the host) through keygen/encaps/decaps, one
+             record of each once more through the registry on "cuda"; the
              six tests/vectors/frodo_*.json through keygen/encaps/decaps on
              the GPU, byte-exact; the RFC 8439 §2.3.2 block, §2.5.2 Poly1305
              and §2.8.2 AEAD vectors through core.chacha on the GPU; the
@@ -61,6 +77,14 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              and a tampered ciphertext does not give the secret;
 5. flagship  entry(): batched ML-KEM-768 encaps at B = 4096, checked
              against the CPU path on its first rows, timed with CUDA events;
+5b. config 2  BASELINE.json config 2 as tools/full_bench.py:104-171 runs it,
+             operands on the card: keygen, encaps and decaps of ML-KEM-512,
+             -768 and -1024 at B = 4096, then ML-KEM-768 encaps at B = 256,
+             512, ..., 16384; every decaps gives the key back, rows 0-15 and
+             the last 16 of every batch equal the "cpu" path's bytes for the
+             same inputs, each op timed warm (CUDA events and the host
+             clock; ms a batch and ops/s printed beside the card's name and
+             power limit, first readings);
 6. sig serve BatchedSignature over get_signature("ML-DSA-65") (GPU
              backend), max_batch 4096, max_wait 2 ms: one server key made
              in the phase, 1024 concurrent clients sign with it twice (the
@@ -78,7 +102,10 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              every signature verified, a byte flipped in each refused, the
              first rows byte-identical to the CPU path; each op timed warm
              by CUDA events and the host clock, with the sign loop's
-             attempts and the peak device memory of the first run;
+             attempts and the peak device memory of the first run; then
+             ML-DSA-44 and ML-DSA-87 the same way at B = 4096 (their ExpandA,
+             ExpandS at eta 2 and ML-DSA-44's 576-byte ExpandMask rows),
+             rows 0-15 held to the CPU path;
 8. handshake the default handshake pair, ML-KEM-768 + ML-DSA-65 with
              ChaCha20-Poly1305 as the AEAD, trip by trip as the reference's
              SecureMessaging runs it: 1024 initiators (own ML-DSA-65 keys,
@@ -197,7 +224,7 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              agreeing; every burst client at once against the tuned and
              the static gateway in turns (every key agrees, one
              encaps_verify_sign op a handshake; flush sizes, handshakes/s
-             and each client's handshake_latency_s printed); 16 secure
+             and each client's handshake_latency_s printed); 8 secure
              messages of 256 B sent at once from client 0, signed, sealed,
              opened and verified through the engines' queues, arriving in
              order (one open op each); a ticket resume on a fresh
@@ -227,8 +254,8 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              of 3 gateway processes (``python -m
              quantum_resistant_p2p_tpu_torch.fleet.gateway``) on "cuda",
              each serving ML-KEM-768 x ML-DSA-65 (fused) and
-             ChaCha20-Poly1305 with its facades pre-warmed to 16 rows,
-             behind the router in the phase's process; 12 client engines
+             ChaCha20-Poly1305 with its facades pre-warmed to 8 rows,
+             behind the router in the phase's process; 8 client engines
              sharing one engine's queues each ask the router for their
              gateway, handshake at once and send two messages, the second
              round sent once the gateways have opened every first one (the
@@ -259,8 +286,8 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              16 rows, register_timeout 90 s; 16 sessions arriving over ~2 s
              from a client plane in the phase's process (one engine's queues,
              ChaCha20-Poly1305 as the gateways' AEAD), each routed through
-             the router ring, handshaking and sending 4 messages with a
-             forced drop and a ticket reconnect halfway; a FaultPlan process
+             the router ring, handshaking and sending 2 messages with a
+             forced drop and a ticket reconnect between them; a FaultPlan process
              rule SIGKILLs the initial leader rt0 on chaos tick STORM_TICK,
              and a rolling restart of both routers follows (each respawn
              applies the live leader's sync before the next router stops,
@@ -347,17 +374,17 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              ML-KEM-768 x ML-DSA-65, batched ChaCha20-Poly1305, the resume
              mix and seed 0: no failure, device_served_fraction 1.0, every
              reconnect resumed by ticket; (c) compat_matrix.run_matrix with
-             batching on over TOOLS_MATRIX (5 combinations, each with
-             ChaCha20-Poly1305 but the last: ML-KEM-768 / ML-DSA-65,
-             FrodoKEM-640-SHAKE / ML-DSA-65, ML-KEM-768 /
-             SPHINCS+-SHA2-128f-simple, HQC-128 / SPHINCS+-SHA2-192f-simple,
-             ML-KEM-768 / AES-256-GCM / ML-DSA-65) and one 10 KB file
+             batching on over TOOLS_MATRIX (3 combinations: ML-KEM-768 /
+             AES-256-GCM / ML-DSA-65, FrodoKEM-640-SHAKE /
+             ChaCha20-Poly1305 / SPHINCS+-SHA2-128f-simple, HQC-128 /
+             ChaCha20-Poly1305 / SPHINCS+-SHA2-192f-simple: every KEM and
+             signature family, both AEADs, K1-K13) and one 10 KB file
              each: every combination passes; (d) ``python -m
              quantum_resistant_p2p_tpu_torch.tools.swarm_bench --slo --peers
-             8 --backend cuda --obs-dir <tmp>`` exits 0 with no failure, and
+             4 --backend cuda --obs-dir <tmp>`` exits 0 with no failure, and
              ``tools.trace_merge`` (a hub lane and peer lanes) and
              ``tools.slo_merge`` (hub and proto) over what it wrote exit 0;
-             (e) run_multichip(shard_counts=(1, 2, 4), hs_peers=32): the
+             (e) run_multichip(shard_counts=(1, 2, 4), hs_peers=8): the
              counts above the GPU count dropped, its encaps/s at n = 1
              printed beside phase 5's flagship; and the phase's seconds.
              Cut for the script's time (it ran 1,246 s with phase 22 at
@@ -365,14 +392,23 @@ Phases, each of which fails the run (exit 1) if anything is wrong:
              5 combinations, phase 16's secure messages 64 -> 16; then, as
              the close-out's checks came in (1,017 s on a slow host), (b)
              32 -> 16 sessions and phase 16's thread signs from 1, 4 and 8
-             threads -> 1 and 4.
+             threads -> 1 and 4; then, paying for the next checks (phase 2's
+             16384 encaps, phase 3's files, 5b, phase 7's ML-DSA-44 and -87;
+             743 s on the H100 before these cuts),
+             phase 16's secure messages 16 -> 8, phase 18's clients 12 ->
+             8 (pre-warm 16 -> 8 rows), phase 19's messages a session 4 ->
+             2, and in this phase (c) 5 -> 3 combinations, (d) 8 -> 4
+             peers and (e) 32 -> 8 handshake peers; and phase 17 reads each
+             window's kernels from the profiler's raw events, not
+             key_averages() (the same numbers; phase 17 72.9 -> 20.4 s on
+             the H100).
 
 Every kernel wrapper counts its launches. The counts are set to 0 just
 before each of phases 4-16 (11b included) and read just after it: every
 ML-KEM kernel must have run in phase 4, every kernel that encaps runs in
-phase 5, every ML-DSA kernel and K1 in phase 6, K1 and K7 in phase 7's
-precompute run and every ML-DSA kernel and K1 in its config 4 run (a
-window of its own),
+phase 5, every ML-KEM kernel in phase 5b, every ML-DSA kernel and K1 in
+phase 6, K1 and K7 in phase 7's precompute run and every ML-DSA kernel and
+K1 in its config 4 run and in its ML-DSA-44 and -87 runs (a window each),
 every kernel but K8 (K1 with per-row lengths included) in phase 8, K8 in
 phase 9, K1 and K9-K11 in phase 10, K1, K10 and K11 in phase 11, K1 in
 phase 11b's batches and K1 in its B = 1 calls (a window of its own), K12 in phase 12 and in each set of phase 13, and K13 in phase
@@ -488,6 +524,19 @@ SIG_PRE_KERNELS = ("keccak_sponge", "mldsa_ntt", "mldsa_ntt_inv")
 #: BASELINE.json config 4's ML-DSA-65 half (tools/full_bench.py:221-245):
 #: keygen, a cold sign_mu and verify_mu over this many keys
 CONFIG4_BATCH = 8192
+#: the other two ML-DSA sets, as config 4 runs ML-DSA-65: keygen, a cold
+#: sign_mu and verify_mu at this batch (ML-DSA-44's gamma1 = 2^17 gives
+#: ExpandMask 576 bytes a row; ML-DSA-87's ExpandA is 56 K5 rows a key), the
+#: first rows held to the CPU path
+MLDSA_COLD_SETS, MLDSA_COLD_BATCH, MLDSA_COLD_CPU_ROWS = ("ML-DSA-44", "ML-DSA-87"), 4096, 16
+#: BASELINE.json config 2 as tools/full_bench.py:104-171 runs it, operands
+#: on the card: keygen, encaps and decaps of each ML-KEM set at
+#: CONFIG2_BATCH, and the ML-KEM-768 encaps curve; CONFIG2_ROWS rows at each
+#: end of every batch held to the CPU path, and each op timed warm over
+#: CONFIG2_REPS runs
+CONFIG2_SETS, CONFIG2_BATCH = ("ML-KEM-512", "ML-KEM-768", "ML-KEM-1024"), 4096
+CONFIG2_CURVE = (256, 512, 1024, 2048, 4096, 8192, 16384)
+CONFIG2_ROWS, CONFIG2_REPS = 16, 10
 #: the kernels of the handshake phase (keys are made in it, so K6 too)
 HANDSHAKE_KERNELS = KEM_KERNELS + SIG_KERNELS[1:] + ("keccak_sponge_varlen",)
 #: one ChaCha20 block: 80 quarter rounds of 4 adds, 4 xors and 4 rotates,
@@ -592,13 +641,14 @@ TRANSPORT_COOLOFF_S, TRANSPORT_WAIT_S = 0.2, 60.0
 SCHED_RATE_ARMS, SCHED_RATE_ROUNDS = ("plain", "scheduled", "tuned"), 5
 #: the engine phase: the burst clients (SecureMessaging engines sharing one
 #: engine's queues; client 0, with queues of its own, comes on top), the
-#: secure messages client 0 sends after its handshake and their size (16:
+#: secure messages client 0 sends after its handshake and their size (8:
 #: the gateway opens them one at a time, 2.3-3.4 a second, PERF.md §7 item
-#: 8; cut from 128, then from 64, for the script's time), the messages after each hot swap, the handshake bursts' gateway
+#: 8; cut from 128, then 64, then 16, for the script's time), the messages
+#: after each hot swap, the handshake bursts' gateway
 #: (tuned: autotune=True, static: autotune=False) in turn, the trips a lone
 #: handshake may take, the longest wait of the phase's checks, and the wait for the
 #: secure messages (the gateway opens and verifies them one at a time)
-ENGINE_CLIENTS, ENGINE_MESSAGES, ENGINE_MESSAGE_BYTES = 16, 16, 256
+ENGINE_CLIENTS, ENGINE_MESSAGES, ENGINE_MESSAGE_BYTES = 16, 8, 256
 #: phase "hqc": the published sets run at HQC_BATCH (nothing cut), the set
 #: the serve and the gate run, the vector files and the PQCgenKAT fixture
 HQC_BATCH, HQC_BATCHES, HQC_SERVE = 1024, ("HQC-128", "HQC-192", "HQC-256"), "HQC-128"
@@ -606,6 +656,12 @@ HQC_BATCH, HQC_BATCHES, HQC_SERVE = 1024, ("HQC-128", "HQC-192", "HQC-256"), "HQ
 #: under the same pinned draws (seed HQC_SCALAR_SEED + the set's index)
 HQC_SCALAR, HQC_SCALAR_SEED, HQC_SCALAR_REPS = HQC_BATCHES, 11, 3
 HQC_VECTORS, HQC_RSP = ("128", "192", "256"), "PQCgenKAT_hqc128_fixture.rsp"
+#: phase 3's ML-KEM and ML-DSA vector files (every set the registry
+#: serves), the PQCgenKAT ML-KEM-512 and FrodoKEM-640-SHAKE fixtures (seeds
+#: by the KAT harness's DRBG) and the ACVP ML-DSA-44 fixture
+MLKEM_VECTORS, MLDSA_VECTORS = ("512", "768", "1024"), ("44", "65", "87")
+MLKEM_RSP, FRODO_RSP = "PQCgenKAT_mlkem512_fixture.rsp", "PQCgenKAT_frodo640shake_fixture.rsp"
+MLDSA_ACVP = "acvp_mldsa44_fixture.json"
 #: uniform words through the decoders, card against CPU
 HQC_DECODE_ROWS = 64
 #: the phase 16 hot swaps, in order: FrodoKEM (the unfused path on K9-K11),
@@ -625,7 +681,7 @@ ENGINE_THREADS, ENGINE_THREAD_SIGNS = (1, 4), 4
 #: count rounded up to a power of two), the margin over hb_miss_limit x
 #: hb_interval within which the killed gateway's breaker must open, the
 #: longest wait of the phase's checks, and the phase process's limit
-FLEET_GATEWAYS, FLEET_CLIENTS, FLEET_SEED = 3, 12, 18
+FLEET_GATEWAYS, FLEET_CLIENTS, FLEET_SEED = 3, 8, 18
 FLEET_PREWARM = 1 << (FLEET_CLIENTS - 1).bit_length()
 FLEET_OPEN_MARGIN_S, FLEET_WAIT_S, FLEET_PROCESS_TIMEOUT_S = 1.0, 120.0, 600.0
 #: how long the fleet waits for its gateways' hello: the manager's 60 s
@@ -647,7 +703,7 @@ FLEET_PID_FILE = "QRP2P_FLEET_PID_FILE"
 #: before the sessions begin: tick 4 lands 1 s into them, mid-handshake,
 #: before the router roll starts 3 s in (a kill landing in the roll hits
 #: the replica the roll is respawning)
-STORM_ROUTERS, STORM_GATEWAYS, STORM_SESSIONS, STORM_MSGS, STORM_SEED = 2, 2, 16, 4, 19
+STORM_ROUTERS, STORM_GATEWAYS, STORM_SESSIONS, STORM_MSGS, STORM_SEED = 2, 2, 16, 2, 19
 STORM_TICK = 4
 #: sessions arrive at this rate (the 16 over ~1.9 s), so about half of
 #: them ask for their first route after the kill: 12 of the 16 peer ids
@@ -696,23 +752,22 @@ MESH_WAIT_S, MESH_PROCESS_TIMEOUT_S = 120.0, 400.0
 #: swarm_bench's CLI defaults (batching on), the in-process hub storm's
 #: sessions (all at once: its concurrency, which caps its warm-ups; 128
 #: until the script's time asked for the cut), the algorithm matrix's
-#: combinations (each KEM family and each signature family, the default
-#: pair under both AEADs: K1-K8 under the default pair, K9-K11 under
-#: FrodoKEM, K12 under 128f, K13 under 192f; 10 before the cut: each KEM
-#: family under each signature family) and its file, the --slo CLI run's peers, run_multichip's
+#: combinations (each KEM family and each signature family and both AEADs:
+#: K1-K7 under ML-KEM-768 / ML-DSA-65, K8 under ChaCha20-Poly1305, K9-K11
+#: under FrodoKEM, K12 under 128f, K13 under 192f; 10, then 5, before the
+#: cuts) and its file, the --slo CLI run's peers, run_multichip's
 #: shard counts and handshake peers, the CLIs' limit and the phase
 #: process's limit
 TOOLS_SWARM_PEERS = 1000
 TOOLS_SWARM = {"use_batching": True, "max_batch": 4096, "max_wait_ms": 3.0,
                "concurrency": 256, "warmup": 32}
 TOOLS_STORM_SESSIONS = 16
-TOOLS_MATRIX = (("ML-KEM-768", AEAD, "ML-DSA-65"), ("FrodoKEM-640-SHAKE", AEAD, "ML-DSA-65"),
-                ("ML-KEM-768", AEAD, "SPHINCS+-SHA2-128f-simple"),
-                ("HQC-128", AEAD, "SPHINCS+-SHA2-192f-simple"),
-                ("ML-KEM-768", "AES-256-GCM", "ML-DSA-65"))
+TOOLS_MATRIX = (("ML-KEM-768", "AES-256-GCM", "ML-DSA-65"),
+                ("FrodoKEM-640-SHAKE", AEAD, "SPHINCS+-SHA2-128f-simple"),
+                ("HQC-128", AEAD, "SPHINCS+-SHA2-192f-simple"))
 TOOLS_MATRIX_FILES = {"10KB": 10240}
-TOOLS_SLO_PEERS = 8
-TOOLS_MULTICHIP_COUNTS, TOOLS_MULTICHIP_HS_PEERS = (1, 2, 4), 32
+TOOLS_SLO_PEERS = 4
+TOOLS_MULTICHIP_COUNTS, TOOLS_MULTICHIP_HS_PEERS = (1, 2, 4), 8
 TOOLS_CLI_TIMEOUT_S, TOOLS_PROCESS_TIMEOUT_S = 300.0, 900.0
 
 
@@ -1020,6 +1075,96 @@ def k1_k7_cases(torch, np, rng, keccak, keccak_cuda, mldsa, mldsa_cuda) -> list:
     return cases
 
 
+def config2_encaps_cases(torch, np, rng, keccak, keccak_cuda, mlkem, mlkem_cuda) -> list:
+    """Every kernel launch of one ML-KEM-768 encaps at config 2's widest
+    batch (CONFIG2_CURVE[-1] rows), each on the arguments that call gave
+    its kernel (recorded at the port's dispatchers, ``core.keccak.sponge`` and
+    ``kem.mlkem``'s, as the call ran): K1 at H and G, K2 over A (9 rows
+    a key), K3 at e1 + e2 (4 rows a key, eta 2) and fused at r (3 rows a
+    key), K4's inverse at u (3 a key) and v; and K1 at J of a decaps batch
+    as wide (the encaps launches no J).  Names tagged "[config 2, ...]" stay
+    out of the kernels line's sums."""
+    dev = torch.device("cuda")
+    b, p = CONFIG2_CURVE[-1], mlkem.MLKEM768
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, size=shape, dtype=np.uint8)).to(dev)
+
+    ek, _ = mlkem.keygen(p, u8(b, 32), u8(b, 32))
+    m = u8(b, 32)
+    calls = []
+    patched = [(keccak, "sponge")] + [(mlkem, n) for n in
+                                      ("sample_ntt", "prf_cbd", "prf_cbd_ntt", "ntt", "ntt_inv")]
+    originals = {name: getattr(mod, name) for mod, name in patched}
+    kernels = {name: getattr(keccak_cuda if name == "sponge" else mlkem_cuda, name)
+               for _, name in patched}
+
+    def recorder(name):
+        def call(*args):
+            calls.append((name, tuple(a.clone() if torch.is_tensor(a) else a for a in args)))
+            return originals[name](*args)
+        return call
+
+    try:
+        for mod, name in patched:
+            setattr(mod, name, recorder(name))
+        mlkem.encaps(p, ek, m)
+        torch.cuda.synchronize()
+    finally:
+        for mod, name in patched:
+            setattr(mod, name, originals[name])
+    kinds = [name for name, _ in calls]
+    if sorted(kinds) != sorted(["sponge"] * 2 + ["sample_ntt", "prf_cbd", "prf_cbd_ntt"]
+                               + ["ntt_inv"] * 2):
+        raise PhaseFailed(f"kernels: the B = {b} encaps launched {kinds}")
+    tag = f"[config 2, B = {b}"
+    cases = [sponge_case(f"keccak_sponge{tag}, J]", keccak, keccak_cuda, u8(b, 1120), 136, 0x1F,
+                         32, f"J of a decaps at B = {b}")]
+    for name, args in calls:
+        what = f"ML-KEM-768 encaps at B = {b}"
+        if name == "sponge":
+            x, rate, ds, out_len = args
+            hname = "H" if rate == 136 else "G"
+            cases.append(sponge_case(f"keccak_sponge{tag}, {hname}]", keccak, keccak_cuda, x,
+                                     rate, ds, out_len, f"{hname} of the {what}"))
+        elif name == "sample_ntt":
+            x = args[0].reshape(-1, 34)
+            cases.append((f"mlkem_sample_ntt{tag}]", f"{SRC}/kem/mlkem_pallas.py:97",
+                          lambda x=x: kernels["sample_ntt"](x),
+                          lambda x=x: mlkem.sample_ntt_plain(x),
+                          x.numel() + 4 * 256 * x.shape[0],
+                          sample_ntt_perms(torch, keccak, mlkem.Q, x) * KECCAK_F_OPS,
+                          f"A of the {what}: ({x.shape[0]}, 34) -> ({x.shape[0]}, 256)"))
+        elif name in ("prf_cbd", "prf_cbd_ntt"):
+            x, eta = args
+            x = x.reshape(-1, 33)
+            fused = name == "prf_cbd_ntt"
+            plain = mlkem.prf_cbd_ntt_plain if fused else mlkem.prf_cbd_plain
+            ops = x.shape[0] * ((1 if eta == 2 else 2) * KECCAK_F_OPS
+                                + (KEM_LAZY_NTT_OPS if fused else 0))
+            cases.append((f"mlkem_{name}{tag}]",
+                          f"{SRC}/kem/mlkem_pallas.py:{315 if fused else 159}",
+                          lambda x=x, e=eta, n=name: kernels[n](x, e),
+                          lambda x=x, e=eta, pl=plain: pl(x, e),
+                          x.numel() + 4 * 256 * x.shape[0], ops,
+                          f"{'r' if fused else 'e1 + e2'} of the {what}, eta={eta}: "
+                          f"({x.shape[0]}, 33) -> ({x.shape[0]}, 256)"))
+        else:
+            (f,) = args
+            f = f.reshape(-1, 256)
+            cases.append((f"mlkem_{name}{tag}, {'u' if f.shape[0] > b else 'v'}]",
+                          f"{SRC}/kem/mlkem_pallas.py:253",
+                          lambda f=f, n=name: kernels[n](f),
+                          lambda f=f, n=name: (mlkem.ntt_inv_plain if n == "ntt_inv"
+                                               else mlkem.ntt_plain)(f),
+                          2 * f.numel() * 4,
+                          f.shape[0] * (KEM_LAZY_NTT_INV_OPS if name == "ntt_inv"
+                                        else KEM_LAZY_NTT_OPS),
+                          f"{'u' if f.shape[0] > b else 'v'} of the {what}: "
+                          f"({f.shape[0]}, 256) int32"))
+    return cases
+
+
 def run_cases(torch, cases, library: dict, int_rate: float) -> list:
     """Each case's kernel against its plain version (bitwise), then its
     time as the host launches it (ms, cuda_ms), its device time alone
@@ -1236,6 +1381,7 @@ def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mlds
                   lambda: frodo_cuda.cdf_sample(fp, r16), lambda: frodo.cdf_sample_plain(fp, r16),
                   8 * m, m * frodo_sample_ops(fp), f"({m},) int32"))
     cases += sha2_cases(torch, np, rng, sha2)
+    cases += config2_encaps_cases(torch, np, rng, keccak, keccak_cuda, mlkem, mlkem_cuda)
     # the one PyTorch call for a kernel's function, timed as a yardstick:
     # searchsorted gives K11's magnitude (not constant-time; never used)
     table, half = torch.tensor(fp.cdf[:-1], dtype=torch.int32, device=dev), r16 >> 1
@@ -1244,57 +1390,123 @@ def phase_kernels(torch, np, keccak, keccak_cuda, mlkem, mlkem_cuda, mldsa, mlds
     return run_cases(torch, cases, library, int_rate)
 
 
-def phase_kat(torch, mlkem) -> None:
-    data = json.loads((ROOT / "tests" / "vectors" / "mlkem_768.json").read_text())
-    p = mlkem.PARAMS[data["algorithm"]]
-    recs = data["tests"]
-
-    def col(key):
-        return torch.tensor([list(bytes.fromhex(r[key])) for r in recs], dtype=torch.uint8,
-                            device="cuda")
-
-    ek, dk = mlkem.keygen(p, col("d"), col("z"))
-    key, ct = mlkem.encaps(p, ek, col("m"))
-    key2 = mlkem.decaps(p, dk, ct)
-    bad = ct.clone()
-    bad[:, 0] ^= 1
-    rej = mlkem.decaps(p, dk, bad)
-    for i, rec in enumerate(recs):
-        for name, t in (("ek", ek), ("dk", dk), ("ct", ct), ("ss", key), ("ss", key2),
-                        ("ss_reject", rej)):
-            got = bytes(t[i].cpu().numpy())
-            want = rec.get(name)
-            ok = (got.hex() == want) if want is not None else (
-                hashlib.sha256(got).hexdigest() == rec[name + "_sha256"])
-            if not ok:
-                raise PhaseFailed(f"KAT {data['algorithm']} count {rec['count']}: {name} differs")
-    print(f"[kat] {data['algorithm']}: {len(recs)} vectors byte-exact on the GPU "
-          "(keygen, encaps, decaps, implicit rejection)")
+def vector_match(rec: dict, name: str, got: bytes) -> bool:
+    """A vector record's field, by value (hex) or by its sha256
+    (``<name>_sha256``)."""
+    want = rec.get(name)
+    if want is not None:
+        return got.hex() == want.lower()
+    return hashlib.sha256(got).hexdigest() == rec[name + "_sha256"]
 
 
-def phase_kat_mldsa(torch, mldsa) -> None:
-    """keygen from xi, then sign with the vector's rnd (mu from tr and
-    M' = 0 || 0 || msg, on the host): pk, sk and sig by their sha256."""
-    data = json.loads((ROOT / "tests" / "vectors" / "mldsa_65.json").read_text())
-    p = mldsa.PARAMS[data["algorithm"]]
-    recs = data["tests"]
+@contextlib.contextmanager
+def drawing(chunks):
+    """os.urandom handing out ``chunks`` in order, each exactly as long as
+    the draw asks: a provider's draws set to a vector's seeds.  Raises if a
+    draw has another length or a chunk is left over."""
+    queue = list(chunks)
 
-    def col(rows):
-        return torch.tensor([list(r) for r in rows], dtype=torch.uint8, device="cuda")
+    def draw(n: int) -> bytes:
+        if not queue or len(queue[0]) != n:
+            raise PhaseFailed(f"a provider drew {n} bytes where the vector has "
+                              f"{len(queue[0]) if queue else 'no more'}")
+        return queue.pop(0)
 
-    pk, sk = mldsa.keygen(p, col(bytes.fromhex(r["xi"]) for r in recs))
-    mu = col(hashlib.shake_256(bytes(sk[i, 64:128].cpu().numpy()) + b"\0\0"
-                               + bytes.fromhex(r["msg"])).digest(64) for i, r in enumerate(recs))
-    sig, done = mldsa.sign_mu(p, sk, mu, col(bytes.fromhex(r["rnd"]) for r in recs))
-    ok = mldsa.verify_mu(p, pk, mu, sig)
-    if not (bool(done.all()) and bool(ok.all())):
-        raise PhaseFailed(f"KAT {data['algorithm']}: done {done.tolist()}, verify {ok.tolist()}")
-    for i, rec in enumerate(recs):
-        for name, t in (("pk", pk), ("sk", sk), ("sig", sig)):
-            if hashlib.sha256(bytes(t[i].cpu().numpy())).hexdigest() != rec[name + "_sha256"]:
-                raise PhaseFailed(f"KAT {data['algorithm']} count {rec['count']}: {name} differs")
-    print(f"[kat] {data['algorithm']}: {len(recs)} vectors byte-exact on the GPU "
-          "(keygen, sign; verify True)")
+    urandom = os.urandom
+    os.urandom = draw
+    try:
+        yield
+    finally:
+        os.urandom = urandom
+    if queue:
+        raise PhaseFailed(f"the provider left {len(queue)} of the vector's draws unused")
+
+
+def uint8_rows(torch, rows, device):
+    return torch.tensor([list(r) for r in rows], dtype=torch.uint8, device=device)
+
+
+def phase_kat(torch, mlkem, get_kem, device: str = "cuda") -> None:
+    """The three ML-KEM vector files through keygen/encaps/decaps on
+    ``device``: ek, dk and ct by their sha256, ss by value, a tampered
+    ciphertext's implicit rejection secret; then each file's first record
+    once more through get_kem(name) on ``device``, os.urandom set to its d,
+    z and m."""
+    for tag in MLKEM_VECTORS:
+        data = json.loads((ROOT / "tests" / "vectors" / f"mlkem_{tag}.json").read_text())
+        p = mlkem.PARAMS[data["algorithm"]]
+        recs = data["tests"]
+
+        def col(key):
+            return uint8_rows(torch, (bytes.fromhex(r[key]) for r in recs), device)
+
+        ek, dk = mlkem.keygen(p, col("d"), col("z"))
+        key, ct = mlkem.encaps(p, ek, col("m"))
+        key2 = mlkem.decaps(p, dk, ct)
+        bad = ct.clone()
+        bad[:, 0] ^= 1
+        rej = mlkem.decaps(p, dk, bad)
+        for i, rec in enumerate(recs):
+            for name, t in (("ek", ek), ("dk", dk), ("ct", ct), ("ss", key), ("ss", key2),
+                            ("ss_reject", rej)):
+                if not vector_match(rec, name, bytes(t[i].cpu().numpy())):
+                    raise PhaseFailed(f"KAT {p.name} count {rec['count']}: {name} differs")
+        rec, kem = recs[0], get_kem(p.name, backend=device)
+        with drawing(bytes.fromhex(rec[k]) for k in ("d", "z", "m")):
+            pk, sk = kem.generate_keypair()
+            c, ss = kem.encapsulate(pk)
+        got = {"ek": pk, "dk": sk, "ct": c, "ss": ss}
+        differ = [name for name, v in got.items() if not vector_match(rec, name, v)]
+        if kem.decapsulate(sk, c) != ss or differ:
+            raise PhaseFailed(f"KAT {p.name} count {rec['count']} through get_kem on {device}: "
+                              f"{differ or 'decapsulate'} differs")
+        print(f"[kat] {p.name}: {len(recs)} vectors byte-exact on {device} (keygen, encaps, "
+              f"decaps, implicit rejection); count {rec['count']} once more through "
+              f"get_kem({p.name!r}) on {device}")
+
+
+def phase_kat_mldsa(torch, mldsa, get_signature, device: str = "cuda") -> None:
+    """The three ML-DSA vector files on ``device``: keygen from xi, then sign
+    with the vector's rnd (mu from tr and M' = 0 || 0 || msg, on the host):
+    pk, sk and sig by their sha256, every signature verified; then each
+    file's first record once more through get_signature(name) on
+    ``device``, os.urandom set to its xi and rnd, and its signature with a
+    flipped byte refused."""
+    for tag in MLDSA_VECTORS:
+        data = json.loads((ROOT / "tests" / "vectors" / f"mldsa_{tag}.json").read_text())
+        p = mldsa.PARAMS[data["algorithm"]]
+        recs = data["tests"]
+
+        def col(rows):
+            return uint8_rows(torch, rows, device)
+
+        pk, sk = mldsa.keygen(p, col(bytes.fromhex(r["xi"]) for r in recs))
+        mu = col(hashlib.shake_256(bytes(sk[i, 64:128].cpu().numpy()) + b"\0\0"
+                                   + bytes.fromhex(r["msg"])).digest(64)
+                 for i, r in enumerate(recs))
+        sig, done = mldsa.sign_mu(p, sk, mu, col(bytes.fromhex(r["rnd"]) for r in recs))
+        ok = mldsa.verify_mu(p, pk, mu, sig)
+        if not (bool(done.all()) and bool(ok.all())):
+            raise PhaseFailed(f"KAT {p.name}: done {done.tolist()}, verify {ok.tolist()}")
+        for i, rec in enumerate(recs):
+            for name, t in (("pk", pk), ("sk", sk), ("sig", sig)):
+                if not vector_match(rec, name, bytes(t[i].cpu().numpy())):
+                    raise PhaseFailed(f"KAT {p.name} count {rec['count']}: {name} differs")
+        rec, dsa = recs[0], get_signature(p.name, backend=device)
+        msg = bytes.fromhex(rec["msg"])
+        with drawing((bytes.fromhex(rec["xi"]), bytes.fromhex(rec["rnd"]))):
+            ppk, psk = dsa.generate_keypair()
+            psig = dsa.sign(psk, msg)
+        bad = bytearray(psig)
+        bad[len(bad) // 2] ^= 0x10
+        differ = [name for name, v in (("pk", ppk), ("sk", psk), ("sig", psig))
+                  if not vector_match(rec, name, v)]
+        if differ or not dsa.verify(ppk, msg, psig) or dsa.verify(ppk, msg, bytes(bad)):
+            raise PhaseFailed(f"KAT {p.name} count {rec['count']} through get_signature on "
+                              f"{device}: {differ or 'verify'} differs")
+        print(f"[kat] {p.name}: {len(recs)} vectors byte-exact on {device} (keygen, sign; "
+              f"verify True); count {rec['count']} once more through "
+              f"get_signature({p.name!r}) on {device}, a flipped byte refused")
 
 
 def phase_kat_frodo(torch, frodo) -> None:
@@ -1461,6 +1673,99 @@ def phase_kat_hqc(torch, hqc, sbox) -> None:
                 raise PhaseFailed(f"{HQC_RSP} count {rec['count']}: {name} differs")
     print(f"[kat] {HQC_RSP}: {len(recs)} stanzas byte-exact on the GPU (seeds by the KAT "
           "harness's AES-256 CTR-DRBG; keygen, encaps, decaps)")
+
+
+def phase_kat_fixtures(torch, mldsa, mlkem, frodo, sbox, get_kem, get_signature,
+                       device: str = "cuda") -> None:
+    """The ACVP ML-DSA-44 fixture and the PQCgenKAT ML-KEM-512 and
+    FrodoKEM-640-SHAKE fixtures on ``device``, byte-exact.  ACVP (internal
+    interface, mu = SHAKE256(tr || message)): keyGen from the seed, sigGen
+    with the record's rnd, sigVer giving each record's testPassed, False
+    ones included.  PQCgenKAT: each stanza's seeds drawn with the KAT
+    harness's AES-256 CTR-DRBG on the host (ML-KEM: d, z, then m; FrodoKEM:
+    s || seedSE || z in one draw, then mu), then keygen, encaps and decaps,
+    decaps giving ss back.  One record of each once more through the
+    registry on ``device`` (the ACVP keyGen record's seed, the first
+    stanza's draws as os.urandom)."""
+    data = json.loads((ROOT / "tests" / "vectors" / MLDSA_ACVP).read_text())
+    p = mldsa.PARAMS[data["algorithm"]]
+    keygen, siggen, sigver = (g["tests"] for g in data["testGroups"])
+
+    def col(tests, key):
+        return uint8_rows(torch, (bytes.fromhex(t[key]) for t in tests), device)
+
+    def mus(tests, trs):
+        return uint8_rows(torch, (hashlib.shake_256(tr + bytes.fromhex(t["message"])).digest(64)
+                                  for tr, t in zip(trs, tests)), device)
+
+    def hexes(t):
+        return [bytes(r.cpu().numpy()).hex() for r in t]
+
+    pk, sk = mldsa.keygen(p, col(keygen, "seed"))
+    if hexes(pk) != [t["pk"].lower() for t in keygen] or \
+            hexes(sk) != [t["sk"].lower() for t in keygen]:
+        raise PhaseFailed(f"{MLDSA_ACVP}: keyGen differs")
+    sks = col(siggen, "sk")
+    sig, done = mldsa.sign_mu(p, sks, mus(siggen, [bytes(r[64:128].cpu().numpy()) for r in sks]),
+                              col(siggen, "rnd"))
+    if not bool(done.all()) or hexes(sig) != [t["signature"].lower() for t in siggen]:
+        raise PhaseFailed(f"{MLDSA_ACVP}: sigGen differs")
+    pks = col(sigver, "pk")
+    trs = [hashlib.shake_256(bytes(r.cpu().numpy())).digest(64) for r in pks]
+    ok = mldsa.verify_mu(p, pks, mus(sigver, trs), col(sigver, "signature")).tolist()
+    want = [t["testPassed"] in (True, "True", "true") for t in sigver]
+    if ok != want or all(want):
+        raise PhaseFailed(f"{MLDSA_ACVP}: sigVer gave {ok}, the records {want}")
+    with drawing([bytes.fromhex(keygen[0]["seed"])]):
+        ppk, psk = get_signature(p.name, backend=device).generate_keypair()
+    if (ppk.hex(), psk.hex()) != (keygen[0]["pk"].lower(), keygen[0]["sk"].lower()):
+        raise PhaseFailed(f"{MLDSA_ACVP}: keyGen through get_signature on {device} differs")
+    print(f"[kat] {MLDSA_ACVP}: {len(keygen)} keyGen, {len(siggen)} sigGen and {len(sigver)} "
+          f"sigVer records ({want.count(False)} testPassed false) byte-exact on {device}; "
+          f"keyGen tcId {keygen[0]['tcId']} once more through get_signature({p.name!r})")
+
+    for fname, kp, sizes in ((MLKEM_RSP, mlkem.PARAMS["ML-KEM-512"], (32, 32, 32)),
+                             (FRODO_RSP, frodo.PARAMS["FrodoKEM-640-SHAKE"], None)):
+        recs = rsp_stanzas((ROOT / "tests" / "vectors" / fname).read_text())
+        frodo_set = sizes is None
+        if frodo_set:
+            sizes = (2 * kp.len_sec + 16, kp.len_sec)
+        draws = []
+        for rec in recs:
+            drbg = KatDrbg(sbox, bytes.fromhex(rec["seed"]))
+            got = [drbg.random_bytes(n) for n in sizes]
+            if frodo_set:  # s, seedSE, z: the provider's three draws
+                n = kp.len_sec
+                got = [got[0][:n], got[0][n:2 * n], got[0][2 * n:], got[1]]
+            draws.append(got)
+
+        def drawn(j):
+            return uint8_rows(torch, (d[j] for d in draws), device)
+
+        if frodo_set:
+            pk, sk = frodo.keygen(kp, drawn(0), drawn(1), drawn(2))
+            ct, ss = frodo.encaps(kp, pk, drawn(3))
+            ss2 = frodo.decaps(kp, sk, ct)
+        else:
+            pk, sk = mlkem.keygen(kp, drawn(0), drawn(1))
+            ss, ct = mlkem.encaps(kp, pk, drawn(2))
+            ss2 = mlkem.decaps(kp, sk, ct)
+        for i, rec in enumerate(recs):
+            for name, t in (("pk", pk), ("sk", sk), ("ct", ct), ("ss", ss), ("ss", ss2)):
+                if bytes(t[i].cpu().numpy()).hex() != rec[name].lower():
+                    raise PhaseFailed(f"{fname} count {rec['count']}: {name} differs")
+        kem = get_kem(kp.name, backend=device)
+        with drawing(draws[0]):
+            ppk, psk = kem.generate_keypair()
+            pct, pss = kem.encapsulate(ppk)
+        got = {"pk": ppk, "sk": psk, "ct": pct, "ss": pss}
+        differ = [name for name, v in got.items() if v.hex() != recs[0][name].lower()]
+        if differ or kem.decapsulate(psk, pct) != pss:
+            raise PhaseFailed(f"{fname} count {recs[0]['count']} through get_kem on {device}: "
+                              f"{differ or 'decapsulate'} differs")
+        print(f"[kat] {fname}: {len(recs)} stanzas byte-exact on {device} (seeds by the KAT "
+              f"harness's AES-256 CTR-DRBG; keygen, encaps, decaps); count "
+              f"{recs[0]['count']} once more through get_kem({kp.name!r})")
 
 
 def hqc_batch_inputs(torch, np, hqc, name: str):
@@ -3118,14 +3423,7 @@ def phase_flagship(torch, mlkem, entry) -> dict:
     ref_key, ref_ct = mlkem.encaps(mlkem.MLKEM768, eks[:16].cpu(), ms[:16].cpu())
     if not (torch.equal(key[:16].cpu(), ref_key) and torch.equal(ct[:16].cpu(), ref_ct)):
         raise PhaseFailed("flagship: GPU encaps differs from the CPU path")
-    reps = 20
-    ms_dev = cuda_ms(torch, lambda: fn(eks, ms), reps)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn(eks, ms)
-    torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / reps
+    ms_dev, wall_ms = timed_batch(torch, lambda: fn(eks, ms), 20)
     out = {"batch": BATCH, "ms_per_batch_cuda_events": ms_dev, "ms_per_batch_wall": wall_ms,
            "encaps_per_s": BATCH / (ms_dev / 1e3), "encaps_per_s_wall": BATCH / (wall_ms / 1e3)}
     print(f"[flagship] ML-KEM-768 encaps B={BATCH}: {ms_dev:.3f} ms/batch (CUDA events), "
@@ -3249,17 +3547,19 @@ def timed_once(torch, fn) -> tuple[float, float]:
     return start.elapsed_time(end), 1e3 * (time.perf_counter() - t0)
 
 
-def phase_sig_config4(torch, np, mldsa) -> dict:
-    """Phase 7's config 4 run: BASELINE.json config 4's ML-DSA-65 half as
-    tools/full_bench.py runs it.  CONFIG4_BATCH keys from one batched keygen,
-    a cold sign_mu over seeded mu and rnd (sign_mu_rounds, the function
-    sign_mu calls, for the attempt counts: ExpandA of every key runs inside
-    the call) and verify_mu: every lane done, every signature verified, a
-    byte flipped in each signature refused, the first rows byte-identical to
-    the CPU path.  The peak device memory is the first run's; each op is
-    then timed once more, warm, by CUDA events and the host clock."""
-    p, batch = mldsa.MLDSA65, CONFIG4_BATCH
-    rng = np.random.default_rng(batch)
+def phase_sig_cold(torch, np, mldsa, name: str, batch: int, cpu_rows: int, label: str,
+                   seed) -> dict:
+    """Phase 7's cold runs, as tools/full_bench.py runs BASELINE.json config
+    4's ML-DSA-65 half: ``batch`` keys of set ``name`` from one batched
+    keygen, a cold sign_mu over seeded mu and rnd (sign_mu_rounds, the
+    function sign_mu calls, for the attempt counts: ExpandA of every key
+    runs inside the call) and verify_mu: every lane done, every signature
+    verified, a byte flipped in each signature refused, the first
+    ``cpu_rows`` rows byte-identical to the CPU path.  The peak device
+    memory is the first run's; each op is then timed once more, warm, by
+    CUDA events and the host clock."""
+    p = mldsa.PARAMS[name]
+    rng = np.random.default_rng(seed)
 
     def u8(*shape):
         return torch.from_numpy(rng.integers(0, 256, size=shape, dtype=np.uint8)).to("cuda")
@@ -3275,7 +3575,7 @@ def phase_sig_config4(torch, np, mldsa) -> dict:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
     if sig.shape != (batch, p.sig_len) or not bool(done.all()) or not bool(ok.all()):
-        raise PhaseFailed(f"config 4: shape {tuple(sig.shape)}, done {int(done.sum())}, "
+        raise PhaseFailed(f"{label}: shape {tuple(sig.shape)}, done {int(done.sum())}, "
                           f"verified {int(ok.sum())} of {batch}")
     # one byte flipped in every signature, at a place that walks c~ and z
     rows = torch.arange(batch, device="cuda")
@@ -3283,31 +3583,112 @@ def phase_sig_config4(torch, np, mldsa) -> dict:
     bad[rows, rows * 131 % (p.ctilde_len + 32 * p.l * p.z_bits)] ^= 0x04
     refused = int((~mldsa.verify_mu(p, pk, mu, bad)).sum())
     if refused != batch:
-        raise PhaseFailed(f"config 4: {batch - refused} signatures with a flipped byte verified")
-    n = 2
+        raise PhaseFailed(f"{label}: {batch - refused} signatures with a flipped byte verified")
+    n = cpu_rows
     cpk, csk = mldsa.keygen(p, xi[:n].cpu())
     csig, cdone = mldsa.sign_mu(p, csk, mu[:n].cpu(), rnd[:n].cpu())
     for what, gpu, cpu in (("pk", pk, cpk), ("sk", sk, csk), ("signature", sig, csig)):
         if not torch.equal(gpu[:n].cpu(), cpu):
-            raise PhaseFailed(f"config 4: the GPU's first {what}s differ from the CPU path's")
+            raise PhaseFailed(f"{label}: the GPU's first {what}s differ from the CPU path's")
     if not bool(cdone.all()) or not bool(mldsa.verify_mu(p, cpk, mu[:n].cpu(), csig).all()):
-        raise PhaseFailed("config 4: the CPU path does not sign and verify the first rows")
+        raise PhaseFailed(f"{label}: the CPU path does not sign and verify the first rows")
     checked_s = time.perf_counter() - t0
     times = {"keygen": timed_once(torch, lambda: mldsa.keygen(p, xi)),
              "sign": timed_once(torch, lambda: mldsa.sign_mu(p, sk, mu, rnd)),
              "verify": timed_once(torch, lambda: mldsa.verify_mu(p, pk, mu, sig))}
     attempts = int(kappa.max()) // p.l + 1  # kappa grows by l for each rejected attempt
-    out = {"batch": batch, "attempts_per_sign_batch": attempts,
+    out = {"set": name, "batch": batch, "attempts_per_sign_batch": attempts,
            "mean_attempts_per_lane": float((kappa // p.l + 1).to(torch.float64).mean()),
-           "peak_device_bytes": peak, "checked_s": checked_s}
+           "peak_device_bytes": peak, "cpu_rows": n, "checked_s": checked_s}
     for op, (ms, wall_ms) in times.items():
         out[op] = {"ms_cuda_events": ms, "ms_wall": wall_ms, "ops_per_s": batch / (ms / 1e3)}
-    print(f"[config 4] ML-DSA-65 at B={batch}, cold (ExpandA in the call): "
+    print(f"[{label}] {name} at B={batch}, cold (ExpandA in the call): "
           + ", ".join(f"{op} {out[op]['ms_cuda_events']:.3f} ms (host clock "
                       f"{out[op]['ms_wall']:.3f}; {out[op]['ops_per_s']:.0f}/s)"
                       for op in times)
           + f"; {attempts} sign attempts (mean {out['mean_attempts_per_lane']:.2f} a lane); "
-          f"peak device memory {peak / 2**30:.2f} GiB; the checked run {checked_s:.1f} s")
+          f"peak device memory {peak / 2**30:.2f} GiB; rows 0-{n - 1} equal to the CPU path; "
+          f"the checked run {checked_s:.1f} s")
+    return out
+
+
+def timed_batch(torch, fn, reps: int) -> tuple[float, float]:
+    """(CUDA-event ms, host-clock ms) a run of fn: the median of reps warm
+    runs by cuda_ms, and the mean of reps more between two synchronises."""
+    ms = cuda_ms(torch, fn, reps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return ms, 1e3 * (time.perf_counter() - t0) / reps
+
+
+def checked_rows(torch, batch: int):
+    """The rows of a config 2 batch held to the CPU path: CONFIG2_ROWS at
+    each end."""
+    n = min(CONFIG2_ROWS, batch)
+    return torch.cat([torch.arange(n), torch.arange(batch - n, batch)]).unique()
+
+
+def phase_config2(torch, np, mlkem, card: str) -> dict:
+    """BASELINE.json config 2 on the card, as tools/full_bench.py:104-171
+    runs it with its operands on the device: keygen, encaps and decaps of
+    ML-KEM-512, -768 and -1024 at CONFIG2_BATCH, then ML-KEM-768 encaps at
+    each batch of CONFIG2_CURVE.  Every decaps gives the encaps's key back;
+    the rows of checked_rows equal the "cpu" path's bytes for the same
+    inputs (rows are independent); each op is timed warm by CUDA events and
+    the host clock, its ms a batch and ops/s printed beside the card."""
+    rng = np.random.default_rng(2)
+
+    def u8(*shape):
+        return torch.from_numpy(rng.integers(0, 256, size=shape, dtype=np.uint8)).to("cuda")
+
+    def report(what: str, batch: int, times: dict) -> dict:
+        out = {}
+        for op, (ms, wall) in times.items():
+            out[op] = {"ms_cuda_events": ms, "ms_wall": wall, "ops_per_s": batch / (ms / 1e3),
+                       "ops_per_s_wall": batch / (wall / 1e3)}
+            print(f"[config 2] {what} {op} at B={batch}: {ms:.3f} ms a batch (CUDA events), "
+                  f"{wall:.3f} ms (host clock); {out[op]['ops_per_s']:.0f} / "
+                  f"{out[op]['ops_per_s_wall']:.0f} {op}/s; {card}")
+        return out
+
+    out = {"sets": {}, "curve": {}}
+    for name in CONFIG2_SETS:
+        p = mlkem.PARAMS[name]
+        d, z, m = (u8(CONFIG2_BATCH, 32) for _ in range(3))
+        ek, dk = mlkem.keygen(p, d, z)
+        key, ct = mlkem.encaps(p, ek, m)
+        key2 = mlkem.decaps(p, dk, ct)
+        if ct.shape != (CONFIG2_BATCH, p.ct_len) or not torch.equal(key, key2):
+            raise PhaseFailed(f"config 2: {name} decaps differs from encaps "
+                              f"({int((key != key2).any(dim=-1).sum())} rows)")
+        idx = checked_rows(torch, CONFIG2_BATCH)
+        cek, cdk = mlkem.keygen(p, d[idx].cpu(), z[idx].cpu())
+        ckey, cct = mlkem.encaps(p, cek, m[idx].cpu())
+        for what, gpu, cpu in (("ek", ek, cek), ("dk", dk, cdk), ("ct", ct, cct),
+                               ("key", key, ckey), ("decaps key", key2,
+                                                    mlkem.decaps(p, cdk, cct))):
+            if not torch.equal(gpu[idx.to("cuda")].cpu(), cpu):
+                raise PhaseFailed(f"config 2: {name} {what} differs from the CPU path")
+        out["sets"][name] = report(name, CONFIG2_BATCH, {
+            "keygen": timed_batch(torch, lambda: mlkem.keygen(p, d, z), CONFIG2_REPS),
+            "encaps": timed_batch(torch, lambda: mlkem.encaps(p, ek, m), CONFIG2_REPS),
+            "decaps": timed_batch(torch, lambda: mlkem.decaps(p, dk, ct), CONFIG2_REPS)})
+    p = mlkem.MLKEM768
+    for batch in CONFIG2_CURVE:
+        d, z, m = (u8(batch, 32) for _ in range(3))
+        ek, _ = mlkem.keygen(p, d, z)
+        key, ct = mlkem.encaps(p, ek, m)
+        idx = checked_rows(torch, batch)
+        ckey, cct = mlkem.encaps(p, ek[idx.to("cuda")].cpu(), m[idx.to("cuda")].cpu())
+        if not (torch.equal(key[idx.to("cuda")].cpu(), ckey)
+                and torch.equal(ct[idx.to("cuda")].cpu(), cct)):
+            raise PhaseFailed(f"config 2: ML-KEM-768 encaps at B = {batch} differs from the "
+                              "CPU path")
+        out["curve"][str(batch)] = report("ML-KEM-768 curve", batch, {
+            "encaps": timed_batch(torch, lambda: mlkem.encaps(p, ek, m), CONFIG2_REPS)})["encaps"]
     return out
 
 
@@ -3536,7 +3917,7 @@ def busy_share(events: list, window: str) -> tuple[float, float]:
     return hi - lo, busy
 
 
-def phase_profile(torch, label: str, fn, reps: int) -> dict:
+def phase_profile(torch, label: str, fn, reps: int, cross_check: bool = False) -> dict:
     """Where a batch of ``fn`` spends device time: torch.profiler over
     ``reps`` warm batches; device time per kernel (ours and PyTorch's), and
     the device busy share of that window from its trace.  The same window
@@ -3548,6 +3929,7 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
 
     from quantum_resistant_p2p_tpu_torch.core import keccak_cuda
 
+    t_call = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3569,11 +3951,25 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
         events = json.loads(trace.read_text())["traceEvents"]
         window_us, busy_us = busy_share(events, window)
         launches = sum(1 for e in events if e.get("cat") == "kernel")
-    device_us = {ev.key: ev.self_device_time_total for ev in prof.key_averages()
-                 if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-                 and ev.key != window}  # the annotation's own span on the GPU
+    # device time and launches by kernel name from the profiler's raw events
+    # (key_averages() first builds a Python tree of every host op, the slow
+    # part of reading a sign batch's trace); the window's annotation on the
+    # GPU left out
+    device_us, calls = {}, {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA and ev.name() != window:
+            device_us[ev.name()] = device_us.get(ev.name(), 0.0) + ev.duration_ns() / 1e3
+            calls[ev.name()] = calls.get(ev.name(), 0) + 1
+    device_us = {k: v for k, v in device_us.items() if v > 0}
+    if cross_check:  # the same kinds, times and counts as key_averages() gives
+        averaged = {ev.key: (ev.self_device_time_total, ev.count) for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+                    and ev.key != window}
+        if set(averaged) != set(device_us) or any(
+                abs(averaged[k][0] - device_us[k]) > 0.01 or averaged[k][1] != calls[k]
+                for k in averaged):
+            raise PhaseFailed(f"profile {label}: the raw events disagree with key_averages()")
     total_us = sum(device_us.values())
-    calls = {ev.key: ev.count for ev in prof.key_averages() if ev.key in device_us}
     ours = ("::sponge_rows_kernel<", "::sponge_split_kernel<", "::sample_ntt_kernel(",
             "::prf_cbd_kernel<", "::kem_ntt_kernel<", "::ntt_kernel<", "::rej_ntt_kernel(",
             "::rej_bounded_kernel<", "::chacha_kernel(", "::a_times_s_kernel<",
@@ -3621,6 +4017,8 @@ def phase_profile(torch, label: str, fn, reps: int) -> dict:
           f" (K1's wrapper: {out['k1_wrapper_launches_per_batch']:.0f} launches a batch)")
     for name, ms in out["top_device_ms_per_batch"]:
         print(f"[profile]   {ms:.4f} ms  {name[:110]}")
+    out["seconds"] = time.perf_counter() - t_call
+    print(f"[profile] {label}: {out['seconds']:.1f} s with the trace's export and reading")
     return out
 
 
@@ -5630,8 +6028,9 @@ def main() -> int:
                              chacha, chacha_cuda, frodo, frodo_cuda,
                              (sha256, sha256_cuda, sha512, sha512_cuda), int_rate)
         stamp("kernels")
-        phase_kat(torch, mlkem)
-        phase_kat_mldsa(torch, mldsa)
+        phase_kat(torch, mlkem, get_kem)
+        phase_kat_mldsa(torch, mldsa, get_signature)
+        phase_kat_fixtures(torch, mldsa, mlkem, frodo, aes.SBOX, get_kem, get_signature)
         phase_kat_frodo(torch, frodo)
         phase_kat_chacha(torch, np, chacha)
         phase_kat_slhdsa(torch, sphincs, slhdsa_params)
@@ -5675,6 +6074,9 @@ def main() -> int:
         reset()
         flagship = phase_flagship(torch, mlkem, entry)
         launches["flagship"] = read("flagship", ENCAPS_KERNELS)
+        reset()
+        config2 = phase_config2(torch, np, mlkem, card)
+        launches["config2"] = read("config 2", KEM_KERNELS)
 
         reset()
         sig_served = asyncio.run(sig_serve(BatchedSignature, dsa))
@@ -5691,8 +6093,15 @@ def main() -> int:
         sig_flagship = phase_sig_flagship(torch, mldsa, dsa_inputs)
         launches["sig_flagship"] = read("sig flagship", SIG_PRE_KERNELS)
         reset()
-        config4 = phase_sig_config4(torch, np, mldsa)
+        config4 = phase_sig_cold(torch, np, mldsa, "ML-DSA-65", CONFIG4_BATCH, 2, "config 4",
+                                 CONFIG4_BATCH)
         launches["config4"] = read("config 4", SIG_KERNELS)
+        reset()
+        mldsa_cold = {name: phase_sig_cold(torch, np, mldsa, name, MLDSA_COLD_BATCH,
+                                           MLDSA_COLD_CPU_ROWS, "ML-DSA cold",
+                                           (MLDSA_COLD_BATCH, i))
+                      for i, name in enumerate(MLDSA_COLD_SETS)}
+        launches["mldsa_cold"] = read("ML-DSA-44 and -87 cold", SIG_KERNELS)
 
         cpu_dsa = get_signature("ML-DSA-65", backend="cpu")
         reset()
@@ -5831,7 +6240,7 @@ def main() -> int:
         stamp("launches per op")
         fn, args = entry()
         profiled = {
-            "flagship": phase_profile(torch, "flagship", lambda: fn(*args), 5),
+            "flagship": phase_profile(torch, "flagship", lambda: fn(*args), 5, cross_check=True),
             "sign": phase_profile(torch, "sign",
                                   lambda: mldsa.sign_mu_pre(pd, pre_sk, dmu, drnd), 1),
             "verify": phase_profile(torch, "verify",
@@ -5953,7 +6362,9 @@ def main() -> int:
             "fleet_launches": launches["fleet"][name],
             "storm_launches": storm_gateways[name],
             "storm_client_launches": stormed["client_launches"][name],
+            "config2_launches": launches["config2"][name],
             "config4_launches": launches["config4"][name],
+            "mldsa_cold_launches": launches["mldsa_cold"][name],
             "cli_launches": launches["cli"][name],
             "demo_launches": launches["demo"][name],
             "mesh_launches": launches["mesh"][name],
@@ -5972,7 +6383,8 @@ def main() -> int:
                                  "phase_seconds": seconds,
                                  "kernel_rows": rows, "serve": served, "flagship": flagship,
                                  "sig_serve": sig_served, "sig_flagship": sig_flagship,
-                                 "config4": config4,
+                                 "config2": config2, "config4": config4,
+                                 "mldsa_cold": mldsa_cold,
                                  "health": verdicts, "handshake": shaken, "data_plane": plane,
                                  "frodo_serve": frodo_served, "frodo_batch": frodo_batch,
                                  "hqc": hqc_batch,

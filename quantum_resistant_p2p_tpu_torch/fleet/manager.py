@@ -495,9 +495,6 @@ class GatewayFleet:
         listener and lets the gateways' reconnect loops find the respawn.
         """
         self._running = False
-        if self.telemetry is not None:
-            srv, self.telemetry = self.telemetry, None
-            srv.stop()
         if self._health_task is not None:
             self._health_task.cancel()
         if self.attach:
@@ -511,7 +508,9 @@ class GatewayFleet:
                 self._server.close()
                 await self._server.wait_closed()
                 self._server = None
+            await self._stop_telemetry()
             return
+        await self._stop_telemetry()
         for member in self._members_sorted():
             member.stopped = True
             if member.proc is not None and member.pid is not None:
@@ -552,6 +551,15 @@ class GatewayFleet:
             self._server.close()
             await self._server.wait_closed()
             self._server = None
+
+    async def _stop_telemetry(self) -> None:
+        """Stop the telemetry listener off the loop: the HTTP server's
+        shutdown waits out its accept poll (up to 0.25 s), which on the
+        loop would stall every replica, gateway and client of a task-mode
+        fleet for longer than a third of a short lease TTL (ROADMAP C8)."""
+        if self.telemetry is not None:
+            srv, self.telemetry = self.telemetry, None
+            await asyncio.get_running_loop().run_in_executor(None, srv.stop)
 
     def kill(self, gateway_id: str) -> None:
         """Abrupt gateway death (chaos ``kill_gateway``): SIGKILL the

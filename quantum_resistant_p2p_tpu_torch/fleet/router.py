@@ -3,12 +3,14 @@
 
 Counterpart of the JAX package's ``fleet/router.py``, method for method,
 over the port's gateway fleet, ring, fault plan and flight recorder.  It
-differs in two places: a replica runs ``python -m
+differs in three places: a replica runs ``python -m
 quantum_resistant_p2p_tpu_torch.fleet.router`` and a gateway ``python -m
-quantum_resistant_p2p_tpu_torch.fleet.gateway``, and ``providers``
+quantum_resistant_p2p_tpu_torch.fleet.gateway``; ``providers``
 defaults to "real" (the default handshake on the gateways' ``backend``,
 "cuda" unless ``gateway_kw`` says otherwise), where that driver defaults
-to the stdlib storm toys.  A router replica runs no crypto: nothing on its
+to the stdlib storm toys; and :meth:`RouterFleet.start` returns once every
+replica follows one leader, rejoining a replica that came up demoted,
+where that driver returns once any replica leads (ROADMAP C8).  A router replica runs no crypto: nothing on its
 path creates a CUDA context or places a tensor on the card.
 
 Two halves:
@@ -305,7 +307,7 @@ class RouterFleet:
         for gid in self.gateway_ids:
             await self._spawn_gateway(gid)
         await self._await_gateways_registered(self._register_timeout)
-        await self.await_leader(self._register_timeout)
+        await self._await_settled_lease(self._register_timeout)
         self._chaos_task = asyncio.create_task(self._chaos_loop())
         logger.info("router fleet up: %d routers, %d gateways",
                     len(self.routers), len(self.gateway_ids))
@@ -465,6 +467,38 @@ class RouterFleet:
                 return rid
             await asyncio.sleep(0.1)
         raise RuntimeError("router fleet: no replica claimed the lease "
+                           f"within {timeout}s")
+
+    async def _await_settled_lease(self, timeout: float) -> str:
+        """Wait until one replica leads and every other follows it (each
+        replica's view names the same holder), and return the leader.  Two
+        replicas born together both claim epoch 1 when the first one's claim
+        frame reaches the other only after its rank stagger (a loaded
+        host's loop can delay it that long); the tie demotes the loser,
+        which then never claims, so the leader's death would leave no
+        replica to take the lease.  Such a replica is brought back as a
+        follower here: ``LeaderLease.rejoin`` in task mode, a restart (a
+        fresh lease) in process mode.  Frames on the wire are unchanged."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            leases = {rid: ((await self.router_view(rid)) or {}).get("lease") or {}
+                      for rid in sorted(self.routers)}
+            for rid, lease in leases.items():
+                if lease.get("role") != "demoted":
+                    continue
+                logger.warning("router %s came up demoted: rejoining it as a follower", rid)
+                member = self.routers[rid]
+                if member.fleet is not None and member.fleet.lease is not None:
+                    member.fleet.lease.rejoin()
+                else:
+                    await self.restart_router(rid)
+                obs_flight.record("router_rejoined", router=rid)
+            leaders = [rid for rid, lease in leases.items() if lease.get("role") == "leader"]
+            if len(leaders) == 1 and all(lease.get("holder") == leaders[0]
+                                         for lease in leases.values()):
+                return leaders[0]
+            await asyncio.sleep(0.1)
+        raise RuntimeError("router fleet: the replicas did not settle on one leader "
                            f"within {timeout}s")
 
     async def _await_routers_reachable(self, timeout: float) -> None:

@@ -3,7 +3,7 @@ router fleet's.
 
 Counterpart of the JAX package's ``fleet/storm.py``, method for method,
 over the port's gateway fleet, router fleet, engine and providers.  It
-differs in four places:
+differs in five places:
 
 * both storms take a ``backend`` ("cuda" by default; that module
   hard-codes "tpu"): the client plane's providers and engine run on it,
@@ -18,6 +18,14 @@ differs in four places:
   KEM, signature and fused queues are;
 * secret keys are wiped by the port's ``utils/wipe.py``, and the client
   plane's engine is closed (its device workers stopped) on the way out.
+* after a router kill, :func:`run_router_storm` reads the routers only
+  once a live replica holds the lease again (within
+  :data:`LEASE_SETTLE_TIMEOUT_S`).  That module reads them the moment its
+  sessions end, and a follower claims a lease TTL plus its rank's stagger
+  after the last renewal it saw: its 12-session leader-kill storm outlives
+  the claim by 0.25-0.30 s on an idle host, and by 0.03-0.07 s when no
+  stall of the loop lengthens the sessions, so its report can show no
+  leader at all (ROADMAP C8).
 
 :func:`run_fleet_storm` drives ``sessions`` live peers through a
 :class:`fleet.manager.GatewayFleet` over real TCP — every session asks
@@ -50,6 +58,7 @@ the routers.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import logging
 import random
@@ -68,6 +77,11 @@ from .stormlib import (StormAEAD, prewarm_facades, register_storm_providers,
                        storm_env)
 
 logger = logging.getLogger(__name__)
+
+#: how long a router storm waits, after a kill, for a live replica to hold
+#: the lease before it reads the routers (it returns as soon as one does: a
+#: follower claims ttl + rank x stagger after the last renewal it saw)
+LEASE_SETTLE_TIMEOUT_S = 30.0
 
 
 def _storm_providers(providers: str) -> tuple[str, str, Any]:
@@ -913,6 +927,10 @@ async def run_router_storm(
                 if ctx is not None:
                     ctx.__exit__(None, None, None)
             elapsed = time.perf_counter() - t_origin
+            if rf.router_kills:
+                # past the limit the report shows the routers as they are
+                with contextlib.suppress(RuntimeError):
+                    await rf.await_leader(LEASE_SETTLE_TIMEOUT_S)
             final_router_stats = await rf.stats()
             proto_metrics = proto.metrics()
             client_cost = proto.cost.totals()

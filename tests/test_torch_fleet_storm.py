@@ -24,6 +24,11 @@ package's, on the CPU.
 * Process mode: two ``-m`` router processes and two ``-m`` gateways, a
   leader kill, the lease's handoff, a restart on the same ports, and no
   process left.
+* ROADMAP C8 (the port's storm and router fleet, no frame changed): a
+  leader-kill storm whose sessions end before the follower's claim is due
+  reports the routers once the failover settled, and a replica that came
+  up demoted from a tied claim at birth is rejoined before the fleet
+  counts as up.  Both fail on the tree before the repair.
 
 Tolerance: exact.  PyTorch runs on one thread; JAX's caches are cleared at
 the module's end if JAX was loaded (ROADMAP C1).  Every wait is bounded.
@@ -52,7 +57,7 @@ from quantum_resistant_p2p_tpu_torch.app import messaging as messaging_mod
 from quantum_resistant_p2p_tpu_torch.fleet import gateway as fleet_gateway
 from quantum_resistant_p2p_tpu_torch.fleet import router as fleet_router
 from quantum_resistant_p2p_tpu_torch.fleet import stormlib
-from quantum_resistant_p2p_tpu_torch.fleet.lease import FOLLOWER, LEADER
+from quantum_resistant_p2p_tpu_torch.fleet.lease import DEMOTED, FOLLOWER, LEADER
 from quantum_resistant_p2p_tpu_torch.fleet.router import RouterFleet
 from quantum_resistant_p2p_tpu_torch.fleet.storm import (default_kill_rules,
                                                          default_router_kill_rules,
@@ -187,6 +192,70 @@ def test_router_storm_survives_seeded_leader_kill(run):
              for row in out["router_fleet"]["routers"]}
     assert roles.get("rt1") == LEADER
     assert out["initial_leader"] == "rt0"
+
+
+def test_router_storm_reports_the_routers_once_its_failover_settles(run):
+    """ROADMAP C8's cause: a storm whose sessions end before the follower's
+    claim is due.  Two sessions of two messages end ~0.3 s after the
+    activation; rt0 dies on the first chaos tick, and rt1 claims the lease
+    a default TTL (1.5 s) plus its stagger after the last renewal it saw.
+    The report must read the routers once rt1 leads, not mid-failover with
+    no leader (the 12-session mirror above outlives that claim by only
+    0.03-0.07 s on an idle host when nothing stalls the loop)."""
+    out = run(run_router_storm(
+        providers="stdlib", fault_rules=default_router_kill_rules("rt0", 1),
+        **{**ROUTER_STORM, "sessions": 2, "concurrency": 2, "msgs_per_session": 2,
+           "lease_ttl_s": 1.5}))
+    assert out["completed_sessions"] == 2 and out["lost_established_sessions"] == 0
+    assert out["router_kills"] == 1 and out["initial_leader"] == "rt0"
+    roles = {row["router"]: (row["lease"] or {}).get("role")
+             for row in out["router_fleet"]["routers"]}
+    assert roles == {"rt0": None, "rt1": LEADER}
+    rt1 = next(row for row in out["router_fleet"]["routers"] if row["router"] == "rt1")
+    assert rt1["lease"]["epoch"] == 2
+
+
+def test_router_fleet_rejoins_a_replica_that_came_up_demoted(run, monkeypatch):
+    """ROADMAP C8's second path, seen under load: rt0's first frames reach
+    rt1 only after rt1's own claim was due (here held back until rt1 has
+    claimed), so both claim epoch 1 and the tie demotes rt1, which never
+    claims again.  The fleet must come up with rt1 following, so that rt0's
+    death still leaves a replica to take the lease."""
+    from quantum_resistant_p2p_tpu_torch.fleet.manager import GatewayFleet
+
+    peer_send = GatewayFleet._peer_send
+    routers: dict = {}
+
+    def rt1_claims():
+        rt1 = routers["rf"].routers["rt1"].fleet
+        return [] if rt1 is None else [epoch for _t, _was, _to, epoch, reason
+                                       in rt1.lease.transitions if reason == "claimed"]
+
+    async def late_from_rt0(self, peer, frame):
+        t0 = time.monotonic()
+        while self.router_id == "rt0" and not rt1_claims() and time.monotonic() - t0 < WAIT_S:
+            await asyncio.sleep(0.02)
+        await peer_send(self, peer, frame)
+
+    monkeypatch.setattr(GatewayFleet, "_peer_send", late_from_rt0)
+
+    async def scenario():
+        rf = routers["rf"] = RouterFleet(2, 1, spawn="task", providers="stdlib", seed=3,
+                                         hb_interval=0.1, lease_ttl_s=0.5, lease_stagger_s=0.1,
+                                         telemetry=False)
+        await rf.start()
+        try:
+            rt1 = rf.routers["rt1"].fleet.lease
+            assert rt1_claims() == [1]
+            assert any(to == DEMOTED for _t, _was, to, *_rest in rt1.transitions)
+            assert (rt1.role, rt1.holder) == (FOLLOWER, "rt0")
+            await rf.kill_router("rt0")
+            await _until(lambda: rt1.is_leader, "rt1 to claim the lease")
+            assert rt1.epoch == 2
+        finally:
+            await rf.stop()
+
+    run(scenario())
 
 
 # -- parity with the reference --------------------------------------------------

@@ -8,14 +8,17 @@ without them:
 
 Each kernel is held bitwise to its plain PyTorch version on the same
 device, and the GPU paths of ML-KEM, ML-DSA, the fused handshake programs
-and the ChaCha20-Poly1305 core to the CPU paths; FrodoKEM's GPU path to
-the vectors in tests/vectors/frodo_*.json, HQC's to
+and the ChaCha20-Poly1305 core to the CPU paths; every ML-KEM and ML-DSA
+vector file, the ACVP ML-DSA-44 fixture and the PQCgenKAT ML-KEM-512 and
+FrodoKEM-640-SHAKE fixtures through the GPU path and the registry on
+"cuda"; FrodoKEM's GPU path to the vectors in tests/vectors/frodo_*.json, HQC's to
 tests/vectors/hqc_*.json and its CPU path (K1 at HQC's long squeezes and
 absorbs), and SPHINCS+-SHA2's to tests/vectors/slhdsa_*.json.
 """
 
 import asyncio
 import hashlib
+import importlib.util
 import json
 import os
 import random
@@ -162,8 +165,12 @@ def test_mldsa_kernels_match_plain(gpu):
     torch.cuda.synchronize()
 
 
-def test_mldsa65_gpu_path_matches_cpu_path(gpu):
-    p = mldsa.MLDSA65
+@pytest.mark.parametrize("name", ["ML-DSA-44", "ML-DSA-65", "ML-DSA-87"])
+def test_mldsa65_gpu_path_matches_cpu_path(gpu, name):
+    """Named for its first set; every set the registry serves: keygen, the
+    sign loop's signatures, lanes done and attempts, and verify, card
+    against CPU."""
+    p = mldsa.PARAMS[name]
     xi, mu, rnd = _u8(110, 8, 32), _u8(111, 8, 64), _u8(112, 8, 32)
     pk, sk = mldsa.keygen(p, xi.to(gpu))
     sig, done, kappa = mldsa.sign_mu_rounds(p, sk, mu.to(gpu), rnd.to(gpu), 0,
@@ -177,6 +184,149 @@ def test_mldsa65_gpu_path_matches_cpu_path(gpu):
     bad = sig.clone()
     bad[:, -1] ^= 0xFF
     assert not mldsa.verify_mu(p, pk, mu.to(gpu), bad).any()
+
+
+def _chip_smoke():
+    """chip_smoke.py at the repository's root: its host AES-256 CTR-DRBG (the
+    NIST KAT harness's randombytes) and its .rsp reader."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  VECTOR_DIR.parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _hexes(t: torch.Tensor) -> list[str]:
+    return [bytes(r.cpu().numpy()).hex() for r in t]
+
+
+def _field(rec: dict, name: str) -> str:
+    """A vector field as this comparison reads it: the value, or its sha256."""
+    return rec[name] if name in rec else rec[name + "_sha256"]
+
+
+def _sha_or_hex(rec: dict, name: str, t: torch.Tensor) -> list[str]:
+    rows = [bytes(r.cpu().numpy()) for r in t]
+    return [r.hex() if name in rec else hashlib.sha256(r).hexdigest() for r in rows]
+
+
+def test_vector_files_first_run_on_the_card_match(gpu, monkeypatch):
+    """The seven vector files the other tests here do not hold, through
+    the module functions on "cuda", byte-exact: mlkem_512.json and
+    mlkem_1024.json (keygen, encaps, decaps, implicit rejection),
+    mldsa_44.json and mldsa_87.json (keygen, sign with the record's rnd,
+    verify), acvp_mldsa44_fixture.json (keyGen, sigGen, sigVer with its
+    testPassed false record), and the PQCgenKAT ML-KEM-512 and
+    FrodoKEM-640-SHAKE fixtures (seeds by the KAT harness's DRBG); then one
+    record of each through get_kem / get_signature on "cuda", os.urandom set
+    to its seeds."""
+    cs = _chip_smoke()
+    from quantum_resistant_p2p_tpu_torch.core import aes
+
+    def rows(values):
+        return torch.tensor([list(v) for v in values], dtype=torch.uint8, device=gpu)
+
+    def pinned(chunks):
+        queue = list(chunks)
+        monkeypatch.setattr(os, "urandom", lambda n: queue.pop(0))
+        return queue
+
+    for tag in ("512", "1024"):
+        data = json.loads((VECTOR_DIR / f"mlkem_{tag}.json").read_text())
+        p, recs = mlkem.PARAMS[data["algorithm"]], data["tests"]
+        col = {k: rows(bytes.fromhex(r[k]) for r in recs) for k in ("d", "z", "m")}
+        ek, dk = mlkem.keygen(p, col["d"], col["z"])
+        key, ct = mlkem.encaps(p, ek, col["m"])
+        bad = ct.clone()
+        bad[:, 0] ^= 1
+        for name, t in (("ek", ek), ("dk", dk), ("ct", ct), ("ss", key),
+                        ("ss", mlkem.decaps(p, dk, ct)), ("ss_reject", mlkem.decaps(p, dk, bad))):
+            assert _sha_or_hex(recs[0], name, t) == [_field(r, name) for r in recs], (tag, name)
+        left = pinned(bytes.fromhex(recs[0][k]) for k in ("d", "z", "m"))
+        kem = get_kem(p.name)
+        pk, sk = kem.generate_keypair()
+        c, ss = kem.encapsulate(pk)
+        assert not left and kem.decapsulate(sk, c) == ss
+        assert [hashlib.sha256(x).hexdigest() for x in (pk, sk, c)] + [ss.hex()] == \
+            [recs[0][k] for k in ("ek_sha256", "dk_sha256", "ct_sha256", "ss")]
+        monkeypatch.undo()
+
+    for tag in ("44", "87"):
+        data = json.loads((VECTOR_DIR / f"mldsa_{tag}.json").read_text())
+        p, recs = mldsa.PARAMS[data["algorithm"]], data["tests"]
+        pk, sk = mldsa.keygen(p, rows(bytes.fromhex(r["xi"]) for r in recs))
+        mu = rows(hashlib.shake_256(bytes(sk[i, 64:128].cpu().numpy()) + b"\0\0"
+                                    + bytes.fromhex(r["msg"])).digest(64)
+                  for i, r in enumerate(recs))
+        sig, done = mldsa.sign_mu(p, sk, mu, rows(bytes.fromhex(r["rnd"]) for r in recs))
+        assert done.all() and mldsa.verify_mu(p, pk, mu, sig).all()
+        for name, t in (("pk", pk), ("sk", sk), ("sig", sig)):
+            assert _sha_or_hex(recs[0], name, t) == [_field(r, name) for r in recs], (tag, name)
+        left = pinned((bytes.fromhex(recs[0]["xi"]), bytes.fromhex(recs[0]["rnd"])))
+        dsa = get_signature(p.name)
+        ppk, psk = dsa.generate_keypair()
+        psig = dsa.sign(psk, bytes.fromhex(recs[0]["msg"]))
+        assert not left and dsa.verify(ppk, bytes.fromhex(recs[0]["msg"]), psig)
+        assert [hashlib.sha256(x).hexdigest() for x in (ppk, psk, psig)] == \
+            [recs[0][k] for k in ("pk_sha256", "sk_sha256", "sig_sha256")]
+        monkeypatch.undo()
+
+    data = json.loads((VECTOR_DIR / "acvp_mldsa44_fixture.json").read_text())
+    p = mldsa.PARAMS[data["algorithm"]]
+    keygen, siggen, sigver = (g["tests"] for g in data["testGroups"])
+
+    def mus(tests, trs):
+        return rows(hashlib.shake_256(tr + bytes.fromhex(t["message"])).digest(64)
+                    for tr, t in zip(trs, tests))
+
+    pk, sk = mldsa.keygen(p, rows(bytes.fromhex(t["seed"]) for t in keygen))
+    assert (_hexes(pk), _hexes(sk)) == ([t["pk"] for t in keygen], [t["sk"] for t in keygen])
+    sks = rows(bytes.fromhex(t["sk"]) for t in siggen)
+    sig, done = mldsa.sign_mu(p, sks, mus(siggen, [bytes(r[64:128].cpu().numpy()) for r in sks]),
+                              rows(bytes.fromhex(t["rnd"]) for t in siggen))
+    assert done.all() and _hexes(sig) == [t["signature"] for t in siggen]
+    pks = rows(bytes.fromhex(t["pk"]) for t in sigver)
+    trs = [hashlib.shake_256(bytes(r.cpu().numpy())).digest(64) for r in pks]
+    ok = mldsa.verify_mu(p, pks, mus(sigver, trs), rows(bytes.fromhex(t["signature"])
+                                                          for t in sigver))
+    assert ok.tolist() == [t["testPassed"] in (True, "True", "true") for t in sigver]
+    assert not ok.all()
+    pinned([bytes.fromhex(keygen[0]["seed"])])
+    assert [x.hex() for x in get_signature(p.name).generate_keypair()] == \
+        [keygen[0]["pk"], keygen[0]["sk"]]
+    monkeypatch.undo()
+
+    for fname, kp in (("PQCgenKAT_mlkem512_fixture.rsp", mlkem.PARAMS["ML-KEM-512"]),
+                      ("PQCgenKAT_frodo640shake_fixture.rsp", frodo.PARAMS["FrodoKEM-640-SHAKE"])):
+        recs = cs.rsp_stanzas((VECTOR_DIR / fname).read_text())
+        draws = []
+        for rec in recs:
+            drbg = cs.KatDrbg(aes.SBOX, bytes.fromhex(rec["seed"]))
+            if kp.name.startswith("ML-KEM"):
+                draws.append([drbg.random_bytes(32) for _ in range(3)])
+            else:
+                n = kp.len_sec
+                first = drbg.random_bytes(2 * n + 16)
+                draws.append([first[:n], first[n:2 * n], first[2 * n:], drbg.random_bytes(n)])
+        col = [rows(d[j] for d in draws) for j in range(len(draws[0]))]
+        if kp.name.startswith("ML-KEM"):
+            pk, sk = mlkem.keygen(kp, col[0], col[1])
+            ss, ct = mlkem.encaps(kp, pk, col[2])
+            ss2 = mlkem.decaps(kp, sk, ct)
+        else:
+            pk, sk = frodo.keygen(kp, col[0], col[1], col[2])
+            ct, ss = frodo.encaps(kp, pk, col[3])
+            ss2 = frodo.decaps(kp, sk, ct)
+        for name, t in (("pk", pk), ("sk", sk), ("ct", ct), ("ss", ss), ("ss", ss2)):
+            assert _hexes(t) == [r[name].lower() for r in recs], (fname, name)
+        left = pinned(draws[0])
+        kem = get_kem(kp.name)
+        ppk, psk = kem.generate_keypair()
+        pct, pss = kem.encapsulate(ppk)
+        assert not left and kem.decapsulate(psk, pct) == pss
+        assert [x.hex() for x in (ppk, psk, pct, pss)] == \
+            [recs[0][k].lower() for k in ("pk", "sk", "ct", "ss")]
+        monkeypatch.undo()
 
 
 def test_mldsa65_config4_cold_sign_and_verify_at_8192(gpu):
